@@ -1,10 +1,10 @@
-.PHONY: install lint type-check format format-check test coverage bench run
+.PHONY: install lint type-check format format-check test test-torch coverage bench run
 
 install:
 	pip install -e .
 
 lint:
-	flake8 pararealml_tpu tests
+	flake8 pararealml_tpu pararealml_tpu_torch tests chip_smoke.py
 
 type-check:
 	mypy pararealml_tpu
@@ -19,6 +19,11 @@ format-check:
 
 test:
 	python -m pytest -v tests/
+
+# the PyTorch port's CPU tests (held against the JAX package); on a GPU
+# machine, `python3 chip_smoke.py` drives the port's kernels
+test-torch:
+	python -m pytest -q tests/test_torch_*.py
 
 # the CI-viable subset: skips tests marked slow, parallelized over all
 # cores (the full suite takes ~20 minutes on 8 workers)
