@@ -1,15 +1,17 @@
-"""Smoke run of the PyTorch port's main path on one NVIDIA GPU.
+"""Smoke run of the PyTorch port's main paths on one NVIDIA GPU.
 
-Drives ``pararealml_tpu_torch`` — never JAX — through the diffusion_2d
-Parareal flagship at its full size (21 x 21 grid, Dirichlet 1.5 on the x
+Drives ``pararealml_tpu_torch`` — never JAX — through its two ported
+paths at full size, each through the entry points a user calls.
+
+The diffusion_2d Parareal flagship (21 x 21 grid, Dirichlet 1.5 on the x
 faces, zero-flux y faces, a Gaussian of amplitude 1000, RK4 with fine
 d_t 1e-3 to T = 40, tolerance 2.5e-3):
 
 1. builds the hand-written CUDA kernels from ``pararealml_tpu_torch/csrc``
-   and holds each (K1 trajectory, K2 end, K3 step) against its plain
-   PyTorch version on the same CUDA tensors, on three problems, and on
-   the flagship at the shapes and step counts the main path gives K1
-   and K2;
+   (one nvcc per source, all at once) and holds each of the flagship's
+   (K1 trajectory, K2 end, K3 step) against its plain PyTorch version on
+   the same CUDA tensors, on three problems, and on the flagship at the
+   shapes and step counts the main path gives K1 and K2;
 2. runs the main path with every launch counter at 0: the sequential
    fine solve through ``FDMOperator.solve``, then Parareal with 8 slices
    (coarse d_t 1e-2), 100 slices (coarse d_t 5e-2) and 8 slices with the
@@ -23,15 +25,42 @@ d_t 1e-3 to T = 40, tolerance 2.5e-3):
    busy time (the union of its kernel and copy intervals) and idle share
    (1 - busy / the CUDA-event time of phase 3).
 
+The 2D Burgers Parareal with a quadratic ML coarse operator (bench.py's
+``bench_nonlinear_sml``: Re = 100 on a 21 x 21 grid with zero-flux faces,
+RK4 with fine d_t 2.5e-3 to T = 200, i.e. 80,000 fine steps; 100 slices
+of the committed rank-32 model ``bench_assets/sml_quad_burgers_2d.msgpack``,
+tolerance 2.5e-3), on the card by default (no ``device`` argument):
+
+5. holds K5 (trajectory, end, step) and K4 (ends, trajectory) against
+   their plain versions on the bench problem and a mixed-BC one at 200
+   steps, and at the main path's shapes: K4 at 100 slices x 800 steps and
+   the K5 trajectory at 2,000 steps;
+6. runs the path with every counter at 0: the fine solve (80,000 steps,
+   K5), the robust Parareal (<= 12 iterations) and the one-shot Parareal
+   (1 iteration), each iteration's fine ends on K4 and the final
+   expansion on K4, and the example's own training recipe at its own size
+   (``examples/burgers_2d_quadratic_ml_parareal.py``: T = 40, 20 slices,
+   10 perturbed runs through the batched K5 trajectory, a rank-24 fit);
+   it checks the launch counts, that the fine trajectory's first 2,000
+   steps are phase 5's K5 output, the robust run's max diff vs fine
+   against 2 x the tolerance (bench.py's gate) and the fit's finite MSE;
+7. times the fine solve (median of 3), both Parareal runs and every
+   kernel beside its plain version (median of 5, of 3 for plain versions
+   at the main path's shapes);
+8. profiles the fine solve and both Parareal runs as in phase 4.
+
 Run it from the repository root with no arguments: ``python3
 chip_smoke.py``. It needs one CUDA card and ``nvcc`` and exits non-zero,
 printing no result, without them. The line before last is the card's
 name and power limit as nvidia-smi gives them; before it, one JSON line
-lists the path's kernels; the last line is ``{"ok": true, "device":
-...}``.
+lists every ported kernel with its launches on the main paths, its
+largest deviation from its plain version, its time, its plain version's
+time and its bound (the least time the card could take for its work at
+the timed shapes); the last line is ``{"ok": true, "device": ...}``.
 """
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -39,13 +68,14 @@ import time
 
 import numpy as np
 
+
 T_END = 40.0
 FINE_D_T = 1e-3
 TOLERANCE = 2.5e-3
 KERNEL_REL_TOL = 1e-5
 SOURCE = "pararealml_tpu_torch/csrc/fused_diffusion.cu"
 JAX_KERNELS = "pararealml_tpu/ops/fused_diffusion.py"
-# the main path's kernels: (name, the Pallas kernel it replaces in the
+# the flagship's kernels: (name, the Pallas kernel it replaces in the
 # JAX package)
 KERNELS = (
     ("fused_diffusion_rk4_trajectory", f"{JAX_KERNELS}:363"),
@@ -53,6 +83,105 @@ KERNELS = (
 )
 # ported and checked here, but not on the main path (in neither package)
 STEP_KERNEL = "fused_diffusion_rk4_step"
+
+# the Burgers path (bench.py:513-545, :594-656)
+BURGERS_T_END = 200.0
+BURGERS_FINE_D_T = 2.5e-3
+BURGERS_SLICES = 100
+BURGERS_MAX_ITERATIONS = 12
+BURGERS_TOLERANCE = 2.5e-3
+BURGERS_RANK = 32
+BURGERS_ASSET = os.path.join(
+    os.path.dirname(os.path.abspath(__file__)),
+    "bench_assets",
+    "sml_quad_burgers_2d.msgpack",
+)
+# the example's training recipe
+# (examples/burgers_2d_quadratic_ml_parareal.py:39-58)
+EXAMPLE_T_END = 40.0
+EXAMPLE_SLICES = 20
+EXAMPLE_RUNS = 10
+EXAMPLE_RANK = 24
+# the K5 trajectory checked against its plain version at the start of
+# the fine solve
+K5_HEAD_STEPS = 2000
+SYSTEM_SOURCE = "pararealml_tpu_torch/csrc/fused_system.cu"
+# (name, module, Pallas kernel it replaces, on the Burgers main path)
+SYSTEM_KERNELS = (
+    (
+        "packed_system_rk4_ends",
+        "packed_system",
+        "pararealml_tpu/ops/packed_system.py:493",
+        True,
+    ),
+    (
+        "packed_system_rk4_trajectory",
+        "packed_system",
+        "pararealml_tpu/ops/packed_system.py:559",
+        True,
+    ),
+    (
+        "fused_system_rk4_trajectory",
+        "fused_system",
+        "pararealml_tpu/ops/fused_system.py:822",
+        True,
+    ),
+    (
+        "fused_system_rk4_end",
+        "fused_system",
+        "pararealml_tpu/ops/fused_system.py:964",
+        False,
+    ),
+    (
+        "fused_system_rk4_step",
+        "fused_system",
+        "pararealml_tpu/ops/fused_system.py:1098",
+        False,
+    ),
+)
+
+# the card's published peaks (NVIDIA H100 SXM data sheet, at the 700 W
+# power limit): HBM bytes per second and float32 operations per second
+# outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_FLOPS = 67e12
+# float32 operations one RK4 step does per grid cell, counted from the
+# kernels' arithmetic: diffusion (K1-K3) evaluates a 10-operation
+# right-hand side and 5 stage updates per stage; Burgers (K4, K5) an
+# 18-operation right-hand side and 4 stage updates per component and
+# stage, for 2 components, and the final combination
+FLOPS_PER_CELL_STEP = {"diffusion": 62, "burgers": 180}
+
+
+def bound(bytes_moved: float, flops: float):
+    """(bound_ms, bound_by): the least time the card could take for the
+    work, the larger of its bytes over the memory rate and its
+    operations over the float32 rate."""
+    bytes_ms = 1e3 * bytes_moved / PEAK_BYTES_PER_S
+    flops_ms = 1e3 * flops / PEAK_FP32_FLOPS
+    if bytes_ms >= flops_ms:
+        return bytes_ms, "bytes"
+    return flops_ms, "operations"
+
+
+def stencil_bound(
+    family: str,
+    batch: int,
+    n_steps: int,
+    cells: int,
+    components: int,
+    trajectory: bool,
+):
+    """The bound of an RK4 stencil kernel: it reads each state and its
+    constraint grids once (a float value and a byte mask a cell and
+    component) and writes every step or the end state."""
+    values = cells * components
+    read = 4 * batch * values + 5 * values
+    written = 4 * batch * values * (n_steps if trajectory else 1)
+    return bound(
+        read + written,
+        FLOPS_PER_CELL_STEP[family] * batch * n_steps * cells,
+    )
 
 
 def log(*args):
@@ -204,6 +333,336 @@ def device_busy_ms(torch, fn, reps=3):
     return busy_us / reps / 1e3, top
 
 
+def burgers(prml, t_end=None, mixed=False):
+    """The 2D Burgers problem of bench.py's ``build_burgers_problem`` (to
+    ``BURGERS_T_END`` unless ``t_end`` is given); with ``mixed``,
+    Dirichlet faces of value 0.5 on axis 0 and the component fluxes
+    (0.3, -0.2) on axis 1 instead of zero flux."""
+    if t_end is None:
+        t_end = BURGERS_T_END
+    if mixed:
+        bcs = [
+            (
+                prml.DirichletBoundaryCondition(
+                    lambda x, t: np.full((len(x), 2), 0.5), is_static=True
+                ),
+            )
+            * 2,
+            (
+                prml.NeumannBoundaryCondition(
+                    lambda x, t: np.tile([0.3, -0.2], (len(x), 1)),
+                    is_static=True,
+                ),
+            )
+            * 2,
+        ]
+    else:
+        bcs = [
+            (
+                prml.NeumannBoundaryCondition(
+                    lambda x, t: np.zeros((len(x), 2)), is_static=True
+                ),
+            )
+            * 2
+        ] * 2
+    cp = prml.ConstrainedProblem(
+        prml.BurgersEquation(2, 100.0),
+        prml.Mesh([(0.0, 5.0)] * 2, [0.25] * 2),
+        bcs,
+    )
+    ic = prml.GaussianInitialCondition(
+        cp, [(np.full(2, 2.5), 0.75 * np.eye(2))] * 2, [1.0, 0.5]
+    )
+    return prml.InitialValueProblem(cp, (0.0, t_end), ic)
+
+
+def burgers_phases(torch, prml, device, card, cuda_ms, device_busy_ms):
+    """Phases 5-8: the Burgers path. Returns the kernels' entries of the
+    JSON line. ``cuda_ms`` and ``device_busy_ms`` are the timing and
+    profiling functions."""
+    from pararealml_tpu_torch.operators.fdm import (
+        RK4,
+        FDMOperator,
+        ThreePointCentralDifferenceMethod,
+    )
+    from pararealml_tpu_torch.operators.ml.supervised import (
+        ReducedQuadraticStateOperatorRegressor,
+        SupervisedMLOperator,
+    )
+    from pararealml_tpu_torch.operators.parareal import PararealOperator
+    from pararealml_tpu_torch.ops import fused_system as fs
+    from pararealml_tpu_torch.ops import packed_system as ps
+    from pararealml_tpu_torch.utils import SEEDS, set_random_seed
+
+    modules = {"fused_system": fs, "packed_system": ps}
+    wrappers = {
+        name: getattr(modules[module], name)
+        for name, module, _, _ in SYSTEM_KERNELS
+    }
+    plain = {
+        name: getattr(modules[module], f"{name}_reference")
+        for name, module, _, _ in SYSTEM_KERNELS
+    }
+    errors = {name: 0.0 for name in wrappers}
+    fine_steps = round(BURGERS_T_END / BURGERS_FINE_D_T)
+    slice_steps = fine_steps // BURGERS_SLICES
+
+    # -- phase 5: K4 and K5 against their plain versions -----------------
+    ivp = burgers(prml)
+    cp = ivp.constrained_problem
+    y_0 = torch.as_tensor(
+        ivp.initial_condition.discrete_y_0(True),
+        dtype=torch.float32,
+        device=device,
+    )
+    k5_head = None
+    mixed = burgers(prml, 1.0, True)
+    for label, problem in (("bench", ivp), ("mixed", mixed)):
+        cfg = fs._SystemKernelConfig(
+            problem.constrained_problem, BURGERS_FINE_D_T
+        )
+        y = torch.as_tensor(
+            problem.initial_condition.discrete_y_0(True),
+            dtype=torch.float32,
+            device=device,
+        )
+        batch = torch.stack(
+            [y * (0.5 + 0.125 * i) + 0.05 * i for i in range(8)]
+        ).contiguous()
+        checks = [
+            ("fused_system_rk4_trajectory", y, "200 steps", 200),
+            ("fused_system_rk4_end", y, "single, 200 steps", 200),
+            ("fused_system_rk4_end", batch, "B=8, 200 steps", 200),
+            ("fused_system_rk4_step", batch, "B=8", None),
+            ("packed_system_rk4_ends", batch, "B=8, 200 steps", 200),
+            ("packed_system_rk4_trajectory", batch, "B=8, 200 steps", 200),
+        ]
+        if label == "bench":
+            # the main path's own shapes: one iteration's fine ends and
+            # the final expansion of 100 slices x 800 steps, and the
+            # first 2,000 steps of the fine solve
+            slices = torch.stack(
+                [y * (0.9 + 0.002 * i) for i in range(BURGERS_SLICES)]
+            ).contiguous()
+            checks += [
+                ("packed_system_rk4_ends", slices,
+                 f"B={BURGERS_SLICES}, {slice_steps} steps", slice_steps),
+                ("packed_system_rk4_trajectory", slices,
+                 f"B={BURGERS_SLICES}, {slice_steps} steps", slice_steps),
+                ("fused_system_rk4_trajectory", y,
+                 f"{K5_HEAD_STEPS} steps", K5_HEAD_STEPS),
+            ]
+        for name, state, what, n_steps in checks:
+            args = (state, cfg) if n_steps is None else (state, cfg, n_steps)
+            kernel = wrappers[name](*args)
+            reference = plain[name](*args)
+            torch.cuda.synchronize()
+            assert kernel.shape == reference.shape, (name, what)
+            abs_err = float((kernel - reference).abs().max())
+            rel_err = abs_err / float(reference.abs().max())
+            errors[name] = max(errors[name], abs_err)
+            log(
+                f"kernels: burgers {label:5s} {name} ({what}): "
+                f"max|d|/max|y| = {rel_err:.3e}"
+            )
+            if not rel_err <= KERNEL_REL_TOL:
+                raise AssertionError(
+                    f"{name} disagrees with its plain version on {label}"
+                )
+            if label == "bench" and what == f"{K5_HEAD_STEPS} steps":
+                k5_head = kernel.double().cpu().numpy()
+    log("phase burgers kernels: ok")
+
+    # -- phase 6: the main path, counted ---------------------------------
+    # no device argument anywhere: the entry points run on the card
+    fine = FDMOperator(
+        RK4(), ThreePointCentralDifferenceMethod(), BURGERS_FINE_D_T
+    )
+    model = ReducedQuadraticStateOperatorRegressor(882, rank=BURGERS_RANK)
+    model.load(BURGERS_ASSET)
+    coarse = SupervisedMLOperator(BURGERS_T_END / BURGERS_SLICES, True)
+    coarse.model = model
+    parareals = {
+        label: PararealOperator(
+            fine,
+            coarse,
+            BURGERS_TOLERANCE,
+            num_time_slices=BURGERS_SLICES,
+            max_iterations=max_iterations,
+        )
+        for label, max_iterations in (
+            ("robust", BURGERS_MAX_ITERATIONS),
+            ("one_shot", 1),
+        )
+    }
+    example_ivp = burgers(prml, EXAMPLE_T_END)
+    example_coarse = SupervisedMLOperator(EXAMPLE_T_END / EXAMPLE_SLICES, True)
+
+    for wrapper in wrappers.values():
+        wrapper.launches = 0
+    fine_ys = fine.solve(ivp).discrete_y()
+    fine_launches = {name: w.launches for name, w in wrappers.items()}
+    solutions, iterations = {}, {}
+    for label, parareal in parareals.items():
+        solutions[label] = parareal.solve(ivp).discrete_y()
+        iterations[label] = parareal.last_iterations
+    set_random_seed(SEEDS[0])
+    data = example_coarse.generate_data(
+        example_ivp,
+        fine,
+        EXAMPLE_RUNS,
+        lambda t, y: y * np.random.uniform(0.9, 1.1, size=y.shape),
+    )
+    example_model = ReducedQuadraticStateOperatorRegressor(
+        882, rank=EXAMPLE_RANK
+    )
+    train_mse, test_mse = example_coarse.fit_model(example_model, data)
+    launches = {name: w.launches for name, w in wrappers.items()}
+
+    log(
+        f"burgers main-path launches: {launches} (fine solve alone: "
+        f"{fine_launches}); iterations {iterations}"
+    )
+    assert fine.device.type == coarse.device.type == "cuda"
+    assert fine_launches["fused_system_rk4_trajectory"] >= 1
+    assert launches["packed_system_rk4_ends"] == sum(iterations.values())
+    assert launches["packed_system_rk4_trajectory"] == len(parareals)
+    # the example's data generation: one batched launch per coarse step
+    assert (
+        launches["fused_system_rk4_trajectory"]
+        == fine_launches["fused_system_rk4_trajectory"] + EXAMPLE_SLICES
+    )
+    for name, _, _, on_path in SYSTEM_KERNELS:
+        if on_path and launches[name] < 1:
+            raise AssertionError(f"{name} was not launched on the main path")
+    assert fine_ys.shape == (fine_steps, 21, 21, 2), fine_ys.shape
+    assert np.isfinite(fine_ys).all()
+    assert np.array_equal(fine_ys[: len(k5_head)], k5_head)
+    log(
+        f"phase burgers fine: trajectory {fine_ys.shape}, finite, first "
+        f"{len(k5_head)} steps equal to phase 5's K5 output"
+    )
+    diffs = {}
+    for label, ys in solutions.items():
+        assert ys.shape == fine_ys.shape and np.isfinite(ys).all(), label
+        diffs[label] = float(np.abs(ys - fine_ys).max())
+    log(
+        f"phase burgers parareal: robust {iterations['robust']} iterations, "
+        f"max diff vs fine {diffs['robust']:.3e} (gate "
+        f"{2 * BURGERS_TOLERANCE:g}); one-shot max diff vs fine "
+        f"{diffs['one_shot']:.3e}"
+    )
+    assert diffs["robust"] <= 2 * BURGERS_TOLERANCE, diffs
+    log(
+        f"phase burgers example fit: inputs {data[0].shape}, rank "
+        f"{EXAMPLE_RANK}, MSE train {train_mse!r} test {test_mse!r}"
+    )
+    assert np.isfinite(train_mse) and np.isfinite(test_mse)
+    del fine_ys, solutions, data
+
+    # -- phase 7: times --------------------------------------------------
+    fine_fn, _ = fine.trajectory_function(cp, (0.0, BURGERS_T_END))
+    runs = {"burgers fine": lambda: fine_fn(y_0)}
+    run_ms = {"burgers fine": cuda_ms(torch, runs["burgers fine"], reps=3)}
+    fine_bound_ms, fine_bound_by = stencil_bound(
+        "burgers", 1, fine_steps, 21 * 21, 2, True
+    )
+    log(
+        f"time: burgers fine solve, K5 trajectory, {fine_steps} steps: "
+        f"{run_ms['burgers fine']:.3f} ms, bound {fine_bound_ms * 1e3:.3f} "
+        f"us ({fine_bound_by}) [{card}]"
+    )
+    for label, parareal in parareals.items():
+        program, _ = parareal.trajectory_function(cp, (0.0, BURGERS_T_END))
+        key = f"burgers parareal {label}"
+        runs[key] = lambda program=program: program(y_0)
+        run_ms[key] = cuda_ms(torch, runs[key])
+        log(
+            f"time: {key}: {run_ms[key]:.3f} ms, speedup vs K5 fine "
+            f"{run_ms['burgers fine'] / run_ms[key]:.3f}x, "
+            f"{parareal.last_iterations} iterations [{card}]"
+        )
+
+    cfg = fs._SystemKernelConfig(cp, BURGERS_FINE_D_T)
+    cells = cfg.height * cfg.width
+    y_grid = y_0.contiguous()
+    slices = torch.stack(
+        [y_grid * (0.9 + 0.002 * i) for i in range(BURGERS_SLICES)]
+    ).contiguous()
+    n = BURGERS_SLICES
+    timings = {
+        "packed_system_rk4_ends": (
+            f"B={n}, {slice_steps} steps (one iteration's fine ends)",
+            (slices, cfg, slice_steps),
+            stencil_bound("burgers", n, slice_steps, cells, 2, False),
+        ),
+        "packed_system_rk4_trajectory": (
+            f"B={n}, {slice_steps} steps (the final expansion)",
+            (slices, cfg, slice_steps),
+            stencil_bound("burgers", n, slice_steps, cells, 2, True),
+        ),
+        "fused_system_rk4_trajectory": (
+            f"21x21x2, {K5_HEAD_STEPS} steps",
+            (y_grid, cfg, K5_HEAD_STEPS),
+            stencil_bound("burgers", 1, K5_HEAD_STEPS, cells, 2, True),
+        ),
+        "fused_system_rk4_end": (
+            f"21x21x2, {slice_steps} steps",
+            (y_grid, cfg, slice_steps),
+            stencil_bound("burgers", 1, slice_steps, cells, 2, False),
+        ),
+        "fused_system_rk4_step": (
+            "21x21x2, 1 step",
+            (y_grid, cfg),
+            stencil_bound("burgers", 1, 1, cells, 2, True),
+        ),
+    }
+    entries = []
+    for name, module, replaces, on_path in SYSTEM_KERNELS:
+        what, args, (bound_ms, bound_by) = timings[name]
+        kernel_ms = cuda_ms(torch, lambda: wrappers[name](*args))
+        heavy = len(args) == 3 and args[2] >= slice_steps
+        plain_ms = cuda_ms(
+            torch, lambda: plain[name](*args), reps=3 if heavy else 5
+        )
+        log(
+            f"time: {name} ({what}): kernel {kernel_ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {bound_ms * 1e3:.3f} us "
+            f"({bound_by}) [{card}]"
+        )
+        entries.append(
+            {
+                "name": name,
+                "route": "cuda",
+                "source": SYSTEM_SOURCE,
+                "replaces": replaces,
+                "on_path": on_path,
+                "launches": launches[name],
+                "max_abs_err": errors[name],
+                "ms": kernel_ms,
+                "plain_ms": plain_ms,
+                "bound_ms": bound_ms,
+                "bound_us": bound_ms * 1e3,
+                "bound_by": bound_by,
+                "library_ms": None,
+                "timed": what,
+            }
+        )
+
+    # -- phase 8: device busy time and idle share (torch.profiler) -------
+    for label, run in runs.items():
+        busy_ms, top = device_busy_ms(torch, run)
+        if busy_ms is None:
+            log(f"profile: {label}: not measured (no device events)")
+            continue
+        log(
+            f"profile: {label}: device busy {busy_ms:.3f} ms of "
+            f"{run_ms[label]:.3f} ms, idle share "
+            f"{1.0 - busy_ms / run_ms[label]:.3f}; top: {top} [{card}]"
+        )
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -236,17 +695,22 @@ def main() -> int:
         f"capability {torch.cuda.get_device_capability(device)}"
     )
 
+    from pararealml_tpu_torch.ops import fused_system
+
     start = time.perf_counter()
+    # one nvcc per source, all started together
+    cuda_library.build_libraries(["fused_diffusion", "fused_system"])
     fd.load_kernels()
+    fused_system.load_kernels()
     log(
-        f"kernel library ready in {time.perf_counter() - start:.2f} s "
-        f"(nvcc: {cuda_library.build_seconds.get('fused_diffusion', 0.0):.2f}"
-        " s)"
+        f"kernel libraries ready in {time.perf_counter() - start:.2f} s "
+        f"(nvcc, in parallel: {cuda_library.build_seconds})"
     )
-    build_log = cuda_library.build_logs.get("fused_diffusion", "")
-    for line in build_log.splitlines():
-        if "registers" in line:
-            log(f"  ptxas: {line.strip()}")
+    for source in ("fused_diffusion", "fused_system"):
+        build_log = cuda_library.build_logs.get(source, "")
+        for line in build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {source}: {line.strip()}")
 
     names = [name for name, _ in KERNELS] + [STEP_KERNEL]
     wrappers = {name: getattr(fd, name) for name in names}
@@ -384,7 +848,13 @@ def main() -> int:
     runs = {"fine": lambda: fine_fn(y_0)}
     fine_ms = cuda_ms(torch, runs["fine"])
     run_ms = {"fine": fine_ms}
-    log(f"time: fine solve, K1 kernel, 40000 steps: {fine_ms:.3f} ms [{card}]")
+    fine_bound_ms, fine_bound_by = stencil_bound(
+        "diffusion", 1, round(T_END / FINE_D_T), 21 * 21, 1, True
+    )
+    log(
+        f"time: fine solve, K1 kernel, 40000 steps: {fine_ms:.3f} ms, bound "
+        f"{fine_bound_ms * 1e3:.3f} us ({fine_bound_by}) [{card}]"
+    )
 
     cfg = fd._KernelConfig(cp, FINE_D_T)
     y_grid = y_0[..., 0].contiguous()
@@ -446,24 +916,44 @@ def main() -> int:
             f"{1.0 - busy_ms / run_ms[label]:.3f}; top: {top} [{card}]"
         )
 
-    kernels = [
-        {
-            "name": name,
-            "route": "cuda",
-            "source": SOURCE,
-            "replaces": replaces,
-            "launches": launches[name],
-            "max_abs_err": errors[name],
-            "ms": kernel_ms[name][0],
-            "plain_ms": kernel_ms[name][1],
-        }
-        for name, replaces in KERNELS
-    ]
-    log(
-        f"{STEP_KERNEL} (K3, replaces {JAX_KERNELS}:671, not on the main "
-        f"path): launches {launches[STEP_KERNEL]}, max_abs_err "
-        f"{errors[STEP_KERNEL]!r}, ms {kernel_ms[STEP_KERNEL][0]!r}, "
-        f"plain_ms {kernel_ms[STEP_KERNEL][1]!r}"
+    cells = cfg.height * cfg.width
+    flagship_bounds = {
+        "fused_diffusion_rk4_trajectory": stencil_bound(
+            "diffusion", 1, 2000, cells, 1, True
+        ),
+        "fused_diffusion_rk4_end": stencil_bound(
+            "diffusion", 1, 500, cells, 1, False
+        ),
+        STEP_KERNEL: stencil_bound("diffusion", 1, 1, cells, 1, True),
+    }
+    kernels = []
+    for name, replaces in KERNELS + ((STEP_KERNEL, f"{JAX_KERNELS}:671"),):
+        bound_ms, bound_by = flagship_bounds[name]
+        kernels.append(
+            {
+                "name": name,
+                "route": "cuda",
+                "source": SOURCE,
+                "replaces": replaces,
+                "on_path": name != STEP_KERNEL,
+                "launches": launches[name],
+                "max_abs_err": errors[name],
+                "ms": kernel_ms[name][0],
+                "plain_ms": kernel_ms[name][1],
+                "bound_ms": bound_ms,
+                "bound_us": bound_ms * 1e3,
+                "bound_by": bound_by,
+                "library_ms": None,
+                "timed": timings[name][0],
+            }
+        )
+        log(
+            f"bound: {name} ({timings[name][0]}): {bound_ms * 1e3:.3f} us "
+            f"({bound_by}) [{card}]"
+        )
+
+    kernels += burgers_phases(
+        torch, prml, device, card, cuda_ms, device_busy_ms
     )
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -4,12 +4,16 @@ The second package of this repository, beside the JAX one it is held
 against: the same public names and module paths, on PyTorch tensors, with
 hand-written CUDA kernels for an NVIDIA H100 (Hopper, ``sm_90a``) where
 the JAX package has Pallas TPU kernels. It imports torch, numpy, scipy
-and sympy, and nothing of JAX.
+and sympy, and nothing of JAX, flax, scikit-learn or msgpack. Its
+operators run on the CUDA card unless given another ``device``.
 
-Ported so far (ROADMAP.md, Queue 1, slice 1): the problem-definition
+Ported so far (ROADMAP.md, "Done"): slice 1, the problem-definition
 layer, the FDM operator for Cartesian meshes with static boundary
-conditions, and classic single-device Parareal. Plots are not ported yet
-(slice 8), so this root does not export them.
+conditions, and classic single-device Parareal; slice 2, the supervised
+ML operator with the closed-form state-operator regressors
+(``operators.ml.supervised``), flax-format checkpoints and seeding
+(``utils``), and the Burgers kernels. Plots are not ported yet (slice
+8), so this root does not export them.
 """
 
 from pararealml_tpu_torch.boundary_condition import (

@@ -28,8 +28,12 @@ class Operator:
     interval with a fixed output step size.
 
     ``dtype`` and ``device`` select where :meth:`solve` places the
-    initial state (``None`` means torch's defaults); functions that take
-    a state tensor follow the state's device.
+    initial state. ``device=None`` means the CUDA card: the port's entry
+    points run on the card unless the caller asks for another device
+    (the CPU tests pass ``device="cpu"``), and on a host without one a
+    solve fails when it first touches CUDA. ``dtype=None`` means torch's
+    default dtype. Functions that take a state tensor follow the state's
+    device.
     """
 
     def __init__(
@@ -59,9 +63,10 @@ class Operator:
 
     @property
     def device(self) -> torch.device:
-        """The device :meth:`solve` places the initial state on."""
+        """The device :meth:`solve` places the initial state on (the
+        CUDA card unless one was given)."""
         if self._device is None:
-            return torch.get_default_device()
+            return torch.device("cuda")
         return torch.device(self._device)
 
     @property

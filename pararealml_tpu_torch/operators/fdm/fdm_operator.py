@@ -7,11 +7,12 @@ chosen when it is built:
 
 - for parallel-in-time callers on linear problems, the exact affine
   propagator (:mod:`pararealml_tpu_torch.ops.linear_propagator`);
-- where the fused kernels apply (2D Cartesian diffusion or
-  convection-diffusion under RK4, float32 states, grids that fit one
-  CTA's shared memory), the hand-written CUDA kernels of
-  :mod:`pararealml_tpu_torch.ops.fused_diffusion` (their plain PyTorch
-  versions for CPU tensors);
+- where the fused kernels apply (2D Cartesian diffusion,
+  convection-diffusion or Burgers under RK4, float32 states, grids that
+  fit one CTA's shared memory), the hand-written CUDA kernels of
+  :mod:`pararealml_tpu_torch.ops.fused_diffusion` (K1-K3) and
+  :mod:`pararealml_tpu_torch.ops.fused_system` (K5), or their plain
+  PyTorch versions for CPU tensors;
 - otherwise a Python loop over the generic step, which evaluates the
   symbolic right-hand side with stencils on tensors.
 
@@ -90,10 +91,10 @@ class FDMOperator(TorchOperator):
         :param differentiator: the spatial differentiator to use
         :param d_t: the temporal step size
         :param fused_kernels: whether to use the hand-written CUDA
-            kernels for the problem class they cover (2D Cartesian
-            diffusion and convection-diffusion under RK4 with static
-            boundary conditions, float32 states, grids that fit one
-            CTA's shared memory); the generic path is used otherwise
+            kernels for the problem classes they cover (2D Cartesian
+            diffusion, convection-diffusion and Burgers under RK4 with
+            static boundary conditions, float32 states, grids that fit
+            one CTA's shared memory); the generic path is used otherwise
         :param linear_propagator: whether parallel-in-time callers
             (``trajectory_function(..., time_parallel=True)``, i.e.
             Parareal sub-solves) may compute trajectories of *linear*
@@ -107,8 +108,8 @@ class FDMOperator(TorchOperator):
         :param spatial_mesh: not ported yet (spatial domain
             decomposition; ROADMAP.md, Queue 1, slice 7)
         :param spatial_partition: not ported yet (likewise)
-        :param device: the device :meth:`solve` runs on (torch's default
-            device when None)
+        :param device: the device :meth:`solve` runs on (the CUDA card
+            when None)
         :param dtype: the state's floating-point type (torch's default
             dtype when None); the fused kernels take float32
         """
@@ -275,17 +276,46 @@ class FDMOperator(TorchOperator):
     def _build_fused_end_fn(
         self, cp, steps: int, batch: Optional[int], dtype: torch.dtype
     ) -> Optional[Callable]:
-        """The fused end kernel (K2) for this problem, or None when it
-        does not apply."""
+        """The fused end kernel for this problem (K2 for the diffusion
+        family, the K5 end for systems), or None when none applies."""
         from pararealml_tpu_torch.ops.fused_diffusion import (
             build_fused_diffusion_rk4_end,
             fused_diffusion_step_applicable,
+        )
+        from pararealml_tpu_torch.ops.fused_system import (
+            build_fused_system_rk4_end,
+            fused_system_step_applicable,
         )
 
         if fused_diffusion_step_applicable(cp, self._integrator, dtype):
             return build_fused_diffusion_rk4_end(
                 cp, self._d_t, steps, batch=batch
             )
+        if fused_system_step_applicable(cp, self._integrator, dtype):
+            return build_fused_system_rk4_end(
+                cp, self._d_t, steps, batch=batch
+            )
+        return None
+
+    def _build_fused_trajectory_fn(
+        self, cp, steps: int, dtype: torch.dtype
+    ) -> Optional[Callable]:
+        """The fused trajectory kernel for this problem (K1 for the
+        diffusion family, the K5 trajectory for systems), or None when
+        none applies."""
+        from pararealml_tpu_torch.ops.fused_diffusion import (
+            build_fused_diffusion_rk4_trajectory,
+            fused_diffusion_step_applicable,
+        )
+        from pararealml_tpu_torch.ops.fused_system import (
+            build_fused_system_rk4_trajectory,
+            fused_system_step_applicable,
+        )
+
+        if fused_diffusion_step_applicable(cp, self._integrator, dtype):
+            return build_fused_diffusion_rk4_trajectory(cp, self._d_t, steps)
+        if fused_system_step_applicable(cp, self._integrator, dtype):
+            return build_fused_system_rk4_trajectory(cp, self._d_t, steps)
         return None
 
     # -- step construction -------------------------------------------------
@@ -301,13 +331,8 @@ class FDMOperator(TorchOperator):
     ) -> Callable:
         """Builds ``fn(y_0, t_0) -> ys`` for the whole trajectory: for
         parallel-in-time callers on linear problems, the affine
-        propagator; otherwise the fused trajectory kernel (K1) when
-        applicable, else a loop over the generic step."""
-        from pararealml_tpu_torch.ops.fused_diffusion import (
-            build_fused_diffusion_rk4_trajectory,
-            fused_diffusion_step_applicable,
-        )
-
+        propagator; otherwise the fused trajectory kernel (K1 or K5)
+        when applicable, else a loop over the generic step."""
         dtype = self.dtype if dtype is None else dtype
         device = self.device if device is None else torch.device(device)
         if time_parallel and self._linear_propagator:
@@ -326,16 +351,16 @@ class FDMOperator(TorchOperator):
                 return build_linear_propagator_trajectory(
                     cp, step_fn, steps, y_shape, dtype=dtype, device=device
                 )
-        if (
-            self._fused_kernels
-            and allow_fused
-            and fused_diffusion_step_applicable(cp, self._integrator, dtype)
-        ):
-            fused_trajectory = build_fused_diffusion_rk4_trajectory(
-                cp, self._d_t, steps
-            )
+        fused_trajectory = (
+            self._build_fused_trajectory_fn(cp, steps, dtype)
+            if self._fused_kernels and allow_fused
+            else None
+        )
+        if fused_trajectory is not None:
 
             def fused(y_init, t_start=None):
+                # the fused families are autonomous with static
+                # constraints, so the start time is irrelevant
                 return fused_trajectory(y_init)
 
             # one CTA per leading index
@@ -373,8 +398,9 @@ class FDMOperator(TorchOperator):
     ) -> Callable:
         """Builds ``step(y, i, t_i) -> y_next`` for one time step, with
         all constraint data resolved to tensors. ``y`` may carry leading
-        batch axes. With ``allow_fused``, the fused step kernel (K3) is
-        used where it applies to states of ``dtype``."""
+        batch axes. With ``allow_fused``, the fused step kernel is
+        used where it applies to states of ``dtype`` (K3 for the
+        diffusion family, the K5 step for systems)."""
         _require_static(cp)
         dtype = self.dtype if dtype is None else dtype
         if self._fused_kernels and allow_fused:
@@ -382,9 +408,17 @@ class FDMOperator(TorchOperator):
                 build_fused_diffusion_rk4_step,
                 fused_diffusion_step_applicable,
             )
+            from pararealml_tpu_torch.ops.fused_system import (
+                build_fused_system_rk4_step,
+                fused_system_step_applicable,
+            )
 
+            fused_step = None
             if fused_diffusion_step_applicable(cp, self._integrator, dtype):
                 fused_step = build_fused_diffusion_rk4_step(cp, self._d_t)
+            elif fused_system_step_applicable(cp, self._integrator, dtype):
+                fused_step = build_fused_system_rk4_step(cp, self._d_t)
+            if fused_step is not None:
 
                 def step_fused(y, i, t_i):
                     return fused_step(y)

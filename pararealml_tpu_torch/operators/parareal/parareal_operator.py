@@ -8,7 +8,9 @@ The time slices are a leading batch axis of every sub-solve, so each
 iteration's fine solves are one batched call:
 
 - on linear problems (the default), affine-propagator matmuls;
-- otherwise the batched fused end kernel, one CTA per slice;
+- otherwise the batched kernels over the slices (K4, one CTA per slice)
+  where they apply (Burgers), or the batched fused end kernel (K2, the
+  diffusion family);
 - or the generic step loop over the batch.
 
 The coarse sweeps run as a log-depth doubling scan when the coarse
@@ -17,8 +19,11 @@ fused end kernel where it applies). Early termination uses the
 reference's criterion (the maximum per-component RMS of the border
 updates against the tolerance), checked on the host after each
 iteration. After the loop, the fine trajectories are expanded once from
-the final borders (one batched fused trajectory kernel launch, or one
-batched propagator expansion) and shifted onto the corrected borders.
+the final borders (one batched kernel launch, K4 or K1, or one batched
+propagator expansion) and shifted onto the corrected borders. A coarse
+operator that is neither affine nor fused, such as a nonlinear
+supervised-ML surrogate, runs the initial sweep as one whole-domain
+roll-out and the corrective sweeps through its ``ends_function``.
 
 Not ported yet: FCF relaxation, ``materialize="iteration"``, dynamic
 boundary conditions, callable termination conditions and the host
@@ -116,7 +121,8 @@ class PararealOperator(TorchOperator):
         :param materialize: ``"final"``; ``"iteration"`` is not ported
             yet
         :param device: the device :meth:`solve` runs on (the fine
-            operator's when None)
+            operator's when None, so the CUDA card unless the fine
+            operator was given another)
         :param dtype: the state's floating-point type (the fine
             operator's when None)
         """
@@ -346,10 +352,30 @@ class PararealOperator(TorchOperator):
             fine_end = getattr(fine_fn, "end_function", None)
             coarse_end = getattr(coarse_fn, "end_function", None)
 
-            # fine ends of all slices in one batched call: the affine
-            # end map, else the batched fused end kernel (one CTA per
-            # slice; this replaces the JAX package's width-packed
-            # kernels for the diffusion family), else the generic
+            # without an affine fine map, the batched kernels over the
+            # slices (K4, ops/packed_system.py) take the fine ends of
+            # every iteration and the final expansion where they apply
+            # (the JAX package's width-packed kernels)
+            fine_expand = fine_fn
+            if fine_end is None:
+                packed = self._packed_fine_kernels(
+                    cp, n, fine_steps, dtype
+                )
+                if packed is not None:
+                    packed_ends, packed_trajectory = packed
+
+                    # autonomous with static constraints: the slices'
+                    # start times are irrelevant
+                    def fine_end(ys, t):
+                        return packed_ends(ys)
+
+                    def fine_expand(ys, t):
+                        return packed_trajectory(ys)
+
+            # otherwise the fine ends of all slices in one batched call:
+            # the affine end map, else the batched fused end kernel (one
+            # CTA per slice; for the diffusion family this replaces the
+            # JAX package's width-packed kernels), else the generic
             # carry-only loop over the batch
             if fine_end is None:
                 candidate = ends(self._f, batch=n)
@@ -406,7 +432,7 @@ class PararealOperator(TorchOperator):
                     # per-slice sweep
                     coarse_whole_fn = None
             return (
-                fine_fn,
+                fine_expand,
                 fine_end,
                 coarse_end,
                 affine_sweep,
@@ -429,7 +455,7 @@ class PararealOperator(TorchOperator):
             if key not in sub_solvers:
                 sub_solvers[key] = build(*key)
             (
-                fine_fn,
+                fine_expand,
                 fine_end,
                 coarse_end,
                 affine_sweep,
@@ -504,13 +530,38 @@ class PararealOperator(TorchOperator):
             # materialize the fine trajectories once, from the FINAL
             # borders, in one batched call; then shift each onto its
             # corrected end border (the reference's final shift)
-            sub_y_fine = fine_fn(y_borders[:-1], slice_times)
+            sub_y_fine = fine_expand(y_borders[:-1], slice_times)
             last = (slice(None), -1) + (slice(None),) * len(y_shape)
             shifts = y_borders[1:] - sub_y_fine[last]
             sub_y_fine = sub_y_fine + shifts[:, None]
             return sub_y_fine.reshape((n * fine_steps,) + tuple(y_shape))
 
         return program
+
+    def _packed_fine_kernels(self, cp, n: int, fine_steps: int, dtype):
+        """``(ends, trajectory)`` of the batched kernels over the ``n``
+        slices (K4) for the fine operator, or None when they do not apply
+        (a fine operator without fused kernels, a problem family they do
+        not cover, fewer than two slices, a dtype other than float32)."""
+        from pararealml_tpu_torch.ops.packed_system import (
+            build_packed_system_rk4_ends,
+            build_packed_system_rk4_trajectory,
+            packed_system_applicable,
+        )
+
+        integrator = getattr(self._f, "_integrator", None)
+        if not (
+            getattr(self._f, "_fused_kernels", False)
+            and integrator is not None
+            and packed_system_applicable(cp, integrator, n, dtype)
+        ):
+            return None
+        return (
+            build_packed_system_rk4_ends(cp, self._f.d_t, fine_steps, n),
+            build_packed_system_rk4_trajectory(
+                cp, self._f.d_t, fine_steps, n
+            ),
+        )
 
 
 def _build_affine_sweep(affine_slice_map, n: int, dim: int, device):

@@ -1,7 +1,8 @@
 """Builds and loads the port's hand-written CUDA kernels.
 
 Each ``csrc/<name>.cu`` file exports a plain C interface. On first use it
-is compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library
+is compiled (several sources at once with :func:`build_libraries`, one
+``nvcc`` each) with ``nvcc`` for Hopper (``sm_90a``) into a shared library
 under ``build/`` beside the package, and loaded with :mod:`ctypes`. The
 library file is named by a hash of the source and the compiler flags, so
 an edited source is rebuilt and never mixed up with a stale build.
@@ -17,7 +18,7 @@ import hashlib
 import os
 import subprocess
 import time
-from typing import Dict
+from typing import Dict, Sequence
 
 _PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SOURCE_DIR = os.path.join(_PACKAGE_DIR, "csrc")
@@ -40,8 +41,9 @@ NVCC_FLAGS = (
 )
 
 _LIBRARIES: Dict[str, ctypes.CDLL] = {}
-# what nvcc printed (including -Xptxas -v) and how long the build of
-# this process took, by source name; empty for libraries found built
+# what nvcc printed (including -Xptxas -v) and the seconds from the
+# start of the builds to the end of each build made by this process, by
+# source name; empty for libraries found built
 build_logs: Dict[str, str] = {}
 build_seconds: Dict[str, float] = {}
 
@@ -60,6 +62,55 @@ def _nvcc() -> str:
     return nvcc
 
 
+def _library_path(name: str) -> str:
+    source = os.path.join(_SOURCE_DIR, f"{name}.cu")
+    with open(source, "rb") as f:
+        digest = hashlib.sha256(
+            f.read() + " ".join(NVCC_FLAGS).encode()
+        ).hexdigest()[:16]
+    return os.path.join(BUILD_DIR, f"{name}-{digest}.so")
+
+
+def build_libraries(names: Sequence[str]) -> None:
+    """Compiles every ``csrc/<name>.cu`` of ``names`` that has no build
+    yet, one ``nvcc`` process per source, all started together. Raises
+    when ``nvcc`` is missing or a build fails."""
+    pending = {}
+    start = time.perf_counter()
+    for name in names:
+        path = _library_path(name)
+        if not os.path.exists(path) and name not in pending:
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            partial = f"{path}.{os.getpid()}.partial"
+            source = os.path.join(_SOURCE_DIR, f"{name}.cu")
+            process = subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", partial, source],
+                stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE,
+                text=True,
+            )
+            pending[name] = (process, source, partial, path)
+    failures = []
+    for name, (process, source, partial, path) in pending.items():
+        try:
+            stdout, stderr = process.communicate(timeout=900)
+        except subprocess.TimeoutExpired:
+            process.kill()
+            stdout, stderr = process.communicate()
+        if process.returncode != 0:
+            failures.append(
+                f"nvcc failed to build {source} "
+                f"(exit code {process.returncode}):\n{stderr}"
+            )
+            continue
+        # atomic publish: a concurrent process never loads half a file
+        os.replace(partial, path)
+        build_seconds[name] = time.perf_counter() - start
+        build_logs[name] = stdout + stderr
+    if failures:
+        raise RuntimeError("\n".join(failures))
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Returns the loaded library built from ``csrc/<name>.cu``,
     compiling it first if no build of this source exists. Raises when
@@ -67,32 +118,7 @@ def load_library(name: str) -> ctypes.CDLL:
     library = _LIBRARIES.get(name)
     if library is not None:
         return library
-
-    source = os.path.join(_SOURCE_DIR, f"{name}.cu")
-    with open(source, "rb") as f:
-        digest = hashlib.sha256(
-            f.read() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
-    path = os.path.join(BUILD_DIR, f"{name}-{digest}.so")
-    if not os.path.exists(path):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        partial = f"{path}.{os.getpid()}.partial"
-        start = time.perf_counter()
-        result = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", partial, source],
-            capture_output=True,
-            text=True,
-            timeout=900,
-        )
-        if result.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed to build {source} "
-                f"(exit code {result.returncode}):\n{result.stderr}"
-            )
-        # atomic publish: a concurrent process never loads half a file
-        os.replace(partial, path)
-        build_seconds[name] = time.perf_counter() - start
-        build_logs[name] = result.stdout + result.stderr
-    library = ctypes.CDLL(path)
+    build_libraries([name])
+    library = ctypes.CDLL(_library_path(name))
     _LIBRARIES[name] = library
     return library

@@ -1,0 +1,146 @@
+"""Batched RK4 kernels over Parareal's slices (K4).
+
+Port of the JAX package's ``ops/packed_system.py`` for the viscous
+Burgers system. On the TPU, the B slice states of a Parareal iteration
+are packed side by side along the vector lanes of one plane set, so that
+small grids fill the vector unit, and one kernel program advances them
+all. On Hopper that packing has no purpose: the batch is the grid of the
+same CUDA kernel template as K5 (``csrc/fused_system.cu``), one CTA per
+slice, so 100 slices of a 21 x 21 grid run side by side on 100 SMs. The
+lane packing, its gap columns and multi-hot edge masks are not carried
+over.
+
+- ``packed_system_rk4_ends`` (every iteration's fine end states) and
+  ``packed_system_rk4_trajectory`` (the final expansion of every slice's
+  trajectory) are the wrappers: they launch the kernel for a CUDA tensor
+  or run the plain version for a CPU tensor, and count their launches in
+  ``launches``.
+- ``packed_system_rk4_{ends,trajectory}_reference`` are the plain
+  versions (those of K5 over the batch).
+
+Shapes are the JAX package's: ``(B, H, W, n) -> (B, H, W, n)`` and
+``(B, H, W, n) -> (B, n_steps, H, W, n)``.
+
+Applicability (:func:`packed_system_applicable`): K5's gate (Burgers,
+Cartesian, static boundary conditions, RK4, float32, the grid fits one
+CTA's shared memory) and a batch of at least two slices. The JAX
+package's other packed families (wave, shallow water, Cahn-Hilliard and
+the diffusion family) are not ported yet (ROADMAP.md, Queue 2); the port
+serves the diffusion family with the batched K2 launch of
+``ops/fused_diffusion.py``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from pararealml_tpu_torch.constrained_problem import ConstrainedProblem
+from pararealml_tpu_torch.ops.fused_system import (
+    _SystemKernelConfig,
+    fused_system_rk4_end_reference,
+    fused_system_rk4_trajectory_reference,
+    fused_system_step_applicable,
+    launch,
+    states,
+    trajectory_buffer,
+)
+
+
+def packed_system_applicable(
+    cp: ConstrainedProblem,
+    integrator,
+    batch: int,
+    dtype: Optional[torch.dtype] = None,
+) -> bool:
+    """Whether the batched kernels reproduce ``batch`` generic-path
+    sub-solves for this problem (and, when ``dtype`` is given, for
+    states of that dtype)."""
+    return batch >= 2 and fused_system_step_applicable(cp, integrator, dtype)
+
+
+def packed_system_rk4_ends_reference(
+    y: torch.Tensor, cfg: _SystemKernelConfig, n_steps: int
+) -> torch.Tensor:
+    """Plain version of the K4 ends: ``(B, H, W, n) -> (B, H, W, n)``."""
+    return fused_system_rk4_end_reference(y, cfg, n_steps)
+
+
+def packed_system_rk4_trajectory_reference(
+    y: torch.Tensor, cfg: _SystemKernelConfig, n_steps: int
+) -> torch.Tensor:
+    """Plain version of the K4 trajectory: ``(B, H, W, n) -> (B,
+    n_steps, H, W, n)``."""
+    return fused_system_rk4_trajectory_reference(y, cfg, n_steps)
+
+
+def packed_system_rk4_ends(
+    y: torch.Tensor, cfg: _SystemKernelConfig, n_steps: int
+) -> torch.Tensor:
+    """K4 ends: every state of the batch advanced by ``n_steps`` RK4
+    steps, end states only, ``(B, H, W, n) -> (B, H, W, n)`` (one CTA
+    per slice)."""
+    cfg.check_state(y, batched=True)
+    if y.device.type == "cpu":
+        return packed_system_rk4_ends_reference(y, cfg, n_steps)
+    out = torch.empty_like(y)
+    launch(y, out, cfg, n_steps, write_trajectory=False)
+    packed_system_rk4_ends.launches += 1
+    return out
+
+
+def packed_system_rk4_trajectory(
+    y: torch.Tensor, cfg: _SystemKernelConfig, n_steps: int
+) -> torch.Tensor:
+    """K4 trajectory: every state of the batch advanced by ``n_steps``
+    RK4 steps with every step stored, ``(B, H, W, n) -> (B, n_steps, H,
+    W, n)`` (one CTA per slice)."""
+    cfg.check_state(y, batched=True)
+    if y.device.type == "cpu":
+        return packed_system_rk4_trajectory_reference(y, cfg, n_steps)
+    out = trajectory_buffer(y, cfg, n_steps)
+    launch(y, out, cfg, n_steps, write_trajectory=True)
+    packed_system_rk4_trajectory.launches += 1
+    return out
+
+
+packed_system_rk4_ends.launches = 0
+packed_system_rk4_trajectory.launches = 0
+
+
+def _batch(y: torch.Tensor, cfg: _SystemKernelConfig, batch: int):
+    lead, stacked = states(y, cfg)
+    if lead != (batch,):
+        raise ValueError(f"expected leading shape ({batch},), got {lead}")
+    return stacked
+
+
+def build_packed_system_rk4_ends(
+    cp: ConstrainedProblem, d_t: float, n_steps: int, batch: int
+):
+    """Builds ``ends(y) -> y_final`` advancing every one of ``batch``
+    stacked sub-states ``(B, H, W, n)`` by ``n_steps`` fused RK4 steps in
+    one launch, returning only the final states."""
+    cfg = _SystemKernelConfig(cp, d_t)
+
+    def ends(y: torch.Tensor) -> torch.Tensor:
+        return packed_system_rk4_ends(_batch(y, cfg, batch), cfg, n_steps)
+
+    return ends
+
+
+def build_packed_system_rk4_trajectory(
+    cp: ConstrainedProblem, d_t: float, n_steps: int, batch: int
+):
+    """Builds ``trajectory(y) -> ys`` computing all ``batch`` stacked
+    sub-trajectories ``(B, H, W, n) -> (B, n_steps, H, W, n)`` in one
+    launch."""
+    cfg = _SystemKernelConfig(cp, d_t)
+
+    def trajectory(y: torch.Tensor) -> torch.Tensor:
+        return packed_system_rk4_trajectory(
+            _batch(y, cfg, batch), cfg, n_steps
+        )
+
+    return trajectory

@@ -12,6 +12,8 @@ package (the suite's conftest imports JAX, hence ``--noconftest``)::
         tests/test_torch_cuda.py
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -23,14 +25,26 @@ from pararealml_tpu_torch.operators.fdm import (
     FDMOperator,
     ThreePointCentralDifferenceMethod,
 )
+from pararealml_tpu_torch.operators.ml.supervised import (
+    SupervisedMLOperator,
+    from_arrays,
+)
 from pararealml_tpu_torch.operators.parareal import PararealOperator
-from pararealml_tpu_torch.ops import fused_diffusion
+from pararealml_tpu_torch.ops import fused_diffusion, fused_system
+from pararealml_tpu_torch.ops import packed_system
+from pararealml_tpu_torch.utils import load_pytree
 
 torch.set_num_threads(1)
 
 # float32 kernels against float32 plain versions with the same
 # evaluation order: only contraction-free rounding differences remain
 KERNEL_TOL = 1e-5
+# the fitted quadratic coarse model of the Burgers bench (rank 32)
+QUAD_ASSET = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "bench_assets",
+    "sml_quad_burgers_2d.msgpack",
+)
 
 
 def _neumann_problem(module, flux=0.5):
@@ -89,6 +103,50 @@ PROBLEMS = {
     "neumann": _neumann_problem,
     "convection": _convection_problem,
 }
+
+
+def burgers_problem(module, kind="bench", extent=5.0, t_end=1.0):
+    """2D viscous Burgers (Re = 100) on [0, extent]^2 with d_x = 0.25 and
+    two Gaussian bumps of amplitudes 1.0 and 0.5 at the centre, of
+    covariance 0.15 * extent * I. ``"bench"`` is the configuration of
+    bench.py's ``build_burgers_problem`` (extent 5: a 21 x 21 grid,
+    zero-flux Neumann faces); ``"mixed"`` has Dirichlet faces of value
+    0.5 on axis 0 and the component fluxes (0.3, -0.2) on axis 1."""
+    mesh = module["Mesh"]([(0.0, extent)] * 2, [0.25] * 2)
+    if kind == "bench":
+        bcs = [
+            (
+                module["NeumannBoundaryCondition"](
+                    lambda x, t: np.zeros((len(x), 2)), is_static=True
+                ),
+            )
+            * 2
+        ] * 2
+    else:
+        bcs = [
+            (
+                module["DirichletBoundaryCondition"](
+                    lambda x, t: np.full((len(x), 2), 0.5), is_static=True
+                ),
+            )
+            * 2,
+            (
+                module["NeumannBoundaryCondition"](
+                    lambda x, t: np.tile([0.3, -0.2], (len(x), 1)),
+                    is_static=True,
+                ),
+            )
+            * 2,
+        ]
+    cp = module["ConstrainedProblem"](
+        module["BurgersEquation"](2, 100.0), mesh, bcs
+    )
+    ic = module["GaussianInitialCondition"](
+        cp,
+        [(np.full(2, extent / 2.0), 0.15 * extent * np.eye(2))] * 2,
+        [1.0, 0.5],
+    )
+    return module["InitialValueProblem"](cp, (0.0, t_end), ic)
 
 
 @pytest.fixture
@@ -184,3 +242,76 @@ def test_parareal_on_cuda_matches_cpu(linear_propagator, cuda_device):
     assert on_card.shape == on_cpu.shape == (100, 11, 11, 1)
     scale = float(np.abs(on_cpu).max())
     assert float(np.abs(on_card - on_cpu).max()) <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bench", "mixed"])
+def test_cuda_system_kernels_match_plain_versions(kind, cuda_device):
+    """K5 (trajectory, end, step) and K4 (ends, trajectory) against their
+    plain versions on the bench's Burgers problem and a mixed-BC one."""
+    ivp = burgers_problem(vars(torch_pkg), kind)
+    cfg = fused_system._SystemKernelConfig(ivp.constrained_problem, 2.5e-3)
+    y = torch.as_tensor(
+        ivp.initial_condition.discrete_y_0(True),
+        dtype=torch.float32,
+        device=cuda_device,
+    )
+    ys = torch.stack([y * (0.5 + 0.25 * i) + 0.05 * i for i in range(4)])
+    wrappers = (
+        fused_system.fused_system_rk4_trajectory,
+        fused_system.fused_system_rk4_end,
+        fused_system.fused_system_rk4_step,
+        packed_system.packed_system_rk4_ends,
+        packed_system.packed_system_rk4_trajectory,
+    )
+    launches = [wrapper.launches for wrapper in wrappers]
+    plain_versions = (
+        fused_system.fused_system_rk4_trajectory_reference,
+        fused_system.fused_system_rk4_end_reference,
+        fused_system.fused_system_rk4_step_reference,
+        packed_system.packed_system_rk4_ends_reference,
+        packed_system.packed_system_rk4_trajectory_reference,
+    )
+    arguments = ((y, cfg, 200), (ys, cfg, 200), (ys, cfg), (ys, cfg, 200),
+                 (ys, cfg, 200))
+    checks = [
+        (wrapper(*args), plain(*args))
+        for wrapper, plain, args in zip(wrappers, plain_versions, arguments)
+    ]
+    torch.cuda.synchronize()
+    assert [w.launches for w in wrappers] == [n + 1 for n in launches]
+    for kernel, plain in checks:
+        assert kernel.shape == plain.shape
+        scale = float(plain.abs().max())
+        assert float((kernel - plain).abs().max()) <= KERNEL_TOL * scale
+
+
+@pytest.mark.cuda
+def test_burgers_ml_parareal_on_cuda_matches_cpu(cuda_device):
+    """The bench's Burgers problem over two slices of the committed
+    quadratic coarse model (T = 4, fine d_t 2.5e-3) on the card (K4, K5,
+    cuBLAS) and on the CPU (plain versions, CPU matmuls), in float32.
+    The tolerance, 1e-4 of max|y|, covers the two devices' matmul
+    rounding carried through the nonlinear coarse sweeps."""
+    ivp = burgers_problem(vars(torch_pkg), "bench", t_end=4.0)
+    arrays = load_pytree(QUAD_ASSET)
+
+    def solve(device):
+        coarse = SupervisedMLOperator(2.0, True, device=device)
+        coarse.model = from_arrays(arrays)
+        fine = FDMOperator(
+            RK4(), ThreePointCentralDifferenceMethod(), 2.5e-3, device=device
+        )
+        return (
+            PararealOperator(fine, coarse, 2.5e-3, num_time_slices=2)
+            .solve(ivp)
+            .discrete_y()
+        )
+
+    launches = packed_system.packed_system_rk4_ends.launches
+    on_card = solve(cuda_device)
+    assert packed_system.packed_system_rk4_ends.launches > launches
+    on_cpu = solve(torch.device("cpu"))
+    assert on_card.shape == on_cpu.shape == (1600, 21, 21, 2)
+    scale = float(np.abs(on_cpu).max())
+    assert float(np.abs(on_card - on_cpu).max()) <= 1e-4 * scale

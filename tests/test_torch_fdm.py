@@ -5,6 +5,8 @@ probed affine step map, the propagator's trajectory, end function and
 composed slice map, and the static constraint tensors that cross between
 the packages as arrays."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -47,21 +49,27 @@ def _assert_close(actual, expected, rtol=RTOL):
 
 
 CASES = sorted(set(equation_cases()) - {"navier_stokes"})
+# the port's FDM namespace with its operator on the CPU
+CPU_FDM = dict(
+    vars(torch_fdm),
+    FDMOperator=functools.partial(torch_fdm.FDMOperator, device="cpu"),
+)
 
 
 @pytest.mark.parametrize("name", CASES)
 def test_generic_trajectory_matches_jax(name, torch_float64):
-    """tests/parity_cases.py runs unchanged on both packages."""
+    """tests/parity_cases.py runs unchanged on both packages (the port's
+    operator asked for the CPU: its default device is the CUDA card)."""
     case = equation_cases()[name]
     expected = solve_fdm_trajectory(vars(jax_pkg), vars(jax_fdm), case)
-    actual = solve_fdm_trajectory(vars(torch_pkg), vars(torch_fdm), case)
+    actual = solve_fdm_trajectory(vars(torch_pkg), CPU_FDM, case)
     _assert_close(actual, expected)
 
 
 def test_navier_stokes_needs_the_anti_laplacian(torch_float64):
     case = equation_cases()["navier_stokes"]
     with pytest.raises(NotImplementedError, match="slice 6"):
-        solve_fdm_trajectory(vars(torch_pkg), vars(torch_fdm), case)
+        solve_fdm_trajectory(vars(torch_pkg), CPU_FDM, case)
 
 
 @pytest.mark.parametrize("problem", ["flagship", "convection"])
@@ -80,6 +88,7 @@ def test_generic_trajectory_matches_jax_on_main_path_problems(problem):
         torch_fdm.ThreePointCentralDifferenceMethod(),
         d_t,
         fused_kernels=False,
+        device="cpu",
         dtype=torch.float64,
     ).trajectory_function(torch_ivp.constrained_problem, (0.0, steps * d_t))
     y_0 = jax_ivp.initial_condition.discrete_y_0(True)
@@ -171,7 +180,10 @@ def test_probe_affine_step_matches_jax(torch_float64):
         jax_cp, 0.0, 1, static_only=True, allow_fused=False
     )
     torch_step = torch_fdm.FDMOperator(
-        torch_fdm.RK4(), torch_fdm.ThreePointCentralDifferenceMethod(), 1e-2
+        torch_fdm.RK4(),
+        torch_fdm.ThreePointCentralDifferenceMethod(),
+        1e-2,
+        device="cpu",
     )._build_step_function(torch_cp, allow_fused=False)
     jax_s, jax_q = jax_propagator.probe_affine_step(jax_step, y_shape)
     torch_s, torch_q = torch_propagator.probe_affine_step(
@@ -200,7 +212,10 @@ def test_propagator_matches_jax(steps, torch_float64):
         jax_ivp.constrained_problem, (0.0, steps * d_t), time_parallel=True
     )
     torch_fn, _ = torch_fdm.FDMOperator(
-        torch_fdm.RK4(), torch_fdm.ThreePointCentralDifferenceMethod(), d_t
+        torch_fdm.RK4(),
+        torch_fdm.ThreePointCentralDifferenceMethod(),
+        d_t,
+        device="cpu",
     ).trajectory_function(
         torch_ivp.constrained_problem,
         (0.0, steps * d_t),

@@ -1,16 +1,27 @@
-"""The PyTorch port's slice as a whole: Parareal on a shrunken flagship
-diffusion_2d problem (11 x 11 grid, T = 1, 4 slices) held against the
-JAX package's Parareal in float64 to rtol 1e-8, both through the affine
-propagators (the default) and through the stencil sub-solves
-(``linear_propagator=False``); the float32 route through the fused end
-kernel's plain version held against the affine route; and the port
-solving a problem in a process where JAX cannot be imported."""
+"""The PyTorch port's slices as a whole, held against the JAX package.
+
+- Parareal on a shrunken flagship diffusion_2d problem (11 x 11 grid,
+  T = 1, 4 slices) in float64 to rtol 1e-8, both through the affine
+  propagators (the default) and through the stencil sub-solves
+  (``linear_propagator=False``); the float32 route through the fused end
+  kernel's plain version held against the affine route.
+- Parareal with a quadratic supervised-ML coarse operator on a shrunken
+  2D Burgers problem (9 x 9 grid, T = 0.8, 4 slices, fine d_t 2.5e-3, a
+  rank-6 model fitted in the test): in float64 against the JAX package's
+  generic path to 1e-10 with the same iteration count, and in float32
+  through the batched kernels' plain versions against the JAX package's
+  float32 run.
+- The default device (the CUDA card), and the port solving both slices
+  in a process where JAX, flax, scikit-learn and msgpack cannot be
+  imported."""
 
 import os
 import subprocess
 import sys
 import textwrap
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -31,8 +42,12 @@ from pararealml_tpu_torch.operators.fdm import (
     FDMOperator,
     ThreePointCentralDifferenceMethod,
 )
+from pararealml_tpu.operators.ml import supervised as jax_supervised
+from pararealml_tpu_torch.operators.ml import supervised
 from pararealml_tpu_torch.operators.parareal import PararealOperator
-from pararealml_tpu_torch.ops import fused_diffusion
+from pararealml_tpu_torch.ops import fused_diffusion, packed_system
+from tests.test_torch_cuda import burgers_problem
+from tests.test_torch_supervised_ml import fitted_quad_arrays
 
 torch.set_num_threads(1)
 
@@ -55,6 +70,7 @@ def _torch_parareal(linear_propagator, dtype, tolerance=TOLERANCE):
             ThreePointCentralDifferenceMethod(),
             d_t,
             linear_propagator=linear_propagator,
+            device="cpu",
             dtype=dtype,
         )
 
@@ -125,14 +141,152 @@ def test_float32_fused_route_matches_affine_route(monkeypatch):
     assert float(np.abs(fused - affine).max()) <= 1e-5 * scale
 
 
+# the Burgers slice: 4 coarse slices of 0.2 (80 fine steps each); the
+# tolerance stops the rank-6 model's Parareal after 2 of 4 iterations
+BURGERS_T_END = 0.8
+BURGERS_SLICES = 4
+BURGERS_FINE_D_T = 2.5e-3
+BURGERS_TOLERANCE = 3e-3
+
+
+def _burgers_parareal(module, fine, coarse, tolerance=BURGERS_TOLERANCE):
+    ivp = burgers_problem(vars(module), extent=2.0, t_end=BURGERS_T_END)
+    parareal_class = (
+        PararealOperator if module is torch_pkg else JaxPararealOperator
+    )
+    parareal = parareal_class(
+        fine, coarse, tolerance, num_time_slices=BURGERS_SLICES
+    )
+    return parareal, parareal.solve(ivp).discrete_y()
+
+
+def _jax_quad_coarse(dtype):
+    model = jax_supervised.ReducedQuadraticStateOperatorRegressor(
+        162, rank=6, dtype=dtype
+    )
+    for name, value in fitted_quad_arrays().items():
+        setattr(model, f"_{name}", jnp.asarray(value, dtype))
+    model._expand_quad_weights()
+    model._factor_operators()
+    coarse = jax_supervised.SupervisedMLOperator(
+        BURGERS_T_END / BURGERS_SLICES, True
+    )
+    coarse.model = model
+    return coarse
+
+
+def _torch_quad_coarse(dtype):
+    coarse = supervised.SupervisedMLOperator(
+        BURGERS_T_END / BURGERS_SLICES, True, device="cpu", dtype=dtype
+    )
+    coarse.model = supervised.from_arrays(fitted_quad_arrays(), dtype=dtype)
+    return coarse
+
+
+def _torch_fine(dtype):
+    return FDMOperator(
+        RK4(),
+        ThreePointCentralDifferenceMethod(),
+        BURGERS_FINE_D_T,
+        device="cpu",
+        dtype=dtype,
+    )
+
+
+def test_burgers_ml_parareal_matches_jax():
+    """float64: the generic fine path in both packages, the same coarse
+    model. Agreement to 1e-10 also pins the iteration count: one more or
+    one fewer correction moves the borders by about the tolerance."""
+    _, expected = _burgers_parareal(
+        jax_pkg,
+        JaxFDMOperator(JaxRK4(), JaxThreePoint(), BURGERS_FINE_D_T),
+        _jax_quad_coarse(jnp.float64),
+    )
+    parareal, actual = _burgers_parareal(
+        torch_pkg,
+        _torch_fine(torch.float64),
+        _torch_quad_coarse(torch.float64),
+    )
+    assert actual.shape == expected.shape == (320, 9, 9, 2)
+    # early termination: the corrections stopped before the slice count
+    assert parareal.last_iterations == 2
+    scale = float(np.abs(expected).max())
+    np.testing.assert_allclose(
+        actual, expected, rtol=1e-10, atol=1e-10 * scale
+    )
+
+
+def test_burgers_ml_parareal_float32_route_matches_jax(monkeypatch):
+    """float32: the port's fine ends and final expansion go through the
+    batched kernels (K4, their plain versions here); the JAX package's
+    run is its generic float32 path. The tolerance, 1e-4 of max|y|,
+    covers float32 rounding of the two fine formulations over 320 steps,
+    carried through the nonlinear coarse corrections."""
+    calls = []
+    for name in ("packed_system_rk4_ends", "packed_system_rk4_trajectory"):
+        wrapper = getattr(packed_system, name)
+
+        def counting(*args, _wrapper=wrapper, _name=name, **kwargs):
+            calls.append(_name)
+            return _wrapper(*args, **kwargs)
+
+        monkeypatch.setattr(packed_system, name, counting)
+    parareal, actual = _burgers_parareal(
+        torch_pkg,
+        _torch_fine(torch.float32),
+        _torch_quad_coarse(torch.float32),
+    )
+    assert calls.count("packed_system_rk4_trajectory") == 1
+    assert calls.count("packed_system_rk4_ends") == parareal.last_iterations
+
+    jax.config.update("jax_enable_x64", False)
+    try:
+        _, expected = _burgers_parareal(
+            jax_pkg,
+            JaxFDMOperator(
+                JaxRK4(),
+                JaxThreePoint(),
+                BURGERS_FINE_D_T,
+                fused_kernels=False,
+            ),
+            _jax_quad_coarse(jnp.float32),
+        )
+    finally:
+        jax.config.update("jax_enable_x64", True)
+    scale = float(np.abs(expected).max())
+    assert float(np.abs(actual - expected).max()) <= 1e-4 * scale
+
+
+def test_operators_default_to_the_cuda_card():
+    """With no device argument the entry points run on the card; on a
+    host without one, a solve fails rather than running on the CPU."""
+    fine = FDMOperator(RK4(), ThreePointCentralDifferenceMethod(), 0.01)
+    coarse = supervised.SupervisedMLOperator(0.05, True)
+    parareal = PararealOperator(fine, coarse, 1e-3, num_time_slices=2)
+    for operator in (fine, coarse, parareal):
+        assert operator.device == torch.device("cuda")
+    # a device given to the fine operator carries over to Parareal
+    cpu_fine = FDMOperator(
+        RK4(), ThreePointCentralDifferenceMethod(), 0.01, device="cpu"
+    )
+    assert PararealOperator(cpu_fine, coarse).device == torch.device("cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            fine.solve(build_problem(vars(torch_pkg), 0.02, d_x=1.0))
+
+
 def test_port_runs_without_jax():
-    """The port imports no JAX: with ``import jax`` made to fail, the
-    package imports and solves a 5-step problem."""
+    """The port imports no JAX, flax, scikit-learn, msgpack or the JAX
+    package: with those imports made to fail, the package imports, solves
+    a 5-step diffusion problem, saves and loads a model, and runs the
+    Burgers slice's ML-coarse Parareal (9 x 9, two slices of 0.1)."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     script = textwrap.dedent(
         """
-        import sys
-        sys.modules["jax"] = None
+        import os, sys, tempfile
+        BLOCKED = ("jax", "flax", "sklearn", "msgpack", "pararealml_tpu")
+        for name in BLOCKED:
+            sys.modules[name] = None
         import numpy as np
         import torch
         torch.set_num_threads(1)
@@ -140,16 +294,49 @@ def test_port_runs_without_jax():
         from pararealml_tpu_torch.operators.fdm import (
             RK4, FDMOperator, ThreePointCentralDifferenceMethod,
         )
+        from pararealml_tpu_torch.operators.ml.supervised import (
+            ReducedQuadraticStateOperatorRegressor, SupervisedMLOperator,
+            from_arrays,
+        )
+        from pararealml_tpu_torch.operators.parareal import PararealOperator
+        from pararealml_tpu_torch.utils import SEEDS, set_random_seed
         from bench import build_problem
+        from tests.test_torch_cuda import burgers_problem
         ivp = build_problem(vars(p), 0.05, d_x=1.0)
         solution = FDMOperator(
-            RK4(), ThreePointCentralDifferenceMethod(), 0.01
+            RK4(), ThreePointCentralDifferenceMethod(), 0.01, device="cpu"
         ).solve(ivp)
         ys = solution.discrete_y()
         assert ys.shape == (5, 11, 11, 1), ys.shape
         assert np.isfinite(ys).all()
-        assert not any(name.startswith("jax") for name in sys.modules
-                       if sys.modules[name] is not None)
+
+        set_random_seed(SEEDS[0])
+        rank = 4
+        model = from_arrays({
+            "weights": np.eye(162), "quad_weights": np.zeros((162, 10)),
+            "intercept": np.zeros(162), "basis": np.eye(162)[:, :rank],
+            "mean": np.zeros(162), "z_low": -np.ones(rank),
+            "z_high": np.ones(rank),
+        })
+        path = os.path.join(tempfile.mkdtemp(), "model.msgpack")
+        model.save(path)
+        loaded = ReducedQuadraticStateOperatorRegressor(162, rank=rank)
+        loaded.load(path)
+        coarse = SupervisedMLOperator(0.1, True, device="cpu")
+        coarse.model = loaded
+        fine = FDMOperator(
+            RK4(), ThreePointCentralDifferenceMethod(), 2.5e-3, device="cpu"
+        )
+        ivp = burgers_problem(vars(p), extent=2.0, t_end=0.2)
+        ys = PararealOperator(
+            fine, coarse, 1e-3, num_time_slices=2
+        ).solve(ivp).discrete_y()
+        assert ys.shape == (80, 9, 9, 2), ys.shape
+        assert np.isfinite(ys).all()
+        assert not any(
+            name.split(".")[0] in BLOCKED
+            for name in sys.modules if sys.modules[name] is not None
+        )
         print("ok")
         """
     )
