@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port's main paths on one NVIDIA GPU.
 
-Drives ``pararealml_tpu_torch`` — never JAX — through its two ported
+Drives ``pararealml_tpu_torch`` — never JAX — through its three ported
 paths at full size, each through the entry points a user calls.
 
 The diffusion_2d Parareal flagship (21 x 21 grid, Dirichlet 1.5 on the x
@@ -48,6 +48,32 @@ tolerance 2.5e-3), on the card by default (no ``device`` argument):
    kernel beside its plain version (median of 5, of 3 for plain versions
    at the main path's shapes);
 8. profiles the fine solve and both Parareal runs as in phase 4.
+
+The large-grid diffusion path (bench.py's ``bench_large_grid`` and
+``bench_streaming``: ``build_problem``'s diffusion with d = 0.05 on
+[0, 10]^2 at d_x = 10 / (n - 1)), on the card by default:
+
+9. holds the resident kernel (K7) and the tiled kernel (K6) against
+   their plain versions on small grids that exercise every branch
+   (tests/test_tiled_diffusion.py's three problems and a folded one with
+   convection), with float32 and bfloat16 frames and states, K6 at
+   temporal blocks 1, 2 and 4, each on its own tile plan and on small
+   tiles whose last ones overhang the grid, and K6 against K7 on a
+   161 x 161 grid;
+10. runs the path with every counter at 0 through
+    ``FDMOperator(...).trajectory_function``: 641 x 641, d_t 1e-4, 2,000
+    steps (K7, float32 and bfloat16 frames) and 2049 x 2049, d_t 1e-5, 192
+    steps (K6: float32 at temporal block 1 and 2, bfloat16 state at 2),
+    plus one ``solve`` at 641 x 641 over 10 steps; it reads the counters
+    right after, then checks the last frames (finite, Dirichlet faces at
+    1.5), the temporal block against block 1 (equal), the first frames
+    against the generic path (atol = rtol = 1e-4) and against the plain
+    versions at a cut step count;
+11. times both kernels at those shapes (median of 5), their plain
+    versions (one run each: they take seconds) and the generic path at
+    641 x 641 over 20 steps (scaled to 2,000 and labelled so), and prints
+    the bfloat16 error of the last frame against float32;
+12. profiles the two float32 runs as in phase 4.
 
 Run it from the repository root with no arguments: ``python3
 chip_smoke.py``. It needs one CUDA card and ``nvcc`` and exits non-zero,
@@ -140,6 +166,43 @@ SYSTEM_KERNELS = (
     ),
 )
 
+# the large-grid diffusion path (bench.py:1091-1097, :1290-1295)
+LARGE_N = 641
+LARGE_STEPS = 2000
+LARGE_D_T = 1e-4
+STREAM_N = 2049
+STREAM_STEPS = 192
+STREAM_D_T = 1e-5
+LARGE_DIFFUSIVITY = 0.05
+LARGE_SOLVE_STEPS = 10
+# frames compared with the generic path, and steps compared with the
+# plain versions at full width
+LARGE_HEAD_STEPS = 5
+STREAM_HEAD_STEPS = 3
+LARGE_PLAIN_STEPS = 20
+STREAM_PLAIN_STEPS = 8
+GENERIC_TIMED_STEPS = 20
+# bfloat16 against float32, of the largest value: one rounding of a frame
+# (half a bfloat16 step, 2^-8 at most) for the resident kernel, whose
+# state stays float32; the roundings of the state accumulate over the
+# tiled kernel's 96 residencies
+RESIDENT_BF16_TOL = 2.0**-8
+TILED_BF16_TOL = 2e-2
+LARGE_SOURCE = "pararealml_tpu_torch/csrc/tiled_diffusion.cu"
+# (name, module, Pallas kernel it replaces)
+LARGE_KERNELS = (
+    (
+        "resident_diffusion_rk4_trajectory",
+        "resident_diffusion",
+        "pararealml_tpu/ops/resident_diffusion.py:76",
+    ),
+    (
+        "tiled_diffusion_rk4_trajectory",
+        "tiled_diffusion",
+        "pararealml_tpu/ops/tiled_diffusion.py:374",
+    ),
+)
+
 # the card's published peaks (NVIDIA H100 SXM data sheet, at the 700 W
 # power limit): HBM bytes per second and float32 operations per second
 # outside the tensor cores
@@ -202,8 +265,9 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def flagship(prml, t_end=T_END):
-    """The diffusion_2d Parareal flagship (bench.py:build_problem)."""
+def flagship(prml, t_end=T_END, d_x=0.5, d=1.0):
+    """The diffusion_2d Parareal flagship (bench.py:build_problem): with
+    the defaults a 21 x 21 grid and diffusion coefficient 1."""
     bcs = [
         (
             prml.DirichletBoundaryCondition(
@@ -219,8 +283,8 @@ def flagship(prml, t_end=T_END):
         * 2,
     ]
     cp = prml.ConstrainedProblem(
-        prml.DiffusionEquation(2, 1.0),
-        prml.Mesh([(0.0, 10.0), (0.0, 10.0)], [0.5, 0.5]),
+        prml.DiffusionEquation(2, d),
+        prml.Mesh([(0.0, 10.0), (0.0, 10.0)], [d_x, d_x]),
         bcs,
     )
     ic = prml.GaussianInitialCondition(
@@ -292,6 +356,19 @@ def cuda_ms(torch, fn, reps=5):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def once_ms(torch, fn):
+    """CUDA-event time of one run of ``fn()`` in ms, without a warm run:
+    for plain versions that take seconds."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
 
 
 def device_busy_ms(torch, fn, reps=3):
@@ -663,6 +740,519 @@ def burgers_phases(torch, prml, device, card, cuda_ms, device_busy_ms):
     return entries
 
 
+def large_grid_problem(prml, h_extent, w_extent, d_x, convection, flux):
+    """tests/test_tiled_diffusion.py's problem: coefficient 0.3, Dirichlet
+    rows of value 1.5, Neumann columns of the given flux."""
+    if convection:
+        diff_eq = prml.ConvectionDiffusionEquation(2, [0.8, -0.4], 0.3)
+    else:
+        diff_eq = prml.DiffusionEquation(2, 0.3)
+    bcs = [
+        (
+            prml.DirichletBoundaryCondition(
+                lambda x, t: np.full((len(x), 1), 1.5), is_static=True
+            ),
+        )
+        * 2,
+        (
+            prml.NeumannBoundaryCondition(
+                lambda x, t: np.full((len(x), 1), flux), is_static=True
+            ),
+        )
+        * 2,
+    ]
+    return prml.ConstrainedProblem(
+        diff_eq, prml.Mesh([(0.0, h_extent), (0.0, w_extent)], [d_x, d_x]), bcs
+    )
+
+
+def bench_diffusion(prml, n, steps, d_t):
+    """bench.py:build_problem's diffusion on an n x n grid of [0, 10]^2
+    (Dirichlet 1.5 on the x faces, zero flux on the y faces, a Gaussian
+    of amplitude 1000) with d = 0.05, over ``steps`` steps of ``d_t``."""
+    return flagship(prml, steps * d_t, 10.0 / (n - 1), LARGE_DIFFUSIVITY)
+
+
+def large_grid_bound(cfg, n_steps, frame_bytes):
+    """The bound of a Horner-form trajectory kernel: the state read once
+    and every frame written once, against its float32 operations."""
+    cells = cfg.height * cfg.width
+    return bound(
+        4 * cells + n_steps * cells * frame_bytes,
+        cfg.flops_per_cell_step * n_steps * cells,
+    )
+
+
+def tiled_traffic_ms(plan, cfg, n_steps, temporal_block, state_bytes,
+                     frame_bytes, separate_state):
+    """The time the tiled kernel's own traffic takes at the card's
+    memory rate: per residency every block reads its haloed tile (and
+    writes its tile of the carried state where the frames do not carry
+    it), and every step writes one frame."""
+    cells = cfg.height * cfg.width
+    residencies = n_steps // temporal_block
+    tiles = plan.n_tiles_h * plan.n_tiles_w
+    moved = residencies * tiles * plan.smem_rows * plan.smem_cols * state_bytes
+    if separate_state:
+        moved += residencies * cells * state_bytes
+    moved += n_steps * cells * frame_bytes
+    return 1e3 * moved / PEAK_BYTES_PER_S
+
+
+def large_grid_phases(
+    torch, prml, device, card, cuda_ms, once_ms, device_busy_ms
+):
+    """Phases 9-12: the large-grid diffusion path. Returns the two
+    kernels' entries of the JSON line. ``cuda_ms``, ``once_ms`` and
+    ``device_busy_ms`` are the timing and profiling functions."""
+    from pararealml_tpu_torch.operators.fdm import (
+        RK4,
+        FDMOperator,
+        ThreePointCentralDifferenceMethod,
+    )
+    from pararealml_tpu_torch.ops import resident_diffusion as rd
+    from pararealml_tpu_torch.ops import tiled_diffusion as td
+
+    modules = {"resident_diffusion": rd, "tiled_diffusion": td}
+    wrappers = {
+        name: getattr(modules[module], name)
+        for name, module, _ in LARGE_KERNELS
+    }
+    k7, k6 = (name for name, _, _ in LARGE_KERNELS)
+    errors = {name: 0.0 for name in wrappers}
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def check(name, what, kernel, plain, tolerance=KERNEL_REL_TOL):
+        torch.cuda.synchronize()
+        assert kernel.shape == plain.shape, (name, what)
+        assert kernel.dtype == plain.dtype, (name, what)
+        abs_err = float((kernel.float() - plain.float()).abs().max())
+        rel_err = abs_err / float(plain.float().abs().max())
+        errors[name] = max(errors[name], abs_err)
+        if not rel_err <= tolerance:
+            raise AssertionError(
+                f"{name} disagrees with its plain version ({what}): "
+                f"{rel_err:.3e}"
+            )
+        return rel_err
+
+    # -- phase 9: K6 and K7 against their plain versions, small grids ----
+    small_problems = {
+        "folded 17x33": (4.0, 8.0, 0.25, False, 0.0),
+        "convection 33x17": (8.0, 4.0, 0.25, True, 0.2),
+        "flux 81x81": (10.0, 10.0, 0.125, False, 0.1),
+        "folded convection 81x81": (10.0, 10.0, 0.125, True, 0.0),
+    }
+    for label, args in small_problems.items():
+        cp = large_grid_problem(prml, *args)
+        height, width = cp.mesh.vertices_shape
+        x = torch.linspace(0.0, 3.0, height, device=device)[:, None]
+        z = torch.linspace(0.0, 2.0, width, device=device)[None, :]
+        y = (1.5 + torch.sin(2.0 * x) * torch.cos(3.0 * z)).contiguous()
+        resident_cfg = td._HornerConfig(cp, 0.005, resident=True)
+        tiled_cfg = td._HornerConfig(cp, 0.005)
+        worst = {k7: 0.0, k6: 0.0}
+        count = {k7: 0, k6: 0}
+        # 8 x 8 tiles with a barrier every step and every third step (23
+        # steps: the last group is cut short)
+        tiles = (-(-height // 8), -(-width // 8), 8, 8)
+        resident_plans = (
+            None, rd._ResidentPlan(*tiles, 1), rd._ResidentPlan(*tiles, 3)
+        )
+        for storage in (f32, bf16):
+            plain = rd.resident_diffusion_rk4_trajectory_reference(
+                y, resident_cfg, 23, storage
+            )
+            for plan in resident_plans:
+                kernel = rd.resident_diffusion_rk4_trajectory(
+                    y, resident_cfg, 23, storage, plan=plan
+                )
+                worst[k7] = max(
+                    worst[k7], check(k7, f"{label}, {storage}", kernel, plain)
+                )
+                count[k7] += 1
+        for block in (1, 2, 4):
+            dtypes = [(None, None), (bf16, None)]
+            if block > 1:
+                dtypes += [(None, bf16), (bf16, f32)]
+            # tiles of max(12, halo) x max(20, halo) cells
+            small_tiled = td.make_tile_plan(
+                height,
+                width,
+                block,
+                8 * block + max(12, 4 * block),
+                8 * block + max(20, 4 * block),
+            )
+            assert small_tiled is not None
+            for storage, traj in dtypes:
+                plain = td.tiled_diffusion_rk4_trajectory_reference(
+                    y, tiled_cfg, 16, storage, traj, block
+                )
+                for plan in (None, small_tiled):
+                    kernel = td.tiled_diffusion_rk4_trajectory(
+                        y, tiled_cfg, 16, storage, traj, block, plan=plan
+                    )
+                    worst[k6] = max(
+                        worst[k6],
+                        check(
+                            k6,
+                            f"{label}, block {block}, {storage}, {traj}",
+                            kernel,
+                            plain,
+                        ),
+                    )
+                    count[k6] += 1
+        log(
+            f"kernels: large-grid {label}: K7 {count[k7]} cases (float32 "
+            f"and bfloat16 frames, own plan and 8x8 tiles with a barrier "
+            f"per 1 and per 3 steps) max|d|/max|y| = "
+            f"{worst[k7]:.3e}; K6 {count[k6]} cases (blocks 1, 2, 4, "
+            f"float32 and bfloat16 state and frames, own plan and small "
+            f"tiles) max|d|/max|y| = {worst[k6]:.3e}"
+        )
+    # K6 against K7 on one grid both take: they share the arithmetic up to
+    # the rounding of the folded coefficients
+    cp = large_grid_problem(prml, 10.0, 10.0, 10.0 / 160.0, False, 0.0)
+    x = torch.linspace(0.0, 3.0, 161, device=device)[:, None]
+    y = (1.5 + torch.sin(2.0 * x) * torch.cos(3.0 * x.T)).contiguous()
+    tiled = td.tiled_diffusion_rk4_trajectory(
+        y, td._HornerConfig(cp, 2e-3), 50
+    )
+    resident = rd.resident_diffusion_rk4_trajectory(
+        y, td._HornerConfig(cp, 2e-3, resident=True), 50
+    )
+    torch.cuda.synchronize()
+    cross = float((tiled - resident).abs().max() / resident.abs().max())
+    log(
+        f"kernels: K6 against K7, 161x161, 50 steps: max|d|/max|y| = "
+        f"{cross:.3e} (tolerance {KERNEL_REL_TOL:g})"
+    )
+    assert cross <= KERNEL_REL_TOL, cross
+    log("phase large-grid kernels: ok")
+
+    # -- phase 10: the path at full width, counted -----------------------
+    large_ivp = bench_diffusion(prml, LARGE_N, LARGE_STEPS, LARGE_D_T)
+    stream_ivp = bench_diffusion(prml, STREAM_N, STREAM_STEPS, STREAM_D_T)
+    large_cp = large_ivp.constrained_problem
+    stream_cp = stream_ivp.constrained_problem
+    assert rd.make_resident_plan(LARGE_N, LARGE_N) is not None
+    assert td.takes_streaming_path(stream_cp)
+
+    def initial(ivp):
+        return torch.as_tensor(
+            ivp.initial_condition.discrete_y_0(True),
+            dtype=f32,
+            device=device,
+        )
+
+    def fdm(d_t, **kwargs):
+        # no device argument: the entry points run on the card
+        return FDMOperator(
+            RK4(), ThreePointCentralDifferenceMethod(), d_t, **kwargs
+        )
+
+    def trajectory_fn(cp, d_t, steps, **kwargs):
+        return fdm(d_t, **kwargs).trajectory_function(
+            cp, (0.0, steps * d_t)
+        )[0]
+
+    large_y, stream_y = initial(large_ivp), initial(stream_ivp)
+    large_fns = {
+        "float32": trajectory_fn(large_cp, LARGE_D_T, LARGE_STEPS),
+        "bfloat16 frames": trajectory_fn(
+            large_cp, LARGE_D_T, LARGE_STEPS, kernel_storage_dtype=bf16
+        ),
+    }
+    stream_fns = {
+        "float32, block 1": trajectory_fn(
+            stream_cp, STREAM_D_T, STREAM_STEPS
+        ),
+        "float32, block 2": trajectory_fn(
+            stream_cp, STREAM_D_T, STREAM_STEPS, kernel_temporal_block=2
+        ),
+        "bfloat16 state, block 2": trajectory_fn(
+            stream_cp,
+            STREAM_D_T,
+            STREAM_STEPS,
+            kernel_storage_dtype=bf16,
+            kernel_temporal_block=2,
+        ),
+    }
+
+    def last_frame(ys, n, steps, dtype):
+        """Checks a trajectory's shape and dtype and its last frame
+        (finite, Dirichlet x faces at 1.5) and returns that frame."""
+        assert tuple(ys.shape) == (steps, n, n, 1), ys.shape
+        assert ys.dtype == dtype, ys.dtype
+        last = ys[-1].float().clone()
+        assert bool(torch.isfinite(last).all())
+        assert bool((last[0] == 1.5).all()) and bool((last[-1] == 1.5).all())
+        return last
+
+    for wrapper in wrappers.values():
+        wrapper.launches = 0
+    large_last = {}
+    for label, fn in large_fns.items():
+        ys = fn(large_y, 0.0)
+        large_last[label] = last_frame(
+            ys, LARGE_N, LARGE_STEPS, f32 if label == "float32" else bf16
+        )
+        if label == "float32":
+            large_head = ys[:LARGE_PLAIN_STEPS].clone()
+        del ys
+    solved = fdm(LARGE_D_T).solve(
+        bench_diffusion(prml, LARGE_N, LARGE_SOLVE_STEPS, LARGE_D_T)
+    ).discrete_y()
+    large_launches = {name: w.launches for name, w in wrappers.items()}
+    stream_last = {}
+    for label, fn in stream_fns.items():
+        ys = fn(stream_y, 0.0)
+        stream_last[label] = last_frame(
+            ys,
+            STREAM_N,
+            STREAM_STEPS,
+            bf16 if label.startswith("bfloat16") else f32,
+        )
+        if label == "float32, block 1":
+            stream_f32 = ys
+        elif label == "float32, block 2":
+            assert torch.equal(ys, stream_f32), "block 2 differs from block 1"
+        del ys
+    stream_head = stream_f32[:STREAM_PLAIN_STEPS].clone()
+    del stream_f32
+    torch.cuda.empty_cache()
+    launches = {name: w.launches for name, w in wrappers.items()}
+    log(
+        f"large-grid main-path launches: {launches} (the {LARGE_N}x{LARGE_N} "
+        f"runs alone: {large_launches}); CUDA launches inside: K7 one "
+        f"cooperative launch per trajectory, K6 {STREAM_STEPS} per "
+        f"trajectory at block 1 and {STREAM_STEPS // 2} at block 2"
+    )
+    assert large_launches == {k7: len(large_fns) + 1, k6: 0}, large_launches
+    assert launches[k6] == len(stream_fns), launches
+    assert launches[k7] == large_launches[k7], launches
+    assert solved.shape == (LARGE_SOLVE_STEPS, LARGE_N, LARGE_N, 1)
+    assert solved.dtype == np.float64 and np.isfinite(solved).all()
+    assert np.array_equal(
+        solved, large_head[:LARGE_SOLVE_STEPS].double().cpu().numpy()
+    )
+    log(
+        f"phase large-grid path: {LARGE_N}x{LARGE_N} x {LARGE_STEPS} steps "
+        f"(K7) and {STREAM_N}x{STREAM_N} x {STREAM_STEPS} steps (K6): last "
+        f"frames finite with Dirichlet faces 1.5, block 2 equal to block 1, "
+        f"solve over {LARGE_SOLVE_STEPS} steps equal to the trajectory's "
+        f"first frames"
+    )
+    bf16_errors = {
+        "resident": float(
+            (large_last["bfloat16 frames"] - large_last["float32"]).abs().max()
+            / large_last["float32"].abs().max()
+        ),
+        "tiled": float(
+            (
+                stream_last["bfloat16 state, block 2"]
+                - stream_last["float32, block 1"]
+            ).abs().max()
+            / stream_last["float32, block 1"].abs().max()
+        ),
+    }
+    log(
+        f"bfloat16 against float32, last frame, max|d|/max|y|: K7 frames "
+        f"{bf16_errors['resident']:.3e} (one rounding; limit "
+        f"{RESIDENT_BF16_TOL:.3e}), K6 state at block 2 "
+        f"{bf16_errors['tiled']:.3e} ({STREAM_STEPS // 2} roundings; limit "
+        f"{TILED_BF16_TOL:g})"
+    )
+    assert bf16_errors["resident"] <= RESIDENT_BF16_TOL
+    assert bf16_errors["tiled"] <= TILED_BF16_TOL
+
+    # the first frames against the generic path, and a cut-down step
+    # count against the plain versions (on the same CUDA tensors)
+    for label, cp, d_t, y, head, head_steps in (
+        ("K7", large_cp, LARGE_D_T, large_y, large_head, LARGE_HEAD_STEPS),
+        ("K6", stream_cp, STREAM_D_T, stream_y, stream_head,
+         STREAM_HEAD_STEPS),
+    ):
+        generic = trajectory_fn(cp, d_t, head_steps, fused_kernels=False)(
+            y, 0.0
+        )
+        difference = (head[:head_steps] - generic).abs()
+        allowed = 1e-4 + 1e-4 * generic.abs()
+        log(
+            f"phase large-grid path: {label} first {head_steps} frames "
+            f"against the generic path: max|d| = {float(difference.max()):.3e}"
+            f" (atol = rtol = 1e-4)"
+        )
+        assert bool((difference <= allowed).all()), label
+        del generic, difference, allowed
+    plain = rd.resident_diffusion_rk4_trajectory_reference(
+        large_y[..., 0].contiguous(),
+        td._HornerConfig(large_cp, LARGE_D_T, resident=True),
+        LARGE_PLAIN_STEPS,
+    )
+    rel = check(k7, "full width", large_head[..., 0], plain)
+    log(
+        f"kernels: {k7} ({LARGE_N}x{LARGE_N}, {LARGE_PLAIN_STEPS} steps): "
+        f"max|d|/max|y| = {rel:.3e}"
+    )
+    plain = td.tiled_diffusion_rk4_trajectory_reference(
+        stream_y[..., 0].contiguous(),
+        td._HornerConfig(stream_cp, STREAM_D_T),
+        STREAM_PLAIN_STEPS,
+    )
+    rel = check(k6, "full width", stream_head[..., 0], plain)
+    log(
+        f"kernels: {k6} ({STREAM_N}x{STREAM_N}, {STREAM_PLAIN_STEPS} "
+        f"steps): max|d|/max|y| = {rel:.3e}"
+    )
+    del plain, large_head, stream_head, large_last, stream_last
+    torch.cuda.empty_cache()
+
+    # -- phase 11: times -------------------------------------------------
+    resident_cfg = td._HornerConfig(large_cp, LARGE_D_T, resident=True)
+    tiled_cfg = td._HornerConfig(stream_cp, STREAM_D_T)
+    run_ms = {}
+    for label, fn in large_fns.items():
+        key = f"{LARGE_N}x{LARGE_N} {label}"
+        run_ms[key] = cuda_ms(torch, lambda fn=fn: fn(large_y, 0.0))
+        bound_ms, bound_by = large_grid_bound(
+            resident_cfg, LARGE_STEPS, 4 if label == "float32" else 2
+        )
+        log(
+            f"time: K7 {key}, {LARGE_STEPS} steps: {run_ms[key]:.3f} ms "
+            f"({1e3 * run_ms[key] / LARGE_STEPS:.3f} us a step), bound "
+            f"{bound_ms:.3f} ms ({bound_by}) [{card}]"
+        )
+    for label, fn in stream_fns.items():
+        key = f"{STREAM_N}x{STREAM_N} {label}"
+        run_ms[key] = cuda_ms(torch, lambda fn=fn: fn(stream_y, 0.0))
+        block = 1 if label.endswith("1") else 2
+        item = 2 if label.startswith("bfloat16") else 4
+        bound_ms, bound_by = large_grid_bound(tiled_cfg, STREAM_STEPS, item)
+        traffic_ms = tiled_traffic_ms(
+            td.make_tile_plan(STREAM_N, STREAM_N, block),
+            tiled_cfg, STREAM_STEPS, block, item, item, False,
+        )
+        log(
+            f"time: K6 {key}, {STREAM_STEPS} steps: {run_ms[key]:.3f} ms "
+            f"({1e3 * run_ms[key] / STREAM_STEPS:.3f} us a step), bound "
+            f"{bound_ms:.3f} ms ({bound_by}), the kernel's own traffic "
+            f"(haloed tile reads and frames) {traffic_ms:.3f} ms at the "
+            f"memory rate [{card}]"
+        )
+    generic_fn = trajectory_fn(
+        large_cp, LARGE_D_T, GENERIC_TIMED_STEPS, fused_kernels=False
+    )
+    generic_ms = cuda_ms(torch, lambda: generic_fn(large_y, 0.0), reps=3)
+    scaled_ms = generic_ms * LARGE_STEPS / GENERIC_TIMED_STEPS
+    k7_ms = run_ms[f"{LARGE_N}x{LARGE_N} float32"]
+    log(
+        f"time: generic path {LARGE_N}x{LARGE_N}, {GENERIC_TIMED_STEPS} "
+        f"steps: {generic_ms:.3f} ms (median of 3), scaled to "
+        f"{LARGE_STEPS} steps {scaled_ms:.3f} ms (scaled, not run): K7 "
+        f"{scaled_ms / k7_ms:.3f}x faster [{card}]"
+    )
+    large_grid, stream_grid = (
+        y[..., 0].contiguous() for y in (large_y, stream_y)
+    )
+    plain_ms = {
+        k7: once_ms(
+            torch,
+            lambda: rd.resident_diffusion_rk4_trajectory_reference(
+                large_grid, resident_cfg, LARGE_STEPS
+            ),
+        ),
+        k6: once_ms(
+            torch,
+            lambda: td.tiled_diffusion_rk4_trajectory_reference(
+                stream_grid, tiled_cfg, STREAM_STEPS
+            ),
+        ),
+    }
+    torch.cuda.empty_cache()
+    # what a grid-wide barrier costs K7: the same solve with one barrier
+    # per 1, 2 and 4 steps (the plan's choice is 2)
+    for steps_per_barrier in (1, 2, 4):
+        plan = rd.make_resident_plan(LARGE_N, LARGE_N, steps_per_barrier)
+        if plan is None:
+            continue
+        barrier_ms = cuda_ms(
+            torch,
+            lambda plan=plan: rd.resident_diffusion_rk4_trajectory(
+                large_grid, resident_cfg, LARGE_STEPS, plan=plan
+            ),
+        )
+        log(
+            f"time: K7 {LARGE_N}x{LARGE_N} float32, one barrier per "
+            f"{steps_per_barrier} steps, {plan.n_tiles_h}x{plan.n_tiles_w} "
+            f"tiles of {plan.tile_h}x{plan.tile_w}: {barrier_ms:.3f} ms "
+            f"[{card}]"
+        )
+    timed = {
+        k7: (
+            f"{LARGE_N}x{LARGE_N}, {LARGE_STEPS} steps, float32",
+            k7_ms,
+            large_grid_bound(resident_cfg, LARGE_STEPS, 4),
+        ),
+        k6: (
+            f"{STREAM_N}x{STREAM_N}, {STREAM_STEPS} steps, float32, block 1",
+            run_ms[f"{STREAM_N}x{STREAM_N} float32, block 1"],
+            large_grid_bound(tiled_cfg, STREAM_STEPS, 4),
+        ),
+    }
+    entries = []
+    for name, _, replaces in LARGE_KERNELS:
+        what, kernel_ms, (bound_ms, bound_by) = timed[name]
+        log(
+            f"time: {name} ({what}): kernel {kernel_ms:.3f} ms, plain "
+            f"{plain_ms[name]:.3f} ms (one run), bound {bound_ms:.3f} ms "
+            f"({bound_by}) [{card}]"
+        )
+        entries.append(
+            {
+                "name": name,
+                "route": "cuda",
+                "source": LARGE_SOURCE,
+                "replaces": replaces,
+                "on_path": True,
+                "launches": launches[name],
+                "max_abs_err": errors[name],
+                "ms": kernel_ms,
+                "plain_ms": plain_ms[name],
+                "bound_ms": bound_ms,
+                "bound_us": bound_ms * 1e3,
+                "bound_by": bound_by,
+                "library_ms": None,
+                "timed": what,
+            }
+        )
+
+    # -- phase 12: device busy time and idle share (torch.profiler) ------
+    profiled = {
+        f"{LARGE_N}x{LARGE_N} float32": lambda: large_fns["float32"](
+            large_y, 0.0
+        ),
+        f"{STREAM_N}x{STREAM_N} float32, block 1": lambda: stream_fns[
+            "float32, block 1"
+        ](stream_y, 0.0),
+    }
+    for label, run in profiled.items():
+        busy_ms, top = device_busy_ms(torch, run)
+        if busy_ms is None:
+            # the profiler at times reports no device event for a run of
+            # one long kernel: ask once more
+            busy_ms, top = device_busy_ms(torch, run, reps=1)
+        if busy_ms is None:
+            log(f"profile: {label}: not measured (no device events)")
+            continue
+        log(
+            f"profile: {label}: device busy {busy_ms:.3f} ms of "
+            f"{run_ms[label]:.3f} ms, idle share "
+            f"{1.0 - busy_ms / run_ms[label]:.3f}; top: {top} [{card}]"
+        )
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -695,18 +1285,20 @@ def main() -> int:
         f"capability {torch.cuda.get_device_capability(device)}"
     )
 
-    from pararealml_tpu_torch.ops import fused_system
+    from pararealml_tpu_torch.ops import fused_system, tiled_diffusion
 
     start = time.perf_counter()
     # one nvcc per source, all started together
-    cuda_library.build_libraries(["fused_diffusion", "fused_system"])
+    sources = ("fused_diffusion", "fused_system", "tiled_diffusion")
+    cuda_library.build_libraries(sources)
     fd.load_kernels()
     fused_system.load_kernels()
+    tiled_diffusion.load_kernels()
     log(
         f"kernel libraries ready in {time.perf_counter() - start:.2f} s "
         f"(nvcc, in parallel: {cuda_library.build_seconds})"
     )
-    for source in ("fused_diffusion", "fused_system"):
+    for source in sources:
         build_log = cuda_library.build_logs.get(source, "")
         for line in build_log.splitlines():
             if "registers" in line or "spill" in line:
@@ -954,6 +1546,9 @@ def main() -> int:
 
     kernels += burgers_phases(
         torch, prml, device, card, cuda_ms, device_busy_ms
+    )
+    kernels += large_grid_phases(
+        torch, prml, device, card, cuda_ms, once_ms, device_busy_ms
     )
     print(json.dumps({"kernels": kernels}))
     print(card_line())

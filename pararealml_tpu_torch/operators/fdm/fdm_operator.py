@@ -8,11 +8,13 @@ chosen when it is built:
 - for parallel-in-time callers on linear problems, the exact affine
   propagator (:mod:`pararealml_tpu_torch.ops.linear_propagator`);
 - where the fused kernels apply (2D Cartesian diffusion,
-  convection-diffusion or Burgers under RK4, float32 states, grids that
-  fit one CTA's shared memory), the hand-written CUDA kernels of
-  :mod:`pararealml_tpu_torch.ops.fused_diffusion` (K1-K3) and
-  :mod:`pararealml_tpu_torch.ops.fused_system` (K5), or their plain
-  PyTorch versions for CPU tensors;
+  convection-diffusion or Burgers under RK4, float32 states), the
+  hand-written CUDA kernels of
+  :mod:`pararealml_tpu_torch.ops.fused_diffusion` (K1-K3 on grids that
+  fit one CTA's shared memory, the resident K7 and the tiled K6
+  trajectory kernels on larger diffusion grids) and
+  :mod:`pararealml_tpu_torch.ops.fused_system` (K5, grids that fit one
+  CTA), or their plain PyTorch versions for CPU tensors;
 - otherwise a Python loop over the generic step, which evaluates the
   symbolic right-hand side with stencils on tensors.
 
@@ -21,13 +23,13 @@ functions accept states with leading batch axes.
 
 Not ported yet: dynamic boundary conditions and the ``indexed_*``
 functions that serve them (ROADMAP.md, Queue 1, slice 1b), spatial
-domain decomposition (slice 7), the block-tiled kernels' storage-dtype
-and temporal-block knobs (slice 6), and equations with ``Y_LAPLACIAN``
+domain decomposition (slice 7), and equations with ``Y_LAPLACIAN``
 left-hand sides, which need the anti-Laplacian (slice 6).
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -93,18 +95,27 @@ class FDMOperator(TorchOperator):
         :param fused_kernels: whether to use the hand-written CUDA
             kernels for the problem classes they cover (2D Cartesian
             diffusion, convection-diffusion and Burgers under RK4 with
-            static boundary conditions, float32 states, grids that fit
-            one CTA's shared memory); the generic path is used otherwise
+            static boundary conditions, float32 states; Burgers only on
+            grids that fit one CTA's shared memory); the generic path is
+            used otherwise
         :param linear_propagator: whether parallel-in-time callers
             (``trajectory_function(..., time_parallel=True)``, i.e.
             Parareal sub-solves) may compute trajectories of *linear*
             problems as exact affine-propagator matmuls instead of
             sequential stencil stepping; plain ``solve`` calls always
             time-step
-        :param kernel_storage_dtype: not ported yet (the JAX package's
-            block-tiled kernels; ROADMAP.md, Queue 1, slice 6)
-        :param kernel_traj_dtype: not ported yet (likewise)
-        :param kernel_temporal_block: not ported yet (likewise)
+        :param kernel_storage_dtype: precision of the stored trajectory
+            (and, on the tiled path, of the state carried between
+            residencies) of the large-grid diffusion kernels:
+            ``torch.float32`` (default) or ``torch.bfloat16``, which
+            halves the traffic while all arithmetic stays float32; the
+            trajectory function then returns that dtype
+        :param kernel_traj_dtype: precision of the tiled kernel's stored
+            frames alone (defaults to ``kernel_storage_dtype``);
+            requires ``kernel_temporal_block >= 2`` when it differs
+        :param kernel_temporal_block: RK4 steps a tile of the tiled
+            kernel advances per residency (1, or even; stepped down to
+            a divisor of a solve's step count with a feasible tile plan)
         :param spatial_mesh: not ported yet (spatial domain
             decomposition; ROADMAP.md, Queue 1, slice 7)
         :param spatial_partition: not ported yet (likewise)
@@ -113,16 +124,6 @@ class FDMOperator(TorchOperator):
         :param dtype: the state's floating-point type (torch's default
             dtype when None); the fused kernels take float32
         """
-        if (
-            kernel_storage_dtype is not None
-            or kernel_traj_dtype is not None
-            or int(kernel_temporal_block) != 1
-        ):
-            raise NotImplementedError(
-                "the block-tiled kernels' storage dtype, snapshot dtype and "
-                "temporal block are not ported to PyTorch yet (ROADMAP.md, "
-                "Queue 1, slice 6)"
-            )
         if spatial_mesh is not None or spatial_partition is not None:
             raise NotImplementedError(
                 "spatial domain decomposition is not ported to PyTorch yet "
@@ -133,6 +134,9 @@ class FDMOperator(TorchOperator):
         self._differentiator = differentiator
         self._fused_kernels = fused_kernels
         self._linear_propagator = linear_propagator
+        self._kernel_storage_dtype = kernel_storage_dtype
+        self._kernel_traj_dtype = kernel_traj_dtype
+        self._kernel_temporal_block = int(kernel_temporal_block)
         self._compiled_cache = {}
 
     def solve(
@@ -231,10 +235,11 @@ class FDMOperator(TorchOperator):
         state stays on-chip for the whole solve; ``batch=B`` builds the
         batched variant mapping ``(B, ...) -> (B, ...)`` with one CTA per
         state (tagged ``batched``), otherwise it maps one state. On the
-        generic path the solve is a carry-only loop that never stacks
-        per-step states, and the function takes any leading batch axes
-        (tagged ``vmappable``; ``batch`` is ignored). Returns None for
-        dynamic boundary conditions.
+        generic path (which also serves diffusion grids past the one-CTA
+        gate, as in the JAX package) the solve is a carry-only loop that
+        never stacks per-step states, and the function takes any leading
+        batch axes (tagged ``vmappable``; ``batch`` is ignored). Returns
+        None for dynamic boundary conditions.
         """
         if (
             cp.differential_equation.x_dimension
@@ -300,9 +305,9 @@ class FDMOperator(TorchOperator):
     def _build_fused_trajectory_fn(
         self, cp, steps: int, dtype: torch.dtype
     ) -> Optional[Callable]:
-        """The fused trajectory kernel for this problem (K1 for the
-        diffusion family, the K5 trajectory for systems), or None when
-        none applies."""
+        """The fused trajectory kernel for this problem (K1, K7 or K6
+        for the diffusion family, by grid size; the K5 trajectory for
+        systems), or None when none applies."""
         from pararealml_tpu_torch.ops.fused_diffusion import (
             build_fused_diffusion_rk4_trajectory,
             fused_diffusion_step_applicable,
@@ -313,7 +318,47 @@ class FDMOperator(TorchOperator):
         )
 
         if fused_diffusion_step_applicable(cp, self._integrator, dtype):
-            return build_fused_diffusion_rk4_trajectory(cp, self._d_t, steps)
+            from pararealml_tpu_torch.ops.tiled_diffusion import (
+                resolve_temporal_block,
+                takes_streaming_path,
+            )
+
+            temporal_block = resolve_temporal_block(
+                cp,
+                steps,
+                self._kernel_temporal_block,
+                storage_dtype=self._kernel_storage_dtype,
+                traj_dtype=self._kernel_traj_dtype,
+            )
+            if (
+                temporal_block == 1
+                and self._kernel_traj_dtype is not None
+                and self._kernel_traj_dtype != self._kernel_storage_dtype
+                and takes_streaming_path(cp)
+            ):
+                # a split frame dtype needs the blocked pipeline; falling
+                # back to the state dtype silently would yield
+                # differently-rounded trajectories per solve
+                warnings.warn(
+                    f"kernel_traj_dtype={self._kernel_traj_dtype} "
+                    "dropped: no even temporal block <= "
+                    f"{self._kernel_temporal_block} divides this "
+                    f"solve's {steps} steps with a feasible tile "
+                    "plan, so snapshots keep the storage dtype",
+                    stacklevel=4,
+                )
+            return build_fused_diffusion_rk4_trajectory(
+                cp,
+                self._d_t,
+                steps,
+                storage_dtype=self._kernel_storage_dtype,
+                traj_dtype=(
+                    self._kernel_traj_dtype
+                    if temporal_block > 1
+                    else self._kernel_storage_dtype
+                ),
+                temporal_block=temporal_block,
+            )
         if fused_system_step_applicable(cp, self._integrator, dtype):
             return build_fused_system_rk4_trajectory(cp, self._d_t, steps)
         return None
@@ -363,7 +408,8 @@ class FDMOperator(TorchOperator):
                 # constraints, so the start time is irrelevant
                 return fused_trajectory(y_init)
 
-            # one CTA per leading index
+            # one CTA (K1, K5) or one launch sequence (K6, K7) per
+            # leading index
             fused.vmappable = True
             fused.fused = True
             return fused

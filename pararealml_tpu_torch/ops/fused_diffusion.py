@@ -22,10 +22,15 @@ Each kernel has a wrapper and a plain PyTorch version beside it:
 Applicability (:func:`fused_diffusion_step_applicable`): a
 single-component 2D Cartesian ``DiffusionEquation`` or
 ``ConvectionDiffusionEquation`` problem with static boundary conditions,
-solved with RK4, in float32, on a grid whose kernel working set fits the
-227 KB of shared memory one CTA can hold. Larger grids take the generic
-path; the JAX package's tiled and resident kernels for them are not
-ported yet (ROADMAP.md, Queue 2, K6 and K7).
+solved with RK4, in float32. A grid whose kernel working set fits the
+227 KB of shared memory one CTA can hold (about 100 x 100) takes K1-K3.
+A larger one takes the Horner-form trajectory kernels, as in the JAX
+package's dispatch: the resident kernel
+(:mod:`pararealml_tpu_torch.ops.resident_diffusion`, K7) where its plan
+exists and the Dirichlet constraints lie on the faces, else the tiled
+kernel (:mod:`pararealml_tpu_torch.ops.tiled_diffusion`, K6). End states
+on such a grid stay on the generic carry-only loop, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -83,10 +88,26 @@ def fused_diffusion_step_applicable(
     ):
         return False
     height, width = cp.mesh.vertices_shape
-    return (
-        min(height, width) >= 3
-        and shared_memory_bytes(height, width) <= MAX_SHARED_MEMORY_BYTES
+    if min(height, width) < 3:
+        return False
+    if fits_one_block(height, width):
+        return True
+
+    from pararealml_tpu_torch.ops.tiled_diffusion import (
+        dirichlet_is_face_only,
+        make_tile_plan,
     )
+
+    return make_tile_plan(height, width) is not None and (
+        dirichlet_is_face_only(cp)
+    )
+
+
+def fits_one_block(height: int, width: int) -> bool:
+    """Whether K1-K3's working set for an H x W grid fits one CTA's
+    shared memory; larger grids take the resident or the tiled
+    trajectory kernel."""
+    return shared_memory_bytes(height, width) <= MAX_SHARED_MEMORY_BYTES
 
 
 def _face_vectors(pair, length: int):
@@ -532,10 +553,53 @@ def build_fused_diffusion_rk4_trajectory(
     d_t: float,
     n_steps: int,
     diffusion_coefficient: Optional[float] = None,
+    storage_dtype=None,
+    traj_dtype=None,
+    temporal_block: int = 1,
 ):
     """Builds ``trajectory(y) -> ys`` computing ``n_steps`` fused RK4
-    steps through K1: ``(..., H, W, 1) -> (..., n_steps, H, W, 1)``,
-    one CTA per leading index."""
+    steps: ``(..., H, W, 1) -> (..., n_steps, H, W, 1)``.
+
+    A grid that fits one CTA's shared memory runs K1, one CTA per
+    leading index. A larger grid runs the resident kernel (K7) where its
+    plan exists and the Dirichlet constraints lie on the faces, else the
+    tiled kernel (K6), one launch sequence per leading index.
+
+    ``storage_dtype`` (larger grids only) selects the precision of the
+    stored trajectory and, on the tiled path, of the carried state;
+    ``traj_dtype`` and ``temporal_block`` tune the tiled path the same
+    way (frame precision and RK4 steps per tile residency). The resident
+    kernel ignores the last two, K1 all three."""
+    height, width = cp.mesh.vertices_shape
+    if not fits_one_block(height, width):
+        from pararealml_tpu_torch.ops.resident_diffusion import (
+            build_resident_diffusion_rk4_trajectory,
+            make_resident_plan,
+        )
+        from pararealml_tpu_torch.ops.tiled_diffusion import (
+            build_tiled_diffusion_rk4_trajectory,
+            dirichlet_is_face_only,
+        )
+
+        if make_resident_plan(
+            height, width
+        ) is not None and dirichlet_is_face_only(cp):
+            return build_resident_diffusion_rk4_trajectory(
+                cp,
+                d_t,
+                n_steps,
+                diffusion_coefficient=diffusion_coefficient,
+                storage_dtype=storage_dtype,
+            )
+        return build_tiled_diffusion_rk4_trajectory(
+            cp,
+            d_t,
+            n_steps,
+            diffusion_coefficient=diffusion_coefficient,
+            storage_dtype=storage_dtype,
+            traj_dtype=traj_dtype,
+            temporal_block=temporal_block,
+        )
     cfg = _KernelConfig(cp, d_t, diffusion_coefficient)
 
     def trajectory(y: torch.Tensor) -> torch.Tensor:
@@ -559,8 +623,9 @@ def build_fused_diffusion_rk4_end(
 
     With ``batch=B``, ``end`` maps ``(B, H, W, 1) -> (B, H, W, 1)``, one
     CTA per slice; otherwise it maps one ``(H, W, 1)`` state."""
-    height, width = cp.mesh.vertices_shape
-    if shared_memory_bytes(height, width) > MAX_SHARED_MEMORY_BYTES:
+    if not fits_one_block(*cp.mesh.vertices_shape):
+        # larger grids have no end kernel: callers take the generic
+        # carry-only loop, as in the JAX package
         return None
     cfg = _KernelConfig(cp, d_t, diffusion_coefficient)
     expected_lead = () if batch is None else (batch,)
@@ -582,8 +647,19 @@ def build_fused_diffusion_rk4_step(
     d_t: float,
     diffusion_coefficient: Optional[float] = None,
 ):
-    """Builds ``step(y) -> y_next`` computing one fused RK4 step through
-    K3, ``(..., H, W, 1) -> (..., H, W, 1)``."""
+    """Builds ``step(y) -> y_next`` computing one fused RK4 step,
+    ``(..., H, W, 1) -> (..., H, W, 1)``: through K3 on a grid that fits
+    one CTA, else as the one-step trajectory of the resident or the
+    tiled kernel."""
+    if not fits_one_block(*cp.mesh.vertices_shape):
+        trajectory = build_fused_diffusion_rk4_trajectory(
+            cp, d_t, 1, diffusion_coefficient=diffusion_coefficient
+        )
+
+        def single_step(y: torch.Tensor) -> torch.Tensor:
+            return trajectory(y)[..., 0, :, :, :]
+
+        return single_step
     cfg = _KernelConfig(cp, d_t, diffusion_coefficient)
 
     def step(y: torch.Tensor) -> torch.Tensor:

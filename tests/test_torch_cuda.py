@@ -32,6 +32,7 @@ from pararealml_tpu_torch.operators.ml.supervised import (
 from pararealml_tpu_torch.operators.parareal import PararealOperator
 from pararealml_tpu_torch.ops import fused_diffusion, fused_system
 from pararealml_tpu_torch.ops import packed_system
+from pararealml_tpu_torch.ops import resident_diffusion, tiled_diffusion
 from pararealml_tpu_torch.utils import load_pytree
 
 torch.set_num_threads(1)
@@ -102,6 +103,44 @@ PROBLEMS = {
     "flagship": lambda module: build_problem(module, 40.0),
     "neumann": _neumann_problem,
     "convection": _convection_problem,
+}
+
+
+def large_grid_problem(
+    module, h_extent, w_extent, d_x, convection=False, flux=0.0
+):
+    """The constrained problem of tests/test_tiled_diffusion.py:
+    diffusion (or convection-diffusion) with coefficient 0.3, Dirichlet
+    rows of value 1.5 and Neumann columns of the given flux."""
+    if convection:
+        diff_eq = module["ConvectionDiffusionEquation"](2, [0.8, -0.4], 0.3)
+    else:
+        diff_eq = module["DiffusionEquation"](2, 0.3)
+    mesh = module["Mesh"]([(0.0, h_extent), (0.0, w_extent)], [d_x, d_x])
+    bcs = [
+        (
+            module["DirichletBoundaryCondition"](
+                lambda x, t: np.full((len(x), 1), 1.5), is_static=True
+            ),
+        )
+        * 2,
+        (
+            module["NeumannBoundaryCondition"](
+                lambda x, t: np.full((len(x), 1), flux), is_static=True
+            ),
+        )
+        * 2,
+    ]
+    return module["ConstrainedProblem"](diff_eq, mesh, bcs)
+
+
+# tests/test_tiled_diffusion.py's problems: Dirichlet rows with Neumann
+# columns at flux 0 (the ghost columns fold into the taps), flux 0.2 with
+# convection, flux 0.1
+LARGE_GRID_PROBLEMS = {
+    "folded_17x33": (4.0, 8.0, 0.25, False, 0.0),
+    "convection_33x17": (8.0, 4.0, 0.25, True, 0.2),
+    "flux_81x81": (10.0, 10.0, 0.125, False, 0.1),
 }
 
 
@@ -315,3 +354,124 @@ def test_burgers_ml_parareal_on_cuda_matches_cpu(cuda_device):
     assert on_card.shape == on_cpu.shape == (1600, 21, 21, 2)
     scale = float(np.abs(on_cpu).max())
     assert float(np.abs(on_card - on_cpu).max()) <= 1e-4 * scale
+
+
+def _large_grid_state(cp, device):
+    height, width = cp.mesh.vertices_shape
+    x = torch.linspace(0.0, 3.0, height, device=device)[:, None]
+    y = torch.linspace(0.0, 2.0, width, device=device)[None, :]
+    return (1.5 + torch.sin(2.0 * x) * torch.cos(3.0 * y)).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("problem", sorted(LARGE_GRID_PROBLEMS))
+def test_cuda_resident_kernel_matches_plain_version(problem, cuda_device):
+    """K7 against its plain version, with float32 and bfloat16 frames, on
+    its own tile plan and on 8 x 8 tiles with one barrier per step and
+    per three steps, and for a batch."""
+    cp = large_grid_problem(vars(torch_pkg), *LARGE_GRID_PROBLEMS[problem])
+    cfg = tiled_diffusion._HornerConfig(cp, 0.005, resident=True)
+    y = _large_grid_state(cp, cuda_device)
+    height, width = cp.mesh.vertices_shape
+    # 8 x 8 tiles with a barrier every step and every third step (23
+    # steps: the last group is cut short)
+    tiles = (-(-height // 8), -(-width // 8), 8, 8)
+    plans = (
+        None,
+        resident_diffusion._ResidentPlan(*tiles, 1),
+        resident_diffusion._ResidentPlan(*tiles, 3),
+    )
+    wrapper = resident_diffusion.resident_diffusion_rk4_trajectory
+    launches = wrapper.launches
+    for storage in (torch.float32, torch.bfloat16):
+        plain = resident_diffusion.resident_diffusion_rk4_trajectory_reference(
+            y, cfg, 23, storage
+        )
+        for plan in plans:
+            kernel = wrapper(y, cfg, 23, storage, plan=plan)
+            torch.cuda.synchronize()
+            assert kernel.dtype == storage and kernel.shape == plain.shape
+            # the same float32 operations in the same order, the same
+            # roundings to bfloat16
+            assert torch.equal(kernel, plain)
+    ys = torch.stack([y, y * 0.5 + 1.0])
+    assert torch.equal(
+        wrapper(ys, cfg, 8),
+        resident_diffusion.resident_diffusion_rk4_trajectory_reference(
+            ys, cfg, 8
+        ),
+    )
+    assert wrapper.launches == launches + 7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("temporal_block", [1, 2, 4])
+@pytest.mark.parametrize("problem", sorted(LARGE_GRID_PROBLEMS))
+def test_cuda_tiled_kernel_matches_plain_version(
+    problem, temporal_block, cuda_device
+):
+    """K6 against its plain version at temporal blocks 1, 2 and 4, with
+    float32 and bfloat16 states and frames, on its own tile plan (one or
+    two tiles) and on small tiles (many, the last ones overhanging)."""
+    cp = large_grid_problem(vars(torch_pkg), *LARGE_GRID_PROBLEMS[problem])
+    cfg = tiled_diffusion._HornerConfig(cp, 0.005)
+    y = _large_grid_state(cp, cuda_device)
+    height, width = cp.mesh.vertices_shape
+    # tiles of max(12, halo) x max(20, halo) cells
+    small = tiled_diffusion.make_tile_plan(
+        height,
+        width,
+        temporal_block,
+        8 * temporal_block + max(12, 4 * temporal_block),
+        8 * temporal_block + max(20, 4 * temporal_block),
+    )
+    assert small is not None
+    dtypes = [(None, None), (torch.bfloat16, None)]
+    if temporal_block > 1:
+        dtypes += [(None, torch.bfloat16), (torch.bfloat16, torch.float32)]
+    wrapper = tiled_diffusion.tiled_diffusion_rk4_trajectory
+    launches = wrapper.launches
+    for storage, traj in dtypes:
+        plain = tiled_diffusion.tiled_diffusion_rk4_trajectory_reference(
+            y, cfg, 16, storage, traj, temporal_block
+        )
+        for plan in (None, small):
+            kernel = wrapper(
+                y, cfg, 16, storage, traj, temporal_block, plan=plan
+            )
+            torch.cuda.synchronize()
+            assert kernel.dtype == plain.dtype
+            assert torch.equal(kernel, plain)
+    assert wrapper.launches == launches + 2 * len(dtypes)
+
+
+@pytest.mark.cuda
+def test_cuda_large_grid_kernels_agree_and_raise(cuda_device):
+    """K6 against K7 on one grid (they share the arithmetic up to the
+    rounding of the folded coefficients: 1e-5 of the largest value after
+    50 steps), the resident kernel's refusal of a grid of blocks the card
+    cannot hold at once, and the wrappers' input checks."""
+    cp = large_grid_problem(vars(torch_pkg), 10.0, 10.0, 10.0 / 160.0)
+    y = _large_grid_state(cp, cuda_device)
+    tiled = tiled_diffusion.tiled_diffusion_rk4_trajectory(
+        y, tiled_diffusion._HornerConfig(cp, 2e-3), 50
+    )
+    cfg = tiled_diffusion._HornerConfig(cp, 2e-3, resident=True)
+    resident = resident_diffusion.resident_diffusion_rk4_trajectory(y, cfg, 50)
+    torch.cuda.synchronize()
+    scale = float(resident.abs().max())
+    assert float((tiled - resident).abs().max()) <= KERNEL_TOL * scale
+    # 41 x 41 blocks of 384 threads: more than the card holds at once
+    # (at most 2,048 threads an SM), so the cooperative launch is refused
+    with pytest.raises(RuntimeError, match="resident diffusion kernel"):
+        resident_diffusion.resident_diffusion_rk4_trajectory(
+            y, cfg, 2, plan=resident_diffusion._ResidentPlan(41, 41, 4, 4)
+        )
+    with pytest.raises(TypeError, match="float32"):
+        resident_diffusion.resident_diffusion_rk4_trajectory(
+            y.double(), cfg, 2
+        )
+    with pytest.raises(ValueError, match="contiguous"):
+        tiled_diffusion.tiled_diffusion_rk4_trajectory(
+            torch.zeros((161, 322), device=cuda_device)[:, ::2], cfg, 2
+        )

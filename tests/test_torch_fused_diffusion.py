@@ -16,9 +16,13 @@ import pararealml_tpu as jax_pkg
 import pararealml_tpu_torch as torch_pkg
 from pararealml_tpu.operators.fdm import ForwardEulerMethod as JaxEuler
 from pararealml_tpu.operators.fdm import RK4 as JaxRK4
+from bench import build_problem
 from pararealml_tpu.ops import fused_diffusion as jax_fused
+from pararealml_tpu.ops import tiled_diffusion as jax_tiled
 from pararealml_tpu_torch.operators.fdm import ForwardEulerMethod, RK4
 from pararealml_tpu_torch.ops import fused_diffusion as torch_fused
+from pararealml_tpu_torch.ops import resident_diffusion as torch_resident
+from pararealml_tpu_torch.ops import tiled_diffusion as torch_tiled
 from tests.test_torch_cuda import PROBLEMS
 
 torch.set_num_threads(1)
@@ -128,10 +132,34 @@ def test_step_reference_matches_pallas_kernel(x64_off):
 
 
 @pytest.mark.parametrize(
-    "case", ["flagship", "neumann", "convection", "wave", "euler"]
+    "case",
+    [
+        "flagship",
+        "neumann",
+        "convection",
+        "wave",
+        "euler",
+        "resident_641",
+        "tiled_2049",
+    ],
 )
 def test_applicability_matches_jax(case, x64_off):
-    if case == "wave":
+    if case in ("resident_641", "tiled_2049"):
+        # the bench's large grids: past the one-CTA gate, on the resident
+        # and on the tiled route in both packages
+        n = int(case.split("_")[1])
+        jax_cp, torch_cp = (
+            build_problem(
+                vars(module), 1e-3, d_x=10.0 / (n - 1), d=0.05
+            ).constrained_problem
+            for module in (jax_pkg, torch_pkg)
+        )
+        shape = torch_cp.mesh.vertices_shape
+        assert not torch_fused.fits_one_block(*shape)
+        streams = case == "tiled_2049"
+        assert torch_tiled.takes_streaming_path(torch_cp) == streams
+        assert jax_tiled.takes_streaming_path(jax_cp) == streams
+    elif case == "wave":
         cps = []
         for module in (jax_pkg, torch_pkg):
             mesh = module.Mesh([(0.0, 1.0)], [0.5])
@@ -179,8 +207,13 @@ def test_applicability_requires_the_grid_to_fit_shared_memory():
     assert torch_fused.shared_memory_bytes(129, 129) > (
         torch_fused.MAX_SHARED_MEMORY_BYTES
     )
-    assert not torch_fused.fused_diffusion_step_applicable(cp, RK4())
+    assert not torch_fused.fits_one_block(129, 129)
+    # K1-K3 do not take the grid: it has no end kernel, and its
+    # trajectory and step go to the resident kernel's route
     assert torch_fused.build_fused_diffusion_rk4_end(cp, D_T, 3) is None
+    assert torch_fused.fused_diffusion_step_applicable(cp, RK4())
+    assert torch_resident.make_resident_plan(129, 129) is not None
+    assert not torch_tiled.takes_streaming_path(cp)
 
 
 def test_wrappers_run_the_plain_version_for_cpu_tensors():
