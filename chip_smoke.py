@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port's main paths on one NVIDIA GPU.
 
-Drives ``pararealml_tpu_torch`` — never JAX — through its three ported
+Drives ``pararealml_tpu_torch`` — never JAX — through its four ported
 paths at full size, each through the entry points a user calls.
 
 The diffusion_2d Parareal flagship (21 x 21 grid, Dirichlet 1.5 on the x
@@ -74,6 +74,32 @@ The large-grid diffusion path (bench.py's ``bench_large_grid`` and
     641 x 641 over 20 steps (scaled to 2,000 and labelled so), and prints
     the bfloat16 error of the last frame against float32;
 12. profiles the two float32 runs as in phase 4.
+
+The 3D Cartesian path (bench.py's ``bench_3d``: 21^3 viscous Burgers,
+Re = 100, zero-flux faces, a Gaussian in the first component, d_t 0.01;
+and ``examples/cahn_hilliard_3d_fdm.py``: 31^3 Cahn-Hilliard, gamma = 0.5,
+zero-flux faces, d_t 0.05), on the card by default:
+
+13. holds the fused 3D kernel (K9: trajectory, single and batched end,
+    step) against its plain version for each of its five families with
+    all-Neumann faces and with Dirichlet 0.1 lower and Neumann 0.05 upper
+    faces, on an 11 x 7 x 9 volume at every cluster size (1, 2, 4 and 8
+    blocks), and at the main path's shapes on each configuration's own
+    cluster plan;
+14. runs the path with every counter at 0: 2,000 Burgers steps and the
+    example's 3,000 Cahn-Hilliard steps through
+    ``FDMOperator.trajectory_function`` (one K9 launch each), a
+    200-step Cahn-Hilliard ``solve``, and Parareal over a K9 fine (d_t
+    0.01) and a K9 coarse (d_t 1.25) operator on the Burgers problem, 8
+    slices over T = 20; it reads the counters right after, checks the
+    Burgers frames against the generic path (atol = rtol = 1e-4), the
+    solve against the trajectory, and Parareal against the fine
+    trajectory, on a problem where the coarse operator alone fails that
+    check and at least two iterations must correct it;
+15. times both trajectories, the generic path over 20 steps (scaled,
+    and labelled so), the plain versions once, Parareal, and each kernel
+    at its timed shape beside its plain version and its bound;
+16. profiles the two trajectories and Parareal as in phase 4.
 
 Run it from the repository root with no arguments: ``python3
 chip_smoke.py``. It needs one CUDA card and ``nvcc`` and exits non-zero,
@@ -203,6 +229,55 @@ LARGE_KERNELS = (
     ),
 )
 
+# the 3D path (bench.py:1509-1567, examples/cahn_hilliard_3d_fdm.py)
+BURGERS_3D_STEPS = 2000
+BURGERS_3D_D_T = 0.01
+CH_3D_STEPS = 3000
+CH_3D_D_T = 0.05
+CH_3D_GAMMA = 0.5
+CH_3D_SOLVE_STEPS = 200
+# Parareal over the Burgers problem: 8 slices of 250 fine and 2 coarse
+# steps. The coarse d_t is the largest that divides a slice and keeps RK4
+# stable on this problem (d_t nu |lambda_max| = 2.4 of 2.79): its own
+# slice ends miss the fine ones by about 5e-5, past the gate below, so the
+# check fails unless the corrections bring them back, which takes 2
+# iterations at this tolerance. A finer coarse d_t (0.1 to 0.625) misses
+# them by 2.3e-6 at most, inside the gate, and stops after one iteration.
+PARAREAL_3D_SLICES = 8
+PARAREAL_3D_COARSE_D_T = 1.25
+PARAREAL_3D_TOLERANCE = 1e-6
+# Parareal's trajectory against the fine one: the correction leaves
+# float32 rounding of the two K9 paths (values up to 0.18)
+PARAREAL_3D_GATE = 1e-5
+# the volume every cluster size takes (11 planes: slabs of one and two)
+K9_SMALL_SHAPE = (11, 7, 9)
+K9_SMALL_STEPS = 20
+# frames held against the generic path, the generic path's and the plain
+# versions' timed steps, and the kernels' timed shapes
+BURGERS_3D_HEAD_STEPS = 20
+GENERIC_3D_TIMED_STEPS = 20
+PLAIN_3D_TIMED_STEPS = 20
+K9_TIMED_STEPS = 200
+THREE_D_SOURCE = "pararealml_tpu_torch/csrc/fused_system_3d.cu"
+# (name, the Pallas kernel it replaces, on the 3D main path)
+THREE_D_KERNELS = (
+    (
+        "fused_system_3d_rk4_trajectory",
+        "pararealml_tpu/ops/fused_system_3d.py:532",
+        True,
+    ),
+    (
+        "fused_system_3d_rk4_end",
+        "pararealml_tpu/ops/fused_system_3d.py:723",
+        True,
+    ),
+    (
+        "fused_system_3d_rk4_step",
+        "pararealml_tpu/ops/fused_system_3d.py:861",
+        False,
+    ),
+)
+
 # the card's published peaks (NVIDIA H100 SXM data sheet, at the 700 W
 # power limit): HBM bytes per second and float32 operations per second
 # outside the tensor cores
@@ -214,6 +289,13 @@ PEAK_FP32_FLOPS = 67e12
 # 18-operation right-hand side and 4 stage updates per component and
 # stage, for 2 components, and the final combination
 FLOPS_PER_CELL_STEP = {"diffusion": 62, "burgers": 180}
+# the same for K9's families on the main path, counted from its arithmetic:
+# a Laplacian is 13 (2 s once, three per axis, two sums, the coefficient),
+# a gradient term 4 (difference, scale, product, subtraction); Burgers
+# evaluates three components of a Laplacian and three gradient terms per
+# stage and 13 stage updates per component and step (4 x 3 x 25 + 39);
+# Cahn-Hilliard three Laplacians and 4 + 4 updates a step (3 x 13 + 8)
+K9_FLOPS_PER_CELL_STEP = {"burgers": 339, "cahn-hilliard": 47}
 
 
 def bound(bytes_moved: float, flops: float):
@@ -1253,6 +1335,522 @@ def large_grid_phases(
     return entries
 
 
+def burgers_3d(prml):
+    """bench.py's ``bench_3d`` problem: 3-component viscous Burgers (Re =
+    100) on [0, 5]^3 at d_x 0.25 (21^3), zero-flux faces, a Gaussian of
+    covariance 0.5 I in the first component, over ``BURGERS_3D_STEPS``
+    steps of ``BURGERS_3D_D_T``."""
+    n = 3
+    bcs = [
+        (
+            prml.NeumannBoundaryCondition(
+                lambda x, t: np.zeros((len(x), n)), is_static=True
+            ),
+        )
+        * 2
+    ] * 3
+    cp = prml.ConstrainedProblem(
+        prml.BurgersEquation(3, 100.0),
+        prml.Mesh([(0.0, 5.0)] * 3, [0.25] * 3),
+        bcs,
+    )
+    ic = prml.GaussianInitialCondition(
+        cp, [(np.full(3, 2.5), 0.5 * np.eye(3))] * n, [1.0, 0.0, 0.0]
+    )
+    return prml.InitialValueProblem(
+        cp, (0.0, BURGERS_3D_STEPS * BURGERS_3D_D_T), ic
+    )
+
+
+def cahn_hilliard_3d(torch, prml, n_steps):
+    """examples/cahn_hilliard_3d_fdm.py's problem: Cahn-Hilliard with
+    gamma = 0.5 on [1, 31]^3 at d_x 1 (31^3), zero-flux faces, y0 a
+    uniform perturbation of amplitude 0.05 from numpy seed 0 and y1 its
+    chemical potential, over ``n_steps`` steps of ``CH_3D_D_T``."""
+    from pararealml_tpu_torch.operators.fdm import (
+        ThreePointCentralDifferenceMethod,
+    )
+    from pararealml_tpu_torch.operators.fdm.numerical_differentiator import (
+        slice_all_constraint_pairs,
+    )
+
+    mesh = prml.Mesh([(1.0, 31.0)] * 3, [1.0] * 3)
+    bcs = [
+        (
+            prml.NeumannBoundaryCondition(
+                lambda x, t: np.zeros((len(x), 2)), is_static=True
+            ),
+        )
+        * 2
+    ] * 3
+    cp = prml.ConstrainedProblem(
+        prml.CahnHilliardEquation(3, gamma=CH_3D_GAMMA), mesh, bcs
+    )
+    np.random.seed(0)
+    y_0_0 = 0.05 * np.random.uniform(-1.0, 1.0, mesh.vertices_shape + (1,))
+    d_y_constraints = slice_all_constraint_pairs(
+        cp.static_boundary_vertex_constraints.d_y, slice(0, 1)
+    )
+    laplacian = ThreePointCentralDifferenceMethod().laplacian(
+        torch.as_tensor(y_0_0), mesh, d_y_constraints
+    ).numpy()
+    y_0_1 = y_0_0**3 - y_0_0 - CH_3D_GAMMA * laplacian
+    ic = prml.DiscreteInitialCondition(
+        cp, np.concatenate([y_0_0, y_0_1], axis=-1), True
+    )
+    return prml.InitialValueProblem(cp, (0.0, n_steps * CH_3D_D_T), ic)
+
+
+def problem_3d(prml, family, dirichlet, shape):
+    """A small problem of one of K9's families (tests/test_torch_cuda.py's
+    ``problem_3d``): spacing 0.125, zero-flux faces, or Dirichlet 0.1 on
+    the lower and Neumann 0.05 on the upper face of every axis."""
+    equation, n = {
+        "diffusion": (prml.DiffusionEquation(3, 0.3), 1),
+        "convection-diffusion": (
+            prml.ConvectionDiffusionEquation(3, [0.4, -0.3, 0.2], 0.2),
+            1,
+        ),
+        "wave": (prml.WaveEquation(3, 1.2), 2),
+        "burgers": (prml.BurgersEquation(3, 50.0), 3),
+        "cahn-hilliard": (prml.CahnHilliardEquation(3), 2),
+    }[family]
+    mesh = prml.Mesh([(0.0, (s - 1) * 0.125) for s in shape], [0.125] * 3)
+    if dirichlet:
+        bcs = [
+            (
+                prml.DirichletBoundaryCondition(
+                    lambda x, t: np.full((len(x), n), 0.1), is_static=True
+                ),
+                prml.NeumannBoundaryCondition(
+                    lambda x, t: np.full((len(x), n), 0.05), is_static=True
+                ),
+            )
+        ] * 3
+    else:
+        bcs = [
+            (
+                prml.NeumannBoundaryCondition(
+                    lambda x, t: np.zeros((len(x), n)), is_static=True
+                ),
+            )
+            * 2
+        ] * 3
+    return prml.ConstrainedProblem(equation, mesh, bcs)
+
+
+def k9_bound(family, cfg, batch, n_steps, trajectory):
+    """The bound of a K9 launch: each state and the constraint tensors
+    (a float value and a byte mask a value, and the Neumann faces) read
+    once, every step or the end state written once, against the
+    family's operations per cell and step."""
+    values = cfg.depth * cfg.height * cfg.width * cfg.n
+    faces = 2 * cfg.n * (
+        cfg.height * cfg.width
+        + cfg.depth * cfg.width
+        + cfg.depth * cfg.height
+    )
+    read = 4 * batch * values + 5 * values + 5 * faces
+    written = 4 * batch * values * (n_steps if trajectory else 1)
+    cells = cfg.depth * cfg.height * cfg.width
+    return bound(
+        read + written,
+        K9_FLOPS_PER_CELL_STEP[family] * batch * n_steps * cells,
+    )
+
+
+def three_d_phases(
+    torch, prml, device, card, cuda_ms, once_ms, device_busy_ms
+):
+    """Phases 13-16: the 3D Cartesian path. Returns the three kernel
+    functions' entries of the JSON line. ``cuda_ms``, ``once_ms`` and
+    ``device_busy_ms`` are the timing and profiling functions."""
+    from pararealml_tpu_torch.operators.fdm import (
+        RK4,
+        FDMOperator,
+        ThreePointCentralDifferenceMethod,
+    )
+    from pararealml_tpu_torch.operators.parareal import PararealOperator
+    from pararealml_tpu_torch.ops import fused_system_3d as k9
+
+    wrappers = {name: getattr(k9, name) for name, _, _ in THREE_D_KERNELS}
+    plain = {
+        name: getattr(k9, f"{name}_reference")
+        for name, _, _ in THREE_D_KERNELS
+    }
+    trajectory_name, end_name, step_name = (n for n, _, _ in THREE_D_KERNELS)
+    errors = {name: 0.0 for name in wrappers}
+
+    def check(name, what, kernel, expected):
+        torch.cuda.synchronize()
+        assert kernel.shape == expected.shape, (name, what)
+        abs_err = float((kernel - expected).abs().max())
+        rel_err = abs_err / float(expected.abs().max())
+        errors[name] = max(errors[name], abs_err)
+        if not rel_err <= KERNEL_REL_TOL:
+            raise AssertionError(
+                f"{name} disagrees with its plain version ({what}): "
+                f"{rel_err:.3e}"
+            )
+        return rel_err
+
+    def states(shape, n, batch=None, seed=0):
+        rng = np.random.default_rng(seed)
+        lead = () if batch is None else (batch,)
+        return torch.as_tensor(
+            rng.uniform(-1.0, 1.0, lead + tuple(shape) + (n,)),
+            dtype=torch.float32,
+            device=device,
+        )
+
+    def initial(ivp):
+        return torch.as_tensor(
+            ivp.initial_condition.discrete_y_0(True),
+            dtype=torch.float32,
+            device=device,
+        )
+
+    # -- phase 13: K9 against its plain version --------------------------
+    families = (
+        "diffusion",
+        "convection-diffusion",
+        "wave",
+        "burgers",
+        "cahn-hilliard",
+    )
+    for family in families:
+        worst, cases = 0.0, 0
+        for dirichlet in (False, True):
+            cp = problem_3d(prml, family, dirichlet, K9_SMALL_SHAPE)
+            cfg = k9._SystemKernelConfig3D(cp, 1e-3)
+            y = states(K9_SMALL_SHAPE, cfg.n)
+            ys = states(K9_SMALL_SHAPE, cfg.n, batch=3, seed=1)
+            steps = K9_SMALL_STEPS
+            checks = [
+                (trajectory_name, (y, cfg, steps), "single"),
+                (end_name, (y, cfg, steps), "single"),
+                (end_name, (ys, cfg, steps), "B=3"),
+                (step_name, (ys, cfg), "B=3"),
+            ]
+            for name, args, what in checks:
+                expected = plain[name](*args)
+                for size in k9.CLUSTER_SIZES:
+                    kernel = wrappers[name](*args, cluster_size=size)
+                    worst = max(
+                        worst,
+                        check(
+                            name,
+                            f"{family}, dirichlet={dirichlet}, {what}, "
+                            f"cluster of {size}",
+                            kernel,
+                            expected,
+                        ),
+                    )
+                    cases += 1
+        log(
+            f"kernels: 3d {family}: {cases} cases (trajectory, single and "
+            f"B=3 end, step; Neumann and Dirichlet/Neumann faces; clusters "
+            f"of 1, 2, 4, 8 blocks on {K9_SMALL_SHAPE}) max|d|/max|y| = "
+            f"{worst:.3e}"
+        )
+    burgers_ivp = burgers_3d(prml)
+    ch_ivp = cahn_hilliard_3d(torch, prml, CH_3D_STEPS)
+    burgers_cp = burgers_ivp.constrained_problem
+    ch_cp = ch_ivp.constrained_problem
+    burgers_y, ch_y = initial(burgers_ivp), initial(ch_ivp)
+    fine_cfg = k9._SystemKernelConfig3D(burgers_cp, BURGERS_3D_D_T)
+    coarse_cfg = k9._SystemKernelConfig3D(burgers_cp, PARAREAL_3D_COARSE_D_T)
+    ch_cfg = k9._SystemKernelConfig3D(ch_cp, CH_3D_D_T)
+    slice_steps = BURGERS_3D_STEPS // PARAREAL_3D_SLICES
+    coarse_steps = round(
+        BURGERS_3D_STEPS * BURGERS_3D_D_T / PARAREAL_3D_COARSE_D_T
+    ) // PARAREAL_3D_SLICES
+    slices = torch.stack(
+        [burgers_y * (1.0 - 0.01 * i) for i in range(PARAREAL_3D_SLICES)]
+    ).contiguous()
+    # the main path's shapes; the first two are also the shapes phase 15
+    # times, so their plain versions are timed here, once
+    full_width = [
+        (trajectory_name, (burgers_y, fine_cfg, K9_TIMED_STEPS),
+         f"21^3 x 3 Burgers, {K9_TIMED_STEPS} steps"),
+        (end_name, (slices, fine_cfg, slice_steps),
+         f"B={PARAREAL_3D_SLICES} x 21^3 x 3, {slice_steps} steps (one "
+         f"iteration's fine ends)"),
+        (end_name, (burgers_y, coarse_cfg, coarse_steps),
+         f"21^3 x 3, coarse d_t, {coarse_steps} steps"),
+        (step_name, (slices, fine_cfg), f"B={PARAREAL_3D_SLICES} x 21^3 x 3"),
+        (trajectory_name, (ch_y, ch_cfg, K9_TIMED_STEPS),
+         f"31^3 x 2 Cahn-Hilliard, {K9_TIMED_STEPS} steps"),
+    ]
+    timed = {}
+    for name, args, what in full_width:
+        if name in timed or name == step_name:
+            expected = plain[name](*args)
+        else:
+            outputs = []
+            plain_ms = once_ms(
+                torch, lambda: outputs.append(plain[name](*args))
+            )
+            expected = outputs.pop()
+            timed[name] = (what, args, plain_ms)
+        rel = check(name, what, wrappers[name](*args), expected)
+        log(
+            f"kernels: {name} ({what}, cluster of "
+            f"{args[1].plan.cluster_size}): max|d|/max|y| = {rel:.3e}"
+        )
+    torch.cuda.empty_cache()
+    log("phase 3d kernels: ok")
+
+    # -- phase 14: the path at full width, counted -----------------------
+    def fdm(d_t, **kwargs):
+        # no device argument: the entry points run on the card
+        return FDMOperator(
+            RK4(), ThreePointCentralDifferenceMethod(), d_t, **kwargs
+        )
+
+    burgers_fn, _ = fdm(BURGERS_3D_D_T).trajectory_function(
+        burgers_cp, (0.0, BURGERS_3D_STEPS * BURGERS_3D_D_T)
+    )
+    ch_fn, _ = fdm(CH_3D_D_T).trajectory_function(
+        ch_cp, (0.0, CH_3D_STEPS * CH_3D_D_T)
+    )
+    parareal = PararealOperator(
+        fdm(BURGERS_3D_D_T),
+        fdm(PARAREAL_3D_COARSE_D_T),
+        PARAREAL_3D_TOLERANCE,
+        num_time_slices=PARAREAL_3D_SLICES,
+    )
+    assert burgers_fn.fused and ch_fn.fused
+
+    for wrapper in wrappers.values():
+        wrapper.launches = 0
+    burgers_ys = burgers_fn(burgers_y, 0.0)
+    ch_ys = ch_fn(ch_y, 0.0)
+    ch_last = ch_ys[-1].clone()
+    ch_head = ch_ys[:CH_3D_SOLVE_STEPS].double().cpu().numpy()
+    del ch_ys
+    solved = fdm(CH_3D_D_T).solve(
+        cahn_hilliard_3d(torch, prml, CH_3D_SOLVE_STEPS)
+    ).discrete_y()
+    trajectory_launches = {name: w.launches for name, w in wrappers.items()}
+    parareal_ys = parareal.solve(burgers_ivp).discrete_y()
+    launches = {name: w.launches for name, w in wrappers.items()}
+    iterations = parareal.last_iterations
+    parareal_launches = {
+        name: launches[name] - trajectory_launches[name] for name in launches
+    }
+    log(
+        f"3d main-path launches: {launches} (the two trajectories and the "
+        f"solve: {trajectory_launches}; Parareal: {parareal_launches}, "
+        f"{iterations} iterations: in iteration i (from 0) one batched end "
+        f"launch of {PARAREAL_3D_SLICES} clusters for the fine ends and "
+        f"{PARAREAL_3D_SLICES - 1} - i single-state end launches for the "
+        f"coarse sweep)"
+    )
+    assert trajectory_launches == {
+        trajectory_name: 3, end_name: 0, step_name: 0
+    }, trajectory_launches
+    # Parareal: the initial coarse sweep and the final expansion on the
+    # trajectory kernel, each iteration's fine ends as one batched end
+    # launch and its coarse sweep as one single end launch per slice past
+    # the first not yet exact (iteration i leaves slices up to i exact)
+    assert iterations >= 1
+    coarse_launches = sum(
+        PARAREAL_3D_SLICES - 1 - i for i in range(iterations)
+    )
+    assert parareal_launches == {
+        trajectory_name: 2,
+        end_name: iterations + coarse_launches,
+        step_name: 0,
+    }, parareal_launches
+    for name, _, on_path in THREE_D_KERNELS:
+        if on_path and launches[name] < 1:
+            raise AssertionError(f"{name} was not launched on the main path")
+
+    assert tuple(burgers_ys.shape) == (BURGERS_3D_STEPS, 21, 21, 21, 3)
+    assert bool(torch.isfinite(burgers_ys[-1]).all())
+    assert tuple(ch_last.shape) == (31, 31, 31, 2)
+    assert bool(torch.isfinite(ch_last).all())
+    assert solved.shape == (CH_3D_SOLVE_STEPS, 31, 31, 31, 2)
+    assert solved.dtype == np.float64
+    assert np.array_equal(solved, ch_head)
+    del solved, ch_head
+    generic_fn, _ = fdm(
+        BURGERS_3D_D_T, fused_kernels=False
+    ).trajectory_function(
+        burgers_cp, (0.0, BURGERS_3D_HEAD_STEPS * BURGERS_3D_D_T)
+    )
+    assert not generic_fn.fused
+    generic = generic_fn(burgers_y, 0.0)
+    head = burgers_ys[:BURGERS_3D_HEAD_STEPS]
+    difference = (head - generic).abs()
+    assert bool((difference <= 1e-4 + 1e-4 * generic.abs()).all())
+    parareal_diff = float(
+        (torch.as_tensor(parareal_ys, device=device) - burgers_ys.double())
+        .abs()
+        .max()
+    )
+    # the coarse operator alone, from the fine slice ends: what a Parareal
+    # that skipped its corrections would expand from
+    coarse_end = burgers_y
+    coarse_diff = 0.0
+    for index in range(1, PARAREAL_3D_SLICES):
+        coarse_end = wrappers[end_name](coarse_end, coarse_cfg, coarse_steps)
+        fine_end = burgers_ys[index * slice_steps - 1]
+        coarse_diff = max(
+            coarse_diff, float((coarse_end - fine_end).abs().max())
+        )
+    log(
+        f"phase 3d path: Burgers 21^3 x {BURGERS_3D_STEPS} steps (one K9 "
+        f"launch, cluster of {fine_cfg.plan.cluster_size}), first "
+        f"{BURGERS_3D_HEAD_STEPS} frames against the generic path max|d| = "
+        f"{float(difference.max()):.3e} (atol = rtol = 1e-4); Cahn-Hilliard "
+        f"31^3 x {CH_3D_STEPS} steps (one K9 launch, cluster of "
+        f"{ch_cfg.plan.cluster_size}) finite, max|y0| "
+        f"{float(ch_last[..., 0].abs().max()):.4f}; solve over "
+        f"{CH_3D_SOLVE_STEPS} steps equal to the trajectory's first frames"
+    )
+    log(
+        f"phase 3d parareal: {PARAREAL_3D_SLICES} slices, coarse d_t "
+        f"{PARAREAL_3D_COARSE_D_T}, tolerance {PARAREAL_3D_TOLERANCE:g}: "
+        f"{iterations} iterations, max diff vs fine {parareal_diff:.3e} "
+        f"(gate {PARAREAL_3D_GATE:g}; the coarse operator alone misses the "
+        f"fine slice ends by {coarse_diff:.3e}; max|y| "
+        f"{float(burgers_ys.abs().max()):.4f})"
+    )
+    assert parareal_diff <= PARAREAL_3D_GATE, parareal_diff
+    # the gate can see a missing or wrong correction only if the coarse
+    # starts alone fail it, and then a correction must have run
+    assert coarse_diff > PARAREAL_3D_GATE, coarse_diff
+    assert iterations >= 2, iterations
+    del generic, difference, head, parareal_ys, burgers_ys
+    torch.cuda.empty_cache()
+
+    # -- phase 15: times -------------------------------------------------
+    runs = {
+        "3d burgers fine": lambda: burgers_fn(burgers_y, 0.0),
+        "3d cahn-hilliard": lambda: ch_fn(ch_y, 0.0),
+    }
+    run_ms = {label: cuda_ms(torch, run) for label, run in runs.items()}
+    for label, family, cfg, steps in (
+        ("3d burgers fine", "burgers", fine_cfg, BURGERS_3D_STEPS),
+        ("3d cahn-hilliard", "cahn-hilliard", ch_cfg, CH_3D_STEPS),
+    ):
+        bound_ms, bound_by = k9_bound(family, cfg, 1, steps, True)
+        log(
+            f"time: {label}, K9 trajectory, {steps} steps: "
+            f"{run_ms[label]:.3f} ms ({1e3 * run_ms[label] / steps:.3f} us a "
+            f"step), bound {bound_ms:.3f} ms ({bound_by}) [{card}]"
+        )
+    for label, cp, cfg, d_t, steps, y in (
+        ("3d burgers fine", burgers_cp, fine_cfg, BURGERS_3D_D_T,
+         BURGERS_3D_STEPS, burgers_y),
+        ("3d cahn-hilliard", ch_cp, ch_cfg, CH_3D_D_T, CH_3D_STEPS, ch_y),
+    ):
+        generic_fn, _ = fdm(d_t, fused_kernels=False).trajectory_function(
+            cp, (0.0, GENERIC_3D_TIMED_STEPS * d_t)
+        )
+        generic_ms = cuda_ms(torch, lambda: generic_fn(y, 0.0), reps=3)
+        scaled_ms = generic_ms * steps / GENERIC_3D_TIMED_STEPS
+        plain_run_ms = once_ms(
+            torch,
+            lambda: k9.fused_system_3d_rk4_trajectory_reference(
+                y, cfg, PLAIN_3D_TIMED_STEPS
+            ),
+        )
+        log(
+            f"time: generic path {label}, {GENERIC_3D_TIMED_STEPS} steps: "
+            f"{generic_ms:.3f} ms (median of 3), scaled to {steps} steps "
+            f"{scaled_ms:.3f} ms (scaled, not run): K9 "
+            f"{scaled_ms / run_ms[label]:.3f}x faster; plain version "
+            f"{PLAIN_3D_TIMED_STEPS} steps {plain_run_ms:.3f} ms (one run), "
+            f"scaled to {steps} steps "
+            f"{plain_run_ms * steps / PLAIN_3D_TIMED_STEPS:.3f} ms [{card}]"
+        )
+    program, _ = parareal.trajectory_function(
+        burgers_cp, (0.0, BURGERS_3D_STEPS * BURGERS_3D_D_T)
+    )
+    runs["3d parareal"] = lambda: program(burgers_y)
+    run_ms["3d parareal"] = cuda_ms(torch, runs["3d parareal"])
+    log(
+        f"time: 3d parareal, {PARAREAL_3D_SLICES} slices: "
+        f"{run_ms['3d parareal']:.3f} ms, speedup vs K9 fine "
+        f"{run_ms['3d burgers fine'] / run_ms['3d parareal']:.3f}x, "
+        f"{parareal.last_iterations} iterations [{card}]"
+    )
+    # the plain versions of the trajectory and the end ran once in phase
+    # 13 at these shapes; the step's is timed here
+    step_args = (burgers_y, fine_cfg)
+    timed[step_name] = (
+        "21^3 x 3, 1 step",
+        step_args,
+        cuda_ms(torch, lambda: plain[step_name](*step_args)),
+    )
+    bounds = {
+        trajectory_name: k9_bound(
+            "burgers", fine_cfg, 1, K9_TIMED_STEPS, True
+        ),
+        end_name: k9_bound(
+            "burgers", fine_cfg, PARAREAL_3D_SLICES, slice_steps, False
+        ),
+        step_name: k9_bound("burgers", fine_cfg, 1, 1, True),
+    }
+    entries = []
+    for name, replaces, on_path in THREE_D_KERNELS:
+        what, args, plain_ms = timed[name]
+        bound_ms, bound_by = bounds[name]
+        kernel_ms = cuda_ms(torch, lambda: wrappers[name](*args))
+        log(
+            f"time: {name} ({what}): kernel {kernel_ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms{'' if name == step_name else ' (one run)'}, "
+            f"bound {bound_ms * 1e3:.3f} us ({bound_by}) [{card}]"
+        )
+        entries.append(
+            {
+                "name": name,
+                "route": "cuda",
+                "source": THREE_D_SOURCE,
+                "replaces": replaces,
+                "on_path": on_path,
+                "launches": launches[name],
+                "max_abs_err": errors[name],
+                "ms": kernel_ms,
+                "plain_ms": plain_ms,
+                "bound_ms": bound_ms,
+                "bound_us": bound_ms * 1e3,
+                "bound_by": bound_by,
+                "library_ms": None,
+                "timed": what,
+            }
+        )
+    coarse_end_ms = cuda_ms(
+        torch, lambda: wrappers[end_name](burgers_y, coarse_cfg, coarse_steps)
+    )
+    log(
+        f"time: {end_name} (21^3 x 3, {coarse_steps} coarse steps: one "
+        f"slice of the coarse sweep): kernel {coarse_end_ms:.3f} ms [{card}]"
+    )
+    del slices
+    torch.cuda.empty_cache()
+
+    # -- phase 16: device busy time and idle share (torch.profiler) ------
+    for label, run in runs.items():
+        busy_ms, top = device_busy_ms(torch, run)
+        if busy_ms is None:
+            # the profiler at times reports no device event for a run of
+            # one long kernel: ask once more
+            busy_ms, top = device_busy_ms(torch, run, reps=1)
+        if busy_ms is None:
+            log(f"profile: {label}: not measured (no device events)")
+            continue
+        log(
+            f"profile: {label}: device busy {busy_ms:.3f} ms of "
+            f"{run_ms[label]:.3f} ms, idle share "
+            f"{1.0 - busy_ms / run_ms[label]:.3f}; top: {top} [{card}]"
+        )
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -1285,15 +1883,25 @@ def main() -> int:
         f"capability {torch.cuda.get_device_capability(device)}"
     )
 
-    from pararealml_tpu_torch.ops import fused_system, tiled_diffusion
+    from pararealml_tpu_torch.ops import (
+        fused_system,
+        fused_system_3d,
+        tiled_diffusion,
+    )
 
     start = time.perf_counter()
     # one nvcc per source, all started together
-    sources = ("fused_diffusion", "fused_system", "tiled_diffusion")
+    sources = (
+        "fused_diffusion",
+        "fused_system",
+        "tiled_diffusion",
+        "fused_system_3d",
+    )
     cuda_library.build_libraries(sources)
     fd.load_kernels()
     fused_system.load_kernels()
     tiled_diffusion.load_kernels()
+    fused_system_3d.load_kernels()
     log(
         f"kernel libraries ready in {time.perf_counter() - start:.2f} s "
         f"(nvcc, in parallel: {cuda_library.build_seconds})"
@@ -1548,6 +2156,9 @@ def main() -> int:
         torch, prml, device, card, cuda_ms, device_busy_ms
     )
     kernels += large_grid_phases(
+        torch, prml, device, card, cuda_ms, once_ms, device_busy_ms
+    )
+    kernels += three_d_phases(
         torch, prml, device, card, cuda_ms, once_ms, device_busy_ms
     )
     print(json.dumps({"kernels": kernels}))

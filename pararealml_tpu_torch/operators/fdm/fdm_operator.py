@@ -7,14 +7,17 @@ chosen when it is built:
 
 - for parallel-in-time callers on linear problems, the exact affine
   propagator (:mod:`pararealml_tpu_torch.ops.linear_propagator`);
-- where the fused kernels apply (2D Cartesian diffusion,
-  convection-diffusion or Burgers under RK4, float32 states), the
-  hand-written CUDA kernels of
+- where the fused kernels apply (RK4, float32 states, static boundary
+  conditions on a Cartesian mesh: 2D diffusion, convection-diffusion or
+  Burgers; 3D diffusion, convection-diffusion, wave, Burgers or
+  Cahn-Hilliard), the hand-written CUDA kernels of
   :mod:`pararealml_tpu_torch.ops.fused_diffusion` (K1-K3 on grids that
   fit one CTA's shared memory, the resident K7 and the tiled K6
-  trajectory kernels on larger diffusion grids) and
+  trajectory kernels on larger diffusion grids),
   :mod:`pararealml_tpu_torch.ops.fused_system` (K5, grids that fit one
-  CTA), or their plain PyTorch versions for CPU tensors;
+  CTA) and :mod:`pararealml_tpu_torch.ops.fused_system_3d` (K9, volumes
+  that fit one thread block cluster), or their plain PyTorch versions
+  for CPU tensors;
 - otherwise a Python loop over the generic step, which evaluates the
   symbolic right-hand side with stencils on tensors.
 
@@ -93,11 +96,13 @@ class FDMOperator(TorchOperator):
         :param differentiator: the spatial differentiator to use
         :param d_t: the temporal step size
         :param fused_kernels: whether to use the hand-written CUDA
-            kernels for the problem classes they cover (2D Cartesian
-            diffusion, convection-diffusion and Burgers under RK4 with
-            static boundary conditions, float32 states; Burgers only on
-            grids that fit one CTA's shared memory); the generic path is
-            used otherwise
+            kernels for the problem classes they cover (RK4 with static
+            boundary conditions on Cartesian meshes, float32 states: 2D
+            diffusion, convection-diffusion and Burgers, Burgers only on
+            grids that fit one CTA's shared memory; 3D diffusion,
+            convection-diffusion, wave, Burgers and Cahn-Hilliard on
+            volumes that fit one thread block cluster); the generic path
+            is used otherwise
         :param linear_propagator: whether parallel-in-time callers
             (``trajectory_function(..., time_parallel=True)``, i.e.
             Parareal sub-solves) may compute trajectories of *linear*
@@ -282,7 +287,8 @@ class FDMOperator(TorchOperator):
         self, cp, steps: int, batch: Optional[int], dtype: torch.dtype
     ) -> Optional[Callable]:
         """The fused end kernel for this problem (K2 for the diffusion
-        family, the K5 end for systems), or None when none applies."""
+        family, the K5 end for 2D systems, the K9 end in 3D), or None when
+        none applies."""
         from pararealml_tpu_torch.ops.fused_diffusion import (
             build_fused_diffusion_rk4_end,
             fused_diffusion_step_applicable,
@@ -290,6 +296,10 @@ class FDMOperator(TorchOperator):
         from pararealml_tpu_torch.ops.fused_system import (
             build_fused_system_rk4_end,
             fused_system_step_applicable,
+        )
+        from pararealml_tpu_torch.ops.fused_system_3d import (
+            build_fused_system_3d_rk4_end,
+            fused_system_3d_step_applicable,
         )
 
         if fused_diffusion_step_applicable(cp, self._integrator, dtype):
@@ -300,14 +310,18 @@ class FDMOperator(TorchOperator):
             return build_fused_system_rk4_end(
                 cp, self._d_t, steps, batch=batch
             )
+        if fused_system_3d_step_applicable(cp, self._integrator, dtype):
+            return build_fused_system_3d_rk4_end(
+                cp, self._d_t, steps, batch=batch
+            )
         return None
 
     def _build_fused_trajectory_fn(
         self, cp, steps: int, dtype: torch.dtype
     ) -> Optional[Callable]:
         """The fused trajectory kernel for this problem (K1, K7 or K6
-        for the diffusion family, by grid size; the K5 trajectory for
-        systems), or None when none applies."""
+        for the diffusion family, by grid size; the K5 trajectory for 2D
+        systems; the K9 trajectory in 3D), or None when none applies."""
         from pararealml_tpu_torch.ops.fused_diffusion import (
             build_fused_diffusion_rk4_trajectory,
             fused_diffusion_step_applicable,
@@ -315,6 +329,10 @@ class FDMOperator(TorchOperator):
         from pararealml_tpu_torch.ops.fused_system import (
             build_fused_system_rk4_trajectory,
             fused_system_step_applicable,
+        )
+        from pararealml_tpu_torch.ops.fused_system_3d import (
+            build_fused_system_3d_rk4_trajectory,
+            fused_system_3d_step_applicable,
         )
 
         if fused_diffusion_step_applicable(cp, self._integrator, dtype):
@@ -361,6 +379,8 @@ class FDMOperator(TorchOperator):
             )
         if fused_system_step_applicable(cp, self._integrator, dtype):
             return build_fused_system_rk4_trajectory(cp, self._d_t, steps)
+        if fused_system_3d_step_applicable(cp, self._integrator, dtype):
+            return build_fused_system_3d_rk4_trajectory(cp, self._d_t, steps)
         return None
 
     # -- step construction -------------------------------------------------
@@ -376,8 +396,8 @@ class FDMOperator(TorchOperator):
     ) -> Callable:
         """Builds ``fn(y_0, t_0) -> ys`` for the whole trajectory: for
         parallel-in-time callers on linear problems, the affine
-        propagator; otherwise the fused trajectory kernel (K1 or K5)
-        when applicable, else a loop over the generic step."""
+        propagator; otherwise the fused trajectory kernel (K1, K5, K6,
+        K7 or K9) when applicable, else a loop over the generic step."""
         dtype = self.dtype if dtype is None else dtype
         device = self.device if device is None else torch.device(device)
         if time_parallel and self._linear_propagator:
@@ -408,8 +428,8 @@ class FDMOperator(TorchOperator):
                 # constraints, so the start time is irrelevant
                 return fused_trajectory(y_init)
 
-            # one CTA (K1, K5) or one launch sequence (K6, K7) per
-            # leading index
+            # one CTA (K1, K5), one cluster (K9) or one launch sequence
+            # (K6, K7) per leading index
             fused.vmappable = True
             fused.fused = True
             return fused
@@ -446,7 +466,8 @@ class FDMOperator(TorchOperator):
         all constraint data resolved to tensors. ``y`` may carry leading
         batch axes. With ``allow_fused``, the fused step kernel is
         used where it applies to states of ``dtype`` (K3 for the
-        diffusion family, the K5 step for systems)."""
+        diffusion family, the K5 step for 2D systems, the K9 step in
+        3D)."""
         _require_static(cp)
         dtype = self.dtype if dtype is None else dtype
         if self._fused_kernels and allow_fused:
@@ -458,12 +479,18 @@ class FDMOperator(TorchOperator):
                 build_fused_system_rk4_step,
                 fused_system_step_applicable,
             )
+            from pararealml_tpu_torch.ops.fused_system_3d import (
+                build_fused_system_3d_rk4_step,
+                fused_system_3d_step_applicable,
+            )
 
             fused_step = None
             if fused_diffusion_step_applicable(cp, self._integrator, dtype):
                 fused_step = build_fused_diffusion_rk4_step(cp, self._d_t)
             elif fused_system_step_applicable(cp, self._integrator, dtype):
                 fused_step = build_fused_system_rk4_step(cp, self._d_t)
+            elif fused_system_3d_step_applicable(cp, self._integrator, dtype):
+                fused_step = build_fused_system_3d_rk4_step(cp, self._d_t)
             if fused_step is not None:
 
                 def step_fused(y, i, t_i):

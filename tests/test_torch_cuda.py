@@ -31,7 +31,7 @@ from pararealml_tpu_torch.operators.ml.supervised import (
 )
 from pararealml_tpu_torch.operators.parareal import PararealOperator
 from pararealml_tpu_torch.ops import fused_diffusion, fused_system
-from pararealml_tpu_torch.ops import packed_system
+from pararealml_tpu_torch.ops import fused_system_3d, packed_system
 from pararealml_tpu_torch.ops import resident_diffusion, tiled_diffusion
 from pararealml_tpu_torch.utils import load_pytree
 
@@ -186,6 +186,58 @@ def burgers_problem(module, kind="bench", extent=5.0, t_end=1.0):
         [1.0, 0.5],
     )
     return module["InitialValueProblem"](cp, (0.0, t_end), ic)
+
+
+# the five families of the fused 3D kernels (K9): (equation, components)
+FAMILIES_3D = {
+    "diffusion": (lambda m: m["DiffusionEquation"](3, 0.3), 1),
+    "convection_diffusion": (
+        lambda m: m["ConvectionDiffusionEquation"](3, [0.4, -0.3, 0.2], 0.2),
+        1,
+    ),
+    "wave": (lambda m: m["WaveEquation"](3, 1.2), 2),
+    "burgers": (lambda m: m["BurgersEquation"](3, 50.0), 3),
+    "cahn_hilliard": (lambda m: m["CahnHilliardEquation"](3), 2),
+}
+
+
+def problem_3d(module, family, dirichlet=False, shape=(7, 8, 9), d_x=0.125):
+    """A 3D problem of one of K9's families on a ``shape`` grid of
+    spacing ``d_x`` with the faces of tests/test_fused_system_3d.py's
+    ``_cp``: zero-flux Neumann everywhere, or (``dirichlet``) Dirichlet
+    0.1 on the lower and Neumann 0.05 on the upper face of every axis."""
+    equation, n = FAMILIES_3D[family]
+    mesh = module["Mesh"]([(0.0, (s - 1) * d_x) for s in shape], [d_x] * 3)
+    if dirichlet:
+        bcs = [
+            (
+                module["DirichletBoundaryCondition"](
+                    lambda x, t: np.full((len(x), n), 0.1), is_static=True
+                ),
+                module["NeumannBoundaryCondition"](
+                    lambda x, t: np.full((len(x), n), 0.05), is_static=True
+                ),
+            )
+        ] * 3
+    else:
+        bcs = [
+            (
+                module["NeumannBoundaryCondition"](
+                    lambda x, t: np.zeros((len(x), n)), is_static=True
+                ),
+            )
+            * 2
+        ] * 3
+    return module["ConstrainedProblem"](equation(module), mesh, bcs)
+
+
+def states_3d(shape, n, batch=None, seed=0):
+    """O(1) float32 states of a 3D grid from a seed."""
+    rng = np.random.default_rng(seed)
+    lead = () if batch is None else (batch,)
+    return rng.uniform(-1.0, 1.0, lead + tuple(shape) + (n,)).astype(
+        np.float32
+    )
 
 
 @pytest.fixture
@@ -475,3 +527,79 @@ def test_cuda_large_grid_kernels_agree_and_raise(cuda_device):
         tiled_diffusion.tiled_diffusion_rk4_trajectory(
             torch.zeros((161, 322), device=cuda_device)[:, ::2], cfg, 2
         )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dirichlet", [False, True])
+@pytest.mark.parametrize("family", sorted(FAMILIES_3D))
+def test_cuda_3d_kernels_match_plain_versions(family, dirichlet, cuda_device):
+    """K9 (trajectory, single and batched end, step) against its plain
+    version on an 11 x 7 x 9 volume at every cluster size: slabs of one
+    and two planes, so that both axis-0 neighbours of a plane may lie in
+    other blocks' shared memory."""
+    shape = (11, 7, 9)
+    cp = problem_3d(vars(torch_pkg), family, dirichlet, shape)
+    cfg = fused_system_3d._SystemKernelConfig3D(cp, 1e-3)
+    n = cfg.n
+    y = torch.as_tensor(states_3d(shape, n), device=cuda_device)
+    ys = torch.as_tensor(
+        states_3d(shape, n, batch=3, seed=1), device=cuda_device
+    )
+    wrappers = (
+        fused_system_3d.fused_system_3d_rk4_trajectory,
+        fused_system_3d.fused_system_3d_rk4_end,
+        fused_system_3d.fused_system_3d_rk4_step,
+    )
+    launches = [wrapper.launches for wrapper in wrappers]
+    plain = (
+        fused_system_3d.fused_system_3d_rk4_trajectory_reference(y, cfg, 20),
+        fused_system_3d.fused_system_3d_rk4_end_reference(y, cfg, 20),
+        fused_system_3d.fused_system_3d_rk4_end_reference(ys, cfg, 20),
+        fused_system_3d.fused_system_3d_rk4_step_reference(ys, cfg),
+    )
+    for cluster_size in fused_system_3d.CLUSTER_SIZES:
+        kernels = (
+            wrappers[0](y, cfg, 20, cluster_size=cluster_size),
+            wrappers[1](y, cfg, 20, cluster_size=cluster_size),
+            wrappers[1](ys, cfg, 20, cluster_size=cluster_size),
+            wrappers[2](ys, cfg, cluster_size=cluster_size),
+        )
+        torch.cuda.synchronize()
+        for kernel, expected in zip(kernels, plain):
+            assert kernel.shape == expected.shape
+            scale = float(expected.abs().max())
+            assert float((kernel - expected).abs().max()) <= KERNEL_TOL * scale
+    sizes = len(fused_system_3d.CLUSTER_SIZES)
+    assert [w.launches for w in wrappers] == [
+        launches[0] + sizes,
+        launches[1] + 2 * sizes,
+        launches[2] + sizes,
+    ]
+
+
+@pytest.mark.cuda
+def test_cuda_3d_kernel_raises_instead_of_falling_back(cuda_device):
+    """A cluster whose blocks' slabs exceed a block's shared memory (one
+    block for all 21 planes of 21^3 x 3) is refused by the host code
+    before any launch, and the wrappers reject what the kernel does not
+    take."""
+    cp = problem_3d(vars(torch_pkg), "burgers", shape=(21, 21, 21), d_x=0.25)
+    cfg = fused_system_3d._SystemKernelConfig3D(cp, 1e-2)
+    assert cfg.plan.cluster_size == 4
+    y = torch.as_tensor(states_3d((21, 21, 21), 3), device=cuda_device)
+    launches = fused_system_3d.fused_system_3d_rk4_end.launches
+    with pytest.raises(RuntimeError, match="fused 3D kernel launch failed"):
+        fused_system_3d.fused_system_3d_rk4_end(y, cfg, 2, cluster_size=1)
+    assert fused_system_3d.fused_system_3d_rk4_end.launches == launches
+    with pytest.raises(TypeError, match="float32"):
+        fused_system_3d.fused_system_3d_rk4_end(y.double(), cfg, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_system_3d.fused_system_3d_rk4_end(
+            torch.zeros((21, 21, 21, 6), device=cuda_device)[..., ::2],
+            cfg,
+            2,
+        )
+    # the plan's own cluster runs
+    end = fused_system_3d.fused_system_3d_rk4_end(y, cfg, 2)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(end).all())

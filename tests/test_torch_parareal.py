@@ -45,8 +45,9 @@ from pararealml_tpu_torch.operators.fdm import (
 from pararealml_tpu.operators.ml import supervised as jax_supervised
 from pararealml_tpu_torch.operators.ml import supervised
 from pararealml_tpu_torch.operators.parareal import PararealOperator
-from pararealml_tpu_torch.ops import fused_diffusion, packed_system
-from tests.test_torch_cuda import burgers_problem
+from pararealml_tpu_torch.ops import fused_diffusion, fused_system_3d
+from pararealml_tpu_torch.ops import packed_system
+from tests.test_torch_cuda import burgers_problem, problem_3d
 from tests.test_torch_supervised_ml import fitted_quad_arrays
 
 torch.set_num_threads(1)
@@ -255,6 +256,77 @@ def test_burgers_ml_parareal_float32_route_matches_jax(monkeypatch):
         jax.config.update("jax_enable_x64", True)
     scale = float(np.abs(expected).max())
     assert float(np.abs(actual - expected).max()) <= 1e-4 * scale
+
+
+# the 3D slice: Burgers (Re = 50) on a 7^3 grid, 4 slices of 0.2 over
+# T = 0.8, fine d_t 0.01 (20 steps a slice), coarse d_t 0.1; the
+# tolerance stops Parareal after 2 of 4 iterations
+BURGERS_3D_T_END = 0.8
+BURGERS_3D_TOLERANCE = 1e-4
+
+
+def _burgers_3d_ivp(module):
+    cp = problem_3d(vars(module), "burgers", shape=(7, 7, 7), d_x=0.25)
+    ic = module.GaussianInitialCondition(
+        cp, [(np.full(3, 0.75), 0.1 * np.eye(3))] * 3, [1.0, 0.5, 0.25]
+    )
+    return module.InitialValueProblem(cp, (0.0, BURGERS_3D_T_END), ic)
+
+
+def test_burgers_3d_parareal_reaches_k9_and_matches_jax(monkeypatch):
+    """float32: the port's fine ends (one cluster per slice), coarse
+    sweeps (one state) and final expansion (the trajectory over the
+    slices) go through the K9 wrappers, their plain versions here. The
+    JAX package's run is its generic float64 path under the suite's x64
+    flag; the tolerance, 1e-5 of max|y|, covers float32 rounding over 80
+    fine steps."""
+    calls = []
+    for name in ("fused_system_3d_rk4_end", "fused_system_3d_rk4_trajectory"):
+        wrapper = getattr(fused_system_3d, name)
+
+        def counting(y, *args, _wrapper=wrapper, _name=name, **kwargs):
+            # the builders hand the wrappers a (B, D, H, W, n) batch
+            calls.append((_name, y.shape[0]))
+            return _wrapper(y, *args, **kwargs)
+
+        monkeypatch.setattr(fused_system_3d, name, counting)
+
+    def fdm(d_t):
+        return FDMOperator(
+            RK4(),
+            ThreePointCentralDifferenceMethod(),
+            d_t,
+            device="cpu",
+            dtype=torch.float32,
+        )
+
+    parareal = PararealOperator(
+        fdm(0.01), fdm(0.1), BURGERS_3D_TOLERANCE, num_time_slices=4
+    )
+    actual = parareal.solve(_burgers_3d_ivp(torch_pkg)).discrete_y()
+    assert parareal.last_iterations == 2
+    # each iteration's fine ends for the 4 slices at once, the coarse
+    # sweeps one slice at a time, the final expansion over the 4 slices
+    assert calls.count(("fused_system_3d_rk4_end", 4)) == 2
+    assert ("fused_system_3d_rk4_end", 1) in calls
+    assert calls.count(("fused_system_3d_rk4_trajectory", 4)) == 1
+
+    def jax_fdm(d_t):
+        return JaxFDMOperator(JaxRK4(), JaxThreePoint(), d_t)
+
+    expected = (
+        JaxPararealOperator(
+            jax_fdm(0.01),
+            jax_fdm(0.1),
+            BURGERS_3D_TOLERANCE,
+            num_time_slices=4,
+        )
+        .solve(_burgers_3d_ivp(jax_pkg))
+        .discrete_y()
+    )
+    assert actual.shape == expected.shape == (80, 7, 7, 7, 3)
+    scale = float(np.abs(expected).max())
+    assert float(np.abs(actual - expected).max()) <= 1e-5 * scale
 
 
 def test_operators_default_to_the_cuda_card():
