@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port's main paths on one NVIDIA GPU.
 
-Drives ``pararealml_tpu_torch`` — never JAX — through its four ported
+Drives ``pararealml_tpu_torch`` — never JAX — through its five ported
 paths at full size, each through the entry points a user calls.
 
 The diffusion_2d Parareal flagship (21 x 21 grid, Dirichlet 1.5 on the x
@@ -100,6 +100,48 @@ zero-flux faces, d_t 0.05), on the card by default:
     and labelled so), the plain versions once, Parareal, and each kernel
     at its timed shape beside its plain version and its bound;
 16. profiles the two trajectories and Parareal as in phase 4.
+
+The 2D system path past one CTA and the wave, shallow-water and
+Cahn-Hilliard families of K4/K5 (``examples/wave_2d_fdm.py``,
+``examples/shallow_water_fdm.py`` and ``examples/cahn_hilliard_2d_fdm.py``
+at their own sizes, and bench.py's 2D Burgers problem at 641^2), on the
+card by default:
+
+17. holds the tiled kernel (K8) against its plain version for each of its
+    four families with Dirichlet/Neumann and partial Neumann faces on a
+    17 x 33 grid (a batch of two), float32 and bfloat16 storage, on its
+    plan's 10 tiles (6 for Cahn-Hilliard; the last ones clamped), on 42
+    tiles and on one, and
+    K5 (trajectory, end, step) and K4 (B = 4 ends and trajectory) for the
+    wave, shallow-water and Cahn-Hilliard functors on 21 x 23 over 200
+    steps; and checks that K8 refuses, before any launch, a grid with no
+    plan, interior Dirichlet constraints and a plan with too narrow a
+    halo;
+18. runs the path with every counter at 0: the three examples'
+    ``FDMOperator.solve`` (wave 101^2 x 2,000 steps, shallow water 101 x
+    51 x 8,000 steps, Cahn-Hilliard 101^2 x 10,000 steps) and the 641^2
+    Burgers ``trajectory_function`` over 1,000 steps in float32 and with
+    ``kernel_storage_dtype=torch.bfloat16``, one K8 launch each with no
+    generic step built, then an 8-slice Cahn-Hilliard Parareal on 41^2
+    (fine d_t 1e-4, coarse 5e-4, T = 0.4) over K4 fine ends and expansion
+    and K5 coarse sweeps; it checks each run's first 20 frames against
+    K8's plain version and the generic path (atol = rtol = 1e-4),
+    bfloat16 against float32 over the first 4 frames (2e-2 of the largest
+    value; the last frame's difference is printed, not gated: at d_t 1e-3
+    the increments are under half a bfloat16 step, and the JAX generic
+    step rounded once a step drifts as far, see tests/
+    test_torch_tiled_system.py), and Parareal against
+    the fine trajectory (2 x the tolerance), where the coarse operator
+    alone fails that check and at least two iterations must correct it;
+19. times each full-width K8 run, the generic path over 20 steps at the
+    same size (scaled, and labelled so), K8 on its plan's tiles against
+    two other tilings at each size, the Parareal against its fine
+    solve, and each kernel function at its path's shapes beside its plain
+    version and its bound, holding it against that plain version there
+    (the Cahn-Hilliard K4 and K5 functions at the Parareal's 41^2: B = 8
+    fine ends and expansion over 500 steps, the 800-step coarse roll-out
+    and a 100-step coarse end; 1e-5 relative);
+20. profiles each run as in phase 4.
 
 Run it from the repository root with no arguments: ``python3
 chip_smoke.py``. It needs one CUDA card and ``nvcc`` and exits non-zero,
@@ -278,6 +320,45 @@ THREE_D_KERNELS = (
     ),
 )
 
+# the 2D system path (examples/wave_2d_fdm.py, examples/shallow_water_fdm.py,
+# examples/cahn_hilliard_2d_fdm.py at 101^2 and 101 x 51, and bench.py's
+# 2D Burgers problem, bench.py:521-545, at 641^2)
+WAVE_T_END = 20.0
+SHALLOW_WATER_T_END = 20.0
+CH_2D_T_END = 5.0
+BURGERS_641_STEPS = 1000
+BURGERS_641_D_T = 1e-3
+CH_2D_GAMMA = 0.01
+# small grids for the kernels against their plain versions: K8 on
+# tests/test_tiled_system.py's 17 x 33 grid, K4/K5 on 21 x 23
+SYSTEM_SMALL_SHAPE = (17, 33)
+SYSTEM_SMALL_STEPS = 12
+K5_FAMILY_SHAPE = (21, 23)
+K5_FAMILY_STEPS = 200
+# frames held against the plain version and the generic path, and the
+# generic path's and the plain version's timed steps at full width
+SYSTEM_HEAD_STEPS = 20
+SYSTEM_TIMED_STEPS = 20
+# bfloat16 storage against float32 over the JAX test's horizon
+# (tests/test_tiled_system.py:215-246: 4 steps, 2e-2 of the largest value)
+BF16_HEAD_STEPS = 4
+# Parareal over examples/cahn_hilliard_2d_fdm.py's problem on [0, 4]^2
+# (41^2, one CTA): 8 slices of 500 fine steps (d_t 1e-4) and 100 coarse
+# steps (d_t 5e-4, the example's own). On the CPU (plain versions,
+# float32) the coarse operator misses the fine slice ends by 3.6e-4 from
+# the fine starts and the whole coarse trajectory the fine one by 4.2e-2,
+# both past the gate of 2 x the tolerance, and Parareal stops after 2
+# iterations, 6.9e-8 from the fine trajectory.
+CH_PARAREAL_N = 41
+CH_PARAREAL_T_END = 0.4
+CH_PARAREAL_SLICES = 8
+CH_PARAREAL_FINE_D_T = 1e-4
+CH_PARAREAL_COARSE_D_T = 5e-4
+CH_PARAREAL_TOLERANCE = 5e-5
+TILED_SYSTEM_SOURCE = "pararealml_tpu_torch/csrc/tiled_system.cu"
+TILED_SYSTEM_KERNEL = "tiled_system_rk4_trajectory"
+TILED_SYSTEM_REPLACES = "pararealml_tpu/ops/tiled_system.py:369"
+
 # the card's published peaks (NVIDIA H100 SXM data sheet, at the 700 W
 # power limit): HBM bytes per second and float32 operations per second
 # outside the tensor cores
@@ -285,10 +366,24 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 # float32 operations one RK4 step does per grid cell, counted from the
 # kernels' arithmetic: diffusion (K1-K3) evaluates a 10-operation
-# right-hand side and 5 stage updates per stage; Burgers (K4, K5) an
-# 18-operation right-hand side and 4 stage updates per component and
-# stage, for 2 components, and the final combination
-FLOPS_PER_CELL_STEP = {"diffusion": 62, "burgers": 180}
+# right-hand side and 5 stage updates per stage. The 2D systems (K4, K5,
+# K8) are counted as K9's table below, with a Laplacian's 2 s and
+# Cahn-Hilliard's y0 * y0 once: a Laplacian is 8 operations and its
+# coefficient 1, a gradient 2, and the 13 stage updates of a component a
+# step (2 + 4 + 4 + 3). Burgers: per component and stage a Laplacian and
+# two gradient terms (9 + 2 x 4), 4 x 2 x 17 + 2 x 13 = 162; wave: one
+# Laplacian per stage, 4 x 9 + 2 x 13 = 62; shallow water: per stage six
+# gradients (12), the divergence (1), eta's right-hand side (9) and u's
+# and w's (19 each: a Laplacian and five products and sums), 4 x 60 + 3
+# x 13 = 279; Cahn-Hilliard: three Laplacians (27), the potential's
+# cube and differences (4) and y0's update (4), 35
+FLOPS_PER_CELL_STEP = {
+    "diffusion": 62,
+    "burgers": 162,
+    "wave": 62,
+    "shallow-water": 279,
+    "cahn-hilliard": 35,
+}
 # the same for K9's families on the main path, counted from its arithmetic:
 # a Laplacian is 13 (2 s once, three per axis, two sums, the coefficient),
 # a gradient term 4 (difference, scale, product, subtraction); Burgers
@@ -1851,6 +1946,750 @@ def three_d_phases(
     return entries
 
 
+def wave_example(prml):
+    """examples/wave_2d_fdm.py's problem: the wave equation (c = 1) on
+    [-5, 5]^2 at d_x 0.1 (101^2), Dirichlet 0 on every face, a Gaussian of
+    amplitude 3 at (0, 2.5) in y0, to T = 20 (``WAVE_T_END``) at d_t 0.01
+    (2,000 steps). Returns the problem and its d_t."""
+    zero = prml.DirichletBoundaryCondition(
+        lambda x, t: np.zeros((len(x), 2)), is_static=True
+    )
+    cp = prml.ConstrainedProblem(
+        prml.WaveEquation(2),
+        prml.Mesh([(-5.0, 5.0), (-5.0, 5.0)], [0.1, 0.1]),
+        [(zero, zero)] * 2,
+    )
+    ic = prml.GaussianInitialCondition(
+        cp, [(np.array([0.0, 2.5]), 0.1 * np.eye(2))] * 2, [3.0, 0.0]
+    )
+    return prml.InitialValueProblem(cp, (0.0, WAVE_T_END), ic), 0.01
+
+
+def shallow_water_example(prml):
+    """examples/shallow_water_fdm.py's problem: shallow water (h = 0.5) on
+    [-5, 5] x [0, 5] at d_x 0.1 (101 x 51), zero-flux faces for the height
+    alone, a Gaussian of amplitude 1 at (2.5, 1.25) in the height, to T =
+    20 (``SHALLOW_WATER_T_END``) at d_t 0.0025 (8,000 steps). Returns the
+    problem and its d_t."""
+    flux = prml.NeumannBoundaryCondition(
+        prml.vectorize_bc_function(lambda x, t: (0.0, None, None)),
+        is_static=True,
+    )
+    cp = prml.ConstrainedProblem(
+        prml.ShallowWaterEquation(0.5),
+        prml.Mesh([(-5.0, 5.0), (0.0, 5.0)], [0.1, 0.1]),
+        [(flux, flux)] * 2,
+    )
+    ic = prml.GaussianInitialCondition(
+        cp, [(np.array([2.5, 1.25]), 0.25 * np.eye(2))] * 3, [1.0, 0.0, 0.0]
+    )
+    return prml.InitialValueProblem(cp, (0.0, SHALLOW_WATER_T_END), ic), 0.0025
+
+
+def cahn_hilliard_2d(torch, prml, n, t_end):
+    """examples/cahn_hilliard_2d_fdm.py's problem on [0, (n - 1) / 10]^2:
+    Cahn-Hilliard with gamma = 0.01 at d_x 0.1 (n^2; the example's n is
+    101), zero-flux faces, y0 a uniform perturbation of amplitude 0.05 from
+    numpy seed 0 and y1 its chemical potential, to ``t_end`` (the
+    example's is 5, at its d_t 5e-4: 10,000 steps)."""
+    from pararealml_tpu_torch.operators.fdm import (
+        ThreePointCentralDifferenceMethod,
+    )
+    from pararealml_tpu_torch.operators.fdm.numerical_differentiator import (
+        slice_all_constraint_pairs,
+    )
+
+    mesh = prml.Mesh([(0.0, (n - 1) * 0.1)] * 2, [0.1, 0.1])
+    flux = prml.NeumannBoundaryCondition(
+        lambda x, t: np.zeros((len(x), 2)), is_static=True
+    )
+    cp = prml.ConstrainedProblem(
+        prml.CahnHilliardEquation(2, gamma=CH_2D_GAMMA),
+        mesh,
+        [(flux, flux)] * 2,
+    )
+    np.random.seed(0)
+    y_0_0 = 0.05 * np.random.uniform(-1.0, 1.0, mesh.vertices_shape + (1,))
+    d_y_constraints = slice_all_constraint_pairs(
+        cp.static_boundary_vertex_constraints.d_y, slice(0, 1)
+    )
+    laplacian = ThreePointCentralDifferenceMethod().laplacian(
+        torch.as_tensor(y_0_0), mesh, d_y_constraints
+    ).numpy()
+    y_0_1 = y_0_0**3 - y_0_0 - CH_2D_GAMMA * laplacian
+    ic = prml.DiscreteInitialCondition(
+        cp, np.concatenate([y_0_0, y_0_1], axis=-1), True
+    )
+    return prml.InitialValueProblem(cp, (0.0, t_end), ic)
+
+
+def burgers_641(prml):
+    """bench.py's 2D Burgers problem (``build_burgers_problem``: Re = 100,
+    zero-flux faces, Gaussians of covariance 0.75 I at the centre with
+    amplitudes 1 and 0.5) on [0, 5]^2 at d_x 5/640 (641^2), over
+    ``BURGERS_641_STEPS`` steps of ``BURGERS_641_D_T``."""
+    flux = prml.NeumannBoundaryCondition(
+        lambda x, t: np.zeros((len(x), 2)), is_static=True
+    )
+    cp = prml.ConstrainedProblem(
+        prml.BurgersEquation(2, 100.0),
+        prml.Mesh([(0.0, 5.0)] * 2, [5.0 / 640] * 2),
+        [(flux, flux)] * 2,
+    )
+    ic = prml.GaussianInitialCondition(
+        cp, [(np.full(2, 2.5), 0.75 * np.eye(2))] * 2, [1.0, 0.5]
+    )
+    return prml.InitialValueProblem(
+        cp, (0.0, BURGERS_641_STEPS * BURGERS_641_D_T), ic
+    )
+
+
+def system_problem_2d(prml, family, faces, shape):
+    """A small problem of one of the 2D system families
+    (tests/test_torch_cuda.py's ``system_problem``): spacing 0.25;
+    ``faces`` "dirichlet" is Dirichlet 0.1 on the axis-0 faces and Neumann
+    0.05 on the axis-1 faces, "neumann" Neumann 0.05 everywhere,
+    "partial" Neumann 0.05 on component 0 alone."""
+    equation, n = {
+        "wave": (prml.WaveEquation(2, 1.5), 2),
+        "burgers": (prml.BurgersEquation(2, 100.0), 2),
+        "shallow-water": (prml.ShallowWaterEquation(0.5), 3),
+        "cahn-hilliard": (prml.CahnHilliardEquation(2), 2),
+    }[family]
+    mesh = prml.Mesh([(0.0, (s - 1) * 0.25) for s in shape], [0.25, 0.25])
+
+    def neumann(values):
+        return prml.NeumannBoundaryCondition(
+            lambda x, t: np.tile(values, (len(x), 1)), is_static=True
+        )
+
+    if faces == "dirichlet":
+        dirichlet = prml.DirichletBoundaryCondition(
+            lambda x, t: np.full((len(x), n), 0.1), is_static=True
+        )
+        bcs = [(dirichlet, dirichlet), (neumann([0.05] * n),) * 2]
+    elif faces == "neumann":
+        bcs = [(neumann([0.05] * n),) * 2] * 2
+    else:
+        bcs = [(neumann([0.05] + [np.nan] * (n - 1)),) * 2] * 2
+    return prml.ConstrainedProblem(equation, mesh, bcs)
+
+
+def smooth_states_2d(torch, device, shape, n, batch=None, seed=0):
+    """tests/test_torch_cuda.py's ``states_2d`` on ``device``: per state
+    and component an offset and one low Fourier mode."""
+    rng = np.random.default_rng(seed)
+    x = np.linspace(0.0, np.pi, shape[0])[:, None]
+    y = np.linspace(0.0, np.pi, shape[1])[None, :]
+    count = 1 if batch is None else batch
+    states = np.empty((count,) + tuple(shape) + (n,))
+    for index in np.ndindex(count, n):
+        offset, amplitude = rng.uniform(-0.3, 0.3), rng.uniform(0.2, 0.6)
+        k, m = rng.integers(1, 4, 2)
+        states[index[0], ..., index[1]] = offset + amplitude * np.sin(
+            k * x
+        ) * np.cos(m * y)
+    states = torch.as_tensor(states, dtype=torch.float32, device=device)
+    return states[0] if batch is None else states
+
+
+def tiled_system_bound(family, cfg, batch, n_steps, item):
+    """The bound of a K8 run: each state (float32) and the face vectors
+    (a float value and a byte mask for each of the four face sets) read
+    once, every frame (``item`` bytes a value) written once, against the
+    family's operations per cell and step."""
+    cells = cfg.height * cfg.width
+    values = cells * cfg.n
+    read = 4 * batch * values + 5 * 4 * cfg.n * (cfg.height + cfg.width)
+    written = item * batch * values * n_steps
+    return bound(
+        read + written, FLOPS_PER_CELL_STEP[family] * batch * n_steps * cells
+    )
+
+
+def system_2d_phases(
+    torch, prml, device, card, cuda_ms, once_ms, device_busy_ms
+):
+    """Phases 17-20: the 2D system path past one CTA (K8) and the wave,
+    shallow-water and Cahn-Hilliard families of K4/K5. Returns their
+    entries of the JSON line. ``cuda_ms``, ``once_ms`` and
+    ``device_busy_ms`` are the timing and profiling functions."""
+    from pararealml_tpu_torch.constraint import Constraint
+    from pararealml_tpu_torch.operators.fdm import (
+        RK4,
+        FDMOperator,
+        ThreePointCentralDifferenceMethod,
+    )
+    from pararealml_tpu_torch.operators.parareal import PararealOperator
+    from pararealml_tpu_torch.ops import fused_system as fs
+    from pararealml_tpu_torch.ops import packed_system as ps
+    from pararealml_tpu_torch.ops import tiled_system as ts
+
+    k8 = getattr(ts, TILED_SYSTEM_KERNEL)
+    k8_plain = ts.tiled_system_rk4_trajectory_reference
+    modules = {"fused_system": fs, "packed_system": ps}
+    family_wrappers = {
+        name: getattr(modules[module], name)
+        for name, module, _, _ in SYSTEM_KERNELS
+    }
+    family_plain = {
+        name: getattr(modules[module], f"{name}_reference")
+        for name, module, _, _ in SYSTEM_KERNELS
+    }
+    errors = {}
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def check(key, what, kernel, plain):
+        torch.cuda.synchronize()
+        assert kernel.shape == plain.shape, (key, what)
+        assert kernel.dtype == plain.dtype, (key, what)
+        abs_err = float((kernel.float() - plain.float()).abs().max())
+        rel_err = abs_err / float(plain.float().abs().max())
+        errors[key] = max(errors.get(key, 0.0), abs_err)
+        if not rel_err <= KERNEL_REL_TOL:
+            raise AssertionError(
+                f"{key} disagrees with its plain version ({what}): "
+                f"{rel_err:.3e}"
+            )
+        return rel_err
+
+    # -- phase 17: K8, K5 and K4 against their plain versions ------------
+    families = ("wave", "burgers", "shallow-water", "cahn-hilliard")
+    height, width = SYSTEM_SMALL_SHAPE
+    for family in families:
+        worst, cases = 0.0, 0
+        for faces in ("dirichlet", "partial"):
+            cp = system_problem_2d(prml, family, faces, SYSTEM_SMALL_SHAPE)
+            cfg = ts._TiledSystemConfig(cp, 2e-3)
+            ys = smooth_states_2d(
+                torch, device, SYSTEM_SMALL_SHAPE, cfg.n, batch=2
+            )
+            halo = cfg.halo
+            # the plan's tiles (the last row and column of tiles clamped),
+            # tiles of 3 x 5 cells (42 of them), one tile over the grid
+            plans = (
+                cfg.plan,
+                cfg.plan._replace(rows=2 * halo + 3, cols=2 * halo + 5),
+                cfg.plan._replace(
+                    rows=2 * halo + height, cols=2 * halo + width
+                ),
+            )
+            for storage in (f32, bf16):
+                expected = k8_plain(ys, cfg, SYSTEM_SMALL_STEPS, storage)
+                for plan in plans:
+                    kernel = k8(
+                        ys, cfg, SYSTEM_SMALL_STEPS, storage, plan=plan
+                    )
+                    worst = max(
+                        worst,
+                        check(
+                            TILED_SYSTEM_KERNEL,
+                            f"{family}, {faces}, {storage}, {plan.blocks} "
+                            "tiles",
+                            kernel,
+                            expected,
+                        ),
+                    )
+                    cases += 1
+        log(
+            f"kernels: K8 {family}: {cases} cases (Dirichlet/Neumann and "
+            f"partial Neumann faces; float32 and bfloat16 storage; "
+            f"{', '.join(str(plan.blocks) for plan in plans)} tiles of a "
+            f"17 x 33 grid, batch of 2, {SYSTEM_SMALL_STEPS} steps) "
+            f"max|d|/max|y| = {worst:.3e}"
+        )
+    for family, faces in (
+        ("wave", "dirichlet"),
+        ("shallow-water", "partial"),
+        ("cahn-hilliard", "neumann"),
+    ):
+        cp = system_problem_2d(prml, family, faces, K5_FAMILY_SHAPE)
+        cfg = fs._SystemKernelConfig(cp, 1e-3)
+        y = smooth_states_2d(torch, device, K5_FAMILY_SHAPE, cfg.n)
+        ys = smooth_states_2d(
+            torch, device, K5_FAMILY_SHAPE, cfg.n, batch=4, seed=1
+        )
+        steps = K5_FAMILY_STEPS
+        worst = 0.0
+        for name, args in (
+            ("fused_system_rk4_trajectory", (y, cfg, steps)),
+            ("fused_system_rk4_end", (ys, cfg, steps)),
+            ("fused_system_rk4_step", (ys, cfg)),
+            ("packed_system_rk4_ends", (ys, cfg, steps)),
+            ("packed_system_rk4_trajectory", (ys, cfg, steps)),
+        ):
+            worst = max(
+                worst,
+                check(
+                    f"{name}:{family}",
+                    faces,
+                    family_wrappers[name](*args),
+                    family_plain[name](*args),
+                ),
+            )
+        log(
+            f"kernels: K5/K4 {family}: trajectory, B=4 end, step, B=4 K4 "
+            f"ends and trajectory on {K5_FAMILY_SHAPE}, {steps} steps, "
+            f"{faces} faces: max|d|/max|y| = {worst:.3e}"
+        )
+    # what K8 does not take raises before any launch
+    cp = system_problem_2d(prml, "burgers", "dirichlet", SYSTEM_SMALL_SHAPE)
+    cfg = ts._TiledSystemConfig(cp, 1e-3)
+    ys = smooth_states_2d(torch, device, SYSTEM_SMALL_SHAPE, 2, batch=2)
+    interior = system_problem_2d(prml, "wave", "dirichlet", SYSTEM_SMALL_SHAPE)
+    old = interior.static_y_vertex_constraints
+    mask = old.mask.numpy().reshape(height, width, 2).copy()
+    values = np.where(mask, old.values.numpy().reshape(mask.shape), 0.0)
+    mask[height // 2, width // 2] = True
+    interior._y_vertex_constraints = Constraint(
+        values.reshape(old.values.shape), mask.reshape(old.mask.shape)
+    )
+    thin = system_problem_2d(prml, "burgers", "neumann", (2, 9))
+    launches = k8.launches
+    refusals = (
+        (lambda: ts.build_tiled_system_rk4_trajectory(thin, 1e-3, 2), "range"),
+        (lambda: ts.build_tiled_system_rk4_trajectory(interior, 1e-3, 2),
+         "interior"),
+        (lambda: k8(ys, cfg, 2, plan=cfg.plan._replace(halo=1)), "tile plan"),
+    )
+    for refusal, match in refusals:
+        try:
+            refusal()
+        except ValueError as error:
+            assert match in str(error), error
+        else:
+            raise AssertionError(f"K8 ran where it must refuse ({match})")
+    assert k8.launches == launches
+    log(
+        "kernels: K8 refuses a 2 x 9 grid (no plan), interior Dirichlet "
+        "constraints and a plan with a halo of 1 for RK4, before any launch"
+    )
+    torch.cuda.empty_cache()
+    log("phase 2d system kernels: ok")
+
+    # -- phase 18: the path at full width, counted -----------------------
+    def fdm(d_t, **kwargs):
+        # no device argument: the entry points run on the card
+        return FDMOperator(
+            RK4(), ThreePointCentralDifferenceMethod(), d_t, **kwargs
+        )
+
+    def initial(ivp):
+        return torch.as_tensor(
+            ivp.initial_condition.discrete_y_0(True),
+            dtype=torch.float32,
+            device=device,
+        )
+
+    # label: (family, problem, d_t, initial state)
+    examples = {}
+    for label, family, (ivp, d_t) in (
+        ("wave 101^2 x 2", "wave", wave_example(prml)),
+        (
+            "shallow water 101 x 51 x 3",
+            "shallow-water",
+            shallow_water_example(prml),
+        ),
+        (
+            "cahn-hilliard 101^2 x 2",
+            "cahn-hilliard",
+            (cahn_hilliard_2d(torch, prml, 101, CH_2D_T_END), 5e-4),
+        ),
+    ):
+        examples[label] = (family, ivp, d_t, initial(ivp))
+    burgers_ivp = burgers_641(prml)
+    burgers_cp = burgers_ivp.constrained_problem
+    burgers_y = initial(burgers_ivp)
+    burgers_t = (0.0, BURGERS_641_STEPS * BURGERS_641_D_T)
+    burgers_fns = {
+        storage: fdm(
+            BURGERS_641_D_T, kernel_storage_dtype=storage
+        ).trajectory_function(burgers_cp, burgers_t)[0]
+        for storage in (f32, bf16)
+    }
+    assert all(fn.fused for fn in burgers_fns.values())
+    ch_ivp = cahn_hilliard_2d(
+        torch, prml, CH_PARAREAL_N, CH_PARAREAL_T_END
+    )
+    ch_cp = ch_ivp.constrained_problem
+    ch_y = initial(ch_ivp)
+    parareal = PararealOperator(
+        fdm(CH_PARAREAL_FINE_D_T),
+        fdm(CH_PARAREAL_COARSE_D_T),
+        CH_PARAREAL_TOLERANCE,
+        num_time_slices=CH_PARAREAL_SLICES,
+    )
+    # the generic path builds its step with allow_fused=False; count those
+    # builds over the K8 runs
+    generic_builds = []
+    build_step = FDMOperator._build_step_function
+
+    def counting_build(self, cp, allow_fused=True, dtype=None):
+        if not allow_fused:
+            generic_builds.append(cp)
+        return build_step(self, cp, allow_fused, dtype)
+
+    wrappers = dict(family_wrappers, **{TILED_SYSTEM_KERNEL: k8})
+    for wrapper in wrappers.values():
+        wrapper.launches = 0
+    FDMOperator._build_step_function = counting_build
+    try:
+        solutions = {
+            label: fdm(d_t).solve(ivp).discrete_y()
+            for label, (_, ivp, d_t, _) in examples.items()
+        }
+        burgers_ys = {
+            storage: fn(burgers_y, 0.0) for storage, fn in burgers_fns.items()
+        }
+    finally:
+        FDMOperator._build_step_function = build_step
+    k8_runs = {name: w.launches for name, w in wrappers.items()}
+    parareal_ys = parareal.solve(ch_ivp).discrete_y()
+    launches = {name: w.launches for name, w in wrappers.items()}
+    iterations = parareal.last_iterations
+    log(
+        f"2d system main-path launches: {launches} (the three examples' "
+        f"solves and the two 641^2 trajectories: {k8_runs}; the generic "
+        f"path was built {len(generic_builds)} times in them); Parareal "
+        f"{iterations} iterations"
+    )
+    assert not generic_builds, "a K8 run took the generic path"
+    assert k8_runs == dict(
+        {name: 0 for name in family_wrappers}, **{TILED_SYSTEM_KERNEL: 5}
+    ), k8_runs
+    # Parareal: each iteration's fine ends on K4, the final expansion on
+    # K4, the whole-domain coarse roll-out on the K5 trajectory and the
+    # coarse sweeps on the single-state K5 end
+    assert launches["packed_system_rk4_ends"] == iterations, launches
+    assert launches["packed_system_rk4_trajectory"] == 1, launches
+    assert launches["fused_system_rk4_trajectory"] >= 1, launches
+    assert launches["fused_system_rk4_end"] >= 1, launches
+    assert launches[TILED_SYSTEM_KERNEL] == 5, launches
+
+    head = SYSTEM_HEAD_STEPS
+    heads = {}
+    for label, (_, ivp, d_t, y_0) in examples.items():
+        cp = ivp.constrained_problem
+        ys = solutions[label]
+        steps = round(ivp.t_interval[1] / d_t)
+        assert ys.shape == (steps,) + tuple(y_0.shape), (label, ys.shape)
+        assert np.isfinite(ys).all(), label
+        heads[label] = (
+            cp, d_t, y_0, torch.as_tensor(ys[:head], device=device)
+        )
+    for storage, ys in burgers_ys.items():
+        assert tuple(ys.shape) == (BURGERS_641_STEPS,) + tuple(
+            burgers_y.shape
+        )
+        assert ys.dtype == storage
+        assert bool(torch.isfinite(ys[-1].float()).all())
+    heads["burgers 641^2 x 2"] = (
+        burgers_cp,
+        BURGERS_641_D_T,
+        burgers_y,
+        burgers_ys[f32][:head].double(),
+    )
+    for label, (cp, d_t, y_0, frames) in heads.items():
+        cfg = ts._TiledSystemConfig(cp, d_t)
+        plain = k8_plain(y_0, cfg, head).double()
+        rel = float((frames - plain).abs().max()) / float(plain.abs().max())
+        errors[TILED_SYSTEM_KERNEL] = max(
+            errors.get(TILED_SYSTEM_KERNEL, 0.0),
+            float((frames - plain).abs().max()),
+        )
+        generic_fn, _ = fdm(d_t, fused_kernels=False).trajectory_function(
+            cp, (0.0, head * d_t)
+        )
+        assert not generic_fn.fused
+        generic = generic_fn(y_0, 0.0).double()
+        difference = (frames - generic).abs()
+        log(
+            f"phase 2d system path: {label} (K8, {cfg.plan.blocks} blocks of "
+            f"{cfg.plan.rows} x {cfg.plan.cols}): first {head} frames "
+            f"against the plain version max|d|/max|y| = {rel:.3e}, against "
+            f"the generic path max|d| = {float(difference.max()):.3e} "
+            f"(atol = rtol = 1e-4)"
+        )
+        assert rel <= KERNEL_REL_TOL, (label, rel)
+        assert bool((difference <= 1e-4 + 1e-4 * generic.abs()).all()), label
+    burgers_cfg = ts._TiledSystemConfig(burgers_cp, BURGERS_641_D_T)
+    plain_bf16 = k8_plain(burgers_y, burgers_cfg, head, bf16)
+    check(
+        TILED_SYSTEM_KERNEL,
+        "641^2 Burgers, bfloat16 storage, first frames",
+        burgers_ys[bf16][:head],
+        plain_bf16,
+    )
+    scale = float(burgers_ys[f32][-1].abs().max())
+    bf16_head = float(
+        (burgers_ys[bf16][:BF16_HEAD_STEPS].float()
+         - burgers_ys[f32][:BF16_HEAD_STEPS]).abs().max()
+    ) / float(burgers_ys[f32][:BF16_HEAD_STEPS].abs().max())
+    bf16_last = float(
+        (burgers_ys[bf16][-1].float() - burgers_ys[f32][-1]).abs().max()
+    ) / scale
+    log(
+        f"phase 2d system bfloat16: 641^2 Burgers with bfloat16 storage: "
+        f"first {head} frames equal to the plain version; against float32, "
+        f"of the largest value, {bf16_head:.3e} over the first "
+        f"{BF16_HEAD_STEPS} frames (bound {TILED_BF16_TOL:g}) and "
+        f"{bf16_last:.3e} on frame {BURGERS_641_STEPS}, printed, not gated "
+        f"(one rounding a step: increments under half a bfloat16 step are "
+        f"lost, through the JAX generic step too; tests/"
+        f"test_torch_tiled_system.py::test_bfloat16_drift_comes_from_the_"
+        f"once_a_step_rounding)"
+    )
+    assert bf16_head <= TILED_BF16_TOL, bf16_head
+    assert np.isfinite(bf16_last)
+    del burgers_ys, solutions, heads, plain_bf16
+    torch.cuda.empty_cache()
+
+    # Cahn-Hilliard Parareal against its fine trajectory
+    fine_fn, _ = fdm(CH_PARAREAL_FINE_D_T).trajectory_function(
+        ch_cp, (0.0, CH_PARAREAL_T_END)
+    )
+    coarse_fn, _ = fdm(CH_PARAREAL_COARSE_D_T).trajectory_function(
+        ch_cp, (0.0, CH_PARAREAL_T_END)
+    )
+    assert fine_fn.fused and coarse_fn.fused
+    fine_ys = fine_fn(ch_y, 0.0)
+    coarse_ys = coarse_fn(ch_y, 0.0)
+    ratio = round(CH_PARAREAL_COARSE_D_T / CH_PARAREAL_FINE_D_T)
+    coarse_diff = float(
+        (coarse_ys - fine_ys[ratio - 1:: ratio]).abs().max()
+    )
+    slice_steps = round(
+        CH_PARAREAL_T_END / CH_PARAREAL_SLICES / CH_PARAREAL_FINE_D_T
+    )
+    coarse_steps = slice_steps // ratio
+    ch_cfg = fs._SystemKernelConfig(ch_cp, CH_PARAREAL_COARSE_D_T)
+    slice_starts = torch.cat(
+        [ch_y[None], fine_ys[slice_steps - 1: -1: slice_steps]]
+    ).contiguous()
+    slice_miss = float(
+        (
+            fs.fused_system_rk4_end(slice_starts, ch_cfg, coarse_steps)
+            - fine_ys[slice_steps - 1:: slice_steps]
+        )
+        .abs()
+        .max()
+    )
+    parareal_diff = float(
+        (torch.as_tensor(parareal_ys, device=device) - fine_ys.double())
+        .abs()
+        .max()
+    )
+    gate = 2 * CH_PARAREAL_TOLERANCE
+    log(
+        f"phase 2d system parareal: Cahn-Hilliard {CH_PARAREAL_N}^2, "
+        f"{CH_PARAREAL_SLICES} slices, fine d_t {CH_PARAREAL_FINE_D_T:g}, "
+        f"coarse d_t {CH_PARAREAL_COARSE_D_T:g}, tolerance "
+        f"{CH_PARAREAL_TOLERANCE:g}: {iterations} iterations, max diff vs "
+        f"fine {parareal_diff:.3e} (gate {gate:g}); the coarse trajectory "
+        f"alone misses the fine one by {coarse_diff:.3e}, the coarse "
+        f"operator the fine slice ends from the fine starts by "
+        f"{slice_miss:.3e}; max|y| {float(fine_ys.abs().max()):.4f}"
+    )
+    assert parareal_ys.shape == tuple(fine_ys.shape)
+    assert parareal_diff <= gate, parareal_diff
+    # the gate can see a missing correction only if the coarse operator
+    # alone fails it, and then a correction must have run
+    assert coarse_diff > gate and slice_miss > gate, (coarse_diff, slice_miss)
+    assert iterations >= 2, iterations
+    del fine_ys, coarse_ys, parareal_ys, slice_starts
+    torch.cuda.empty_cache()
+
+    # -- phase 19: times -------------------------------------------------
+    runs, run_ms = {}, {}
+    # label, family, problem, d_t, steps, initial state, trajectory
+    timed_runs = []
+    for label, (family, ivp, d_t, y_0) in examples.items():
+        cp = ivp.constrained_problem
+        fn, t = fdm(d_t).trajectory_function(cp, ivp.t_interval)
+        timed_runs.append((label, family, cp, d_t, len(t), y_0, fn))
+    for storage, fn in burgers_fns.items():
+        label = "burgers 641^2 x 2" + (", bfloat16" if storage == bf16 else "")
+        timed_runs.append(
+            (label, "burgers", burgers_cp, BURGERS_641_D_T,
+             BURGERS_641_STEPS, burgers_y, fn)
+        )
+    for label, family, cp, d_t, steps, y_0, fn in timed_runs:
+        cfg = ts._TiledSystemConfig(cp, d_t)
+        runs[label] = lambda fn=fn, y_0=y_0: fn(y_0, 0.0)
+        run_ms[label] = cuda_ms(torch, runs[label], reps=3)
+        item = 2 if label.endswith("bfloat16") else 4
+        bound_ms, bound_by = tiled_system_bound(family, cfg, 1, steps, item)
+        log(
+            f"time: {label}, K8 trajectory ({cfg.plan.blocks} blocks), "
+            f"{steps} steps: {run_ms[label]:.3f} ms "
+            f"({1e3 * run_ms[label] / steps:.3f} us a step), bound "
+            f"{bound_ms:.3f} ms ({bound_by}) [{card}]"
+        )
+        if label.endswith("bfloat16"):
+            continue
+        generic_fn, _ = fdm(d_t, fused_kernels=False).trajectory_function(
+            cp, (0.0, SYSTEM_TIMED_STEPS * d_t)
+        )
+        generic_ms = cuda_ms(torch, lambda: generic_fn(y_0, 0.0), reps=3)
+        scaled_ms = generic_ms * steps / SYSTEM_TIMED_STEPS
+        log(
+            f"time: generic path {label}, {SYSTEM_TIMED_STEPS} steps: "
+            f"{generic_ms:.3f} ms (median of 3), scaled to {steps} steps "
+            f"{scaled_ms:.3f} ms (scaled, not run): K8 "
+            f"{scaled_ms / run_ms[label]:.3f}x faster [{card}]"
+        )
+    # the plan's tiles against two other tilings, through the K8 wrapper
+    for label, others, steps in (
+        ("wave 101^2 x 2", ((16, 32), (12, 24)), 500),
+        ("shallow water 101 x 51 x 3", ((16, 32), (12, 24)), 500),
+        ("cahn-hilliard 101^2 x 2", ((16, 32), (8, 24)), 500),
+        ("burgers 641^2 x 2", ((32, 64), (48, 64)), 100),
+    ):
+        if label in examples:
+            _, ivp, d_t, y_0 = examples[label]
+            cfg = ts._TiledSystemConfig(ivp.constrained_problem, d_t)
+        else:
+            cfg, y_0 = burgers_cfg, burgers_y
+        tilings = []
+        for rows, cols in ((cfg.plan.rows, cfg.plan.cols),) + others:
+            plan = cfg.plan._replace(rows=rows, cols=cols)
+            ms = cuda_ms(torch, lambda: k8(y_0, cfg, steps, plan=plan))
+            tilings.append(f"{rows} x {cols} {1e3 * ms / steps:.3f}")
+        log(
+            f"time: K8 tilings, {label}, {steps} steps, us a step: the "
+            f"plan's {tilings[0]}; others {', '.join(tilings[1:])} [{card}]"
+        )
+    fine_run, _ = fdm(CH_PARAREAL_FINE_D_T).trajectory_function(
+        ch_cp, (0.0, CH_PARAREAL_T_END)
+    )
+    program, _ = parareal.trajectory_function(ch_cp, (0.0, CH_PARAREAL_T_END))
+    runs["cahn-hilliard 41^2 fine"] = lambda: fine_run(ch_y, 0.0)
+    runs["cahn-hilliard 41^2 parareal"] = lambda: program(ch_y)
+    for label in ("cahn-hilliard 41^2 fine", "cahn-hilliard 41^2 parareal"):
+        run_ms[label] = cuda_ms(torch, runs[label])
+    fine_ms = run_ms["cahn-hilliard 41^2 fine"]
+    parareal_ms = run_ms["cahn-hilliard 41^2 parareal"]
+    log(
+        f"time: cahn-hilliard 41^2 fine solve (K5 trajectory, "
+        f"{slice_steps * CH_PARAREAL_SLICES} steps): {fine_ms:.3f} ms; "
+        f"Parareal, {CH_PARAREAL_SLICES} slices: {parareal_ms:.3f} ms, "
+        f"speedup {fine_ms / parareal_ms:.3f}x, "
+        f"{parareal.last_iterations} iterations [{card}]"
+    )
+
+    # each kernel function at the shapes of its path, beside its plain
+    # version (one run where it takes seconds) and its bound
+    cells_641 = burgers_cfg.height * burgers_cfg.width
+    ch_fine_cfg = fs._SystemKernelConfig(ch_cp, CH_PARAREAL_FINE_D_T)
+    ch_cells = CH_PARAREAL_N * CH_PARAREAL_N
+    ch_slices = torch.stack(
+        [ch_y * (1.0 - 0.01 * i) for i in range(CH_PARAREAL_SLICES)]
+    ).contiguous()
+    coarse_total = coarse_steps * CH_PARAREAL_SLICES
+    b = CH_PARAREAL_SLICES
+    timings = [
+        (TILED_SYSTEM_KERNEL, TILED_SYSTEM_KERNEL, k8, k8_plain,
+         f"641^2 x 2 Burgers, {SYSTEM_TIMED_STEPS} steps",
+         (burgers_y, burgers_cfg, SYSTEM_TIMED_STEPS),
+         tiled_system_bound("burgers", burgers_cfg, 1, SYSTEM_TIMED_STEPS, 4),
+         True, TILED_SYSTEM_SOURCE, TILED_SYSTEM_REPLACES),
+    ]
+    replaced = {name: replaces for name, _, replaces, _ in SYSTEM_KERNELS}
+    for name, what, args, (n_steps, batch, trajectory) in (
+        ("packed_system_rk4_ends",
+         f"B={b} x 41^2 x 2 Cahn-Hilliard, {slice_steps} steps (one "
+         "iteration's fine ends)",
+         (ch_slices, ch_fine_cfg, slice_steps), (slice_steps, b, False)),
+        ("packed_system_rk4_trajectory",
+         f"B={b} x 41^2 x 2 Cahn-Hilliard, {slice_steps} steps (the final "
+         "expansion)",
+         (ch_slices, ch_fine_cfg, slice_steps), (slice_steps, b, True)),
+        ("fused_system_rk4_trajectory",
+         f"41^2 x 2 Cahn-Hilliard, {coarse_total} coarse steps (the coarse "
+         "roll-out)",
+         (ch_y, ch_cfg, coarse_total), (coarse_total, 1, True)),
+        ("fused_system_rk4_end",
+         f"41^2 x 2 Cahn-Hilliard, {coarse_steps} coarse steps (one slice "
+         "of a coarse sweep)",
+         (ch_y, ch_cfg, coarse_steps), (coarse_steps, 1, False)),
+    ):
+        timings.append(
+            (f"{name}:cahn-hilliard", name, family_wrappers[name],
+             family_plain[name], what, args,
+             stencil_bound("cahn-hilliard", batch, n_steps, ch_cells, 2,
+                           trajectory),
+             True, SYSTEM_SOURCE, replaced[name])
+        )
+    for family in ("wave", "shallow-water"):
+        cp = system_problem_2d(
+            prml, family, "dirichlet" if family == "wave" else "partial",
+            K5_FAMILY_SHAPE,
+        )
+        cfg = fs._SystemKernelConfig(cp, 1e-3)
+        y = smooth_states_2d(torch, device, K5_FAMILY_SHAPE, cfg.n)
+        name = "fused_system_rk4_trajectory"
+        timings.append(
+            (f"{name}:{family}", name, family_wrappers[name],
+             family_plain[name],
+             f"{K5_FAMILY_SHAPE[0]} x {K5_FAMILY_SHAPE[1]} x {cfg.n} "
+             f"{family}, {K5_FAMILY_STEPS} steps",
+             (y, cfg, K5_FAMILY_STEPS),
+             stencil_bound(family, 1, K5_FAMILY_STEPS,
+                           K5_FAMILY_SHAPE[0] * K5_FAMILY_SHAPE[1], cfg.n,
+                           True),
+             False, SYSTEM_SOURCE, replaced[name])
+        )
+    entries = []
+    for (key, name, wrapper, plain, what, args, (bound_ms, bound_by),
+         on_path, source, replaces) in timings:
+        kernel_ms = cuda_ms(torch, lambda: wrapper(*args))
+        outputs = []
+        plain_ms = once_ms(torch, lambda: outputs.append(plain(*args)))
+        # the kernel against its plain version at the shapes it is timed
+        # on, which are its path's
+        rel_err = check(key, f"{what}, timed", wrapper(*args), outputs[0])
+        del outputs
+        log(
+            f"time: {key} ({what}): kernel {kernel_ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms (one run), bound {bound_ms * 1e3:.3f} us "
+            f"({bound_by}); against the plain version there "
+            f"max|d|/max|y| = {rel_err:.3e} [{card}]"
+        )
+        entries.append(
+            {
+                "name": key,
+                "route": "cuda",
+                "source": source,
+                "replaces": replaces,
+                "on_path": on_path,
+                "launches": launches[name] if on_path else 0,
+                "max_abs_err": errors.get(key, 0.0),
+                "ms": kernel_ms,
+                "plain_ms": plain_ms,
+                "bound_ms": bound_ms,
+                "bound_us": bound_ms * 1e3,
+                "bound_by": bound_by,
+                "library_ms": None,
+                "timed": what,
+            }
+        )
+    del ch_slices
+    torch.cuda.empty_cache()
+
+    # -- phase 20: device busy time and idle share (torch.profiler) ------
+    for label, run in runs.items():
+        busy_ms, top = device_busy_ms(torch, run, reps=1)
+        if busy_ms is None:
+            log(f"profile: {label}: not measured (no device events)")
+            continue
+        log(
+            f"profile: {label}: device busy {busy_ms:.3f} ms of "
+            f"{run_ms[label]:.3f} ms, idle share "
+            f"{1.0 - busy_ms / run_ms[label]:.3f}; top: {top} [{card}]"
+        )
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -1887,6 +2726,7 @@ def main() -> int:
         fused_system,
         fused_system_3d,
         tiled_diffusion,
+        tiled_system,
     )
 
     start = time.perf_counter()
@@ -1896,12 +2736,14 @@ def main() -> int:
         "fused_system",
         "tiled_diffusion",
         "fused_system_3d",
+        "tiled_system",
     )
     cuda_library.build_libraries(sources)
     fd.load_kernels()
     fused_system.load_kernels()
     tiled_diffusion.load_kernels()
     fused_system_3d.load_kernels()
+    tiled_system.load_kernels()
     log(
         f"kernel libraries ready in {time.perf_counter() - start:.2f} s "
         f"(nvcc, in parallel: {cuda_library.build_seconds})"
@@ -2159,6 +3001,9 @@ def main() -> int:
         torch, prml, device, card, cuda_ms, once_ms, device_busy_ms
     )
     kernels += three_d_phases(
+        torch, prml, device, card, cuda_ms, once_ms, device_busy_ms
+    )
+    kernels += system_2d_phases(
         torch, prml, device, card, cuda_ms, once_ms, device_busy_ms
     )
     print(json.dumps({"kernels": kernels}))

@@ -52,14 +52,17 @@
 // plain PyTorch version's separate operations do.
 
 #include <cooperative_groups.h>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
 
+#include "state_io.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
+
+using namespace state_io;
 
 constexpr int kStages = 4;
 // one RK4 step's four chained radius-1 stencils reach 4 cells
@@ -228,33 +231,6 @@ __device__ __forceinline__ void rk4_step_in_tile(const Problem& p,
     __syncthreads();
     in = out;
     out = (out == ta) ? tb : ta;
-  }
-}
-
-__device__ __forceinline__ float round_to_bfloat16(float value) {
-  return __bfloat162float(__float2bfloat16_rn(value));
-}
-
-// How a state buffer in device memory is read.
-enum SourceKind { kSourceFloat = 0, kSourceBfloat16 = 1,
-                  kSourceFloatRounded = 2 };
-
-__device__ __forceinline__ float load_state(const void* source, int kind,
-                                            size_t index) {
-  if (kind == kSourceBfloat16) {
-    return __bfloat162float(
-        static_cast<const __nv_bfloat16*>(source)[index]);
-  }
-  const float value = static_cast<const float*>(source)[index];
-  return kind == kSourceFloatRounded ? round_to_bfloat16(value) : value;
-}
-
-__device__ __forceinline__ void store_state(void* target, int is_bfloat16,
-                                            size_t index, float value) {
-  if (is_bfloat16) {
-    static_cast<__nv_bfloat16*>(target)[index] = __float2bfloat16_rn(value);
-  } else {
-    static_cast<float*>(target)[index] = value;
   }
 }
 

@@ -8,16 +8,17 @@ chosen when it is built:
 - for parallel-in-time callers on linear problems, the exact affine
   propagator (:mod:`pararealml_tpu_torch.ops.linear_propagator`);
 - where the fused kernels apply (RK4, float32 states, static boundary
-  conditions on a Cartesian mesh: 2D diffusion, convection-diffusion or
-  Burgers; 3D diffusion, convection-diffusion, wave, Burgers or
-  Cahn-Hilliard), the hand-written CUDA kernels of
-  :mod:`pararealml_tpu_torch.ops.fused_diffusion` (K1-K3 on grids that
-  fit one CTA's shared memory, the resident K7 and the tiled K6
-  trajectory kernels on larger diffusion grids),
-  :mod:`pararealml_tpu_torch.ops.fused_system` (K5, grids that fit one
-  CTA) and :mod:`pararealml_tpu_torch.ops.fused_system_3d` (K9, volumes
-  that fit one thread block cluster), or their plain PyTorch versions
-  for CPU tensors;
+  conditions on a Cartesian mesh: 2D diffusion, convection-diffusion,
+  wave, Burgers, shallow water or Cahn-Hilliard; 3D diffusion,
+  convection-diffusion, wave, Burgers or Cahn-Hilliard), the hand-written
+  CUDA kernels of :mod:`pararealml_tpu_torch.ops.fused_diffusion` (K1-K3
+  on grids that fit one CTA's shared memory, the resident K7 and the
+  tiled K6 trajectory kernels on larger diffusion grids),
+  :mod:`pararealml_tpu_torch.ops.fused_system` (K5 on grids that fit one
+  CTA, the tiled K8 trajectory and step past it),
+  :mod:`pararealml_tpu_torch.ops.fused_system_3d` (K9, volumes that fit
+  one thread block cluster), or their plain PyTorch versions for CPU
+  tensors;
 - otherwise a Python loop over the generic step, which evaluates the
   symbolic right-hand side with stencils on tensors.
 
@@ -98,11 +99,12 @@ class FDMOperator(TorchOperator):
         :param fused_kernels: whether to use the hand-written CUDA
             kernels for the problem classes they cover (RK4 with static
             boundary conditions on Cartesian meshes, float32 states: 2D
-            diffusion, convection-diffusion and Burgers, Burgers only on
-            grids that fit one CTA's shared memory; 3D diffusion,
-            convection-diffusion, wave, Burgers and Cahn-Hilliard on
-            volumes that fit one thread block cluster); the generic path
-            is used otherwise
+            diffusion, convection-diffusion, wave, Burgers, shallow water
+            and Cahn-Hilliard, the four systems past one CTA's shared
+            memory only with Dirichlet constraints on the grid's faces;
+            3D diffusion, convection-diffusion, wave, Burgers and
+            Cahn-Hilliard on volumes that fit one thread block cluster);
+            the generic path is used otherwise
         :param linear_propagator: whether parallel-in-time callers
             (``trajectory_function(..., time_parallel=True)``, i.e.
             Parareal sub-solves) may compute trajectories of *linear*
@@ -110,8 +112,9 @@ class FDMOperator(TorchOperator):
             sequential stencil stepping; plain ``solve`` calls always
             time-step
         :param kernel_storage_dtype: precision of the stored trajectory
-            (and, on the tiled path, of the state carried between
-            residencies) of the large-grid diffusion kernels:
+            (and, on the tiled paths, of the state carried between
+            residencies or steps) of the large-grid diffusion kernels
+            and of the tiled system kernel (K8):
             ``torch.float32`` (default) or ``torch.bfloat16``, which
             halves the traffic while all arithmetic stays float32; the
             trajectory function then returns that dtype
@@ -288,7 +291,8 @@ class FDMOperator(TorchOperator):
     ) -> Optional[Callable]:
         """The fused end kernel for this problem (K2 for the diffusion
         family, the K5 end for 2D systems, the K9 end in 3D), or None when
-        none applies."""
+        none applies (among others, a 2D system past one CTA: its ends
+        take the generic carry-only loop, as in the JAX package)."""
         from pararealml_tpu_torch.ops.fused_diffusion import (
             build_fused_diffusion_rk4_end,
             fused_diffusion_step_applicable,
@@ -320,8 +324,9 @@ class FDMOperator(TorchOperator):
         self, cp, steps: int, dtype: torch.dtype
     ) -> Optional[Callable]:
         """The fused trajectory kernel for this problem (K1, K7 or K6
-        for the diffusion family, by grid size; the K5 trajectory for 2D
-        systems; the K9 trajectory in 3D), or None when none applies."""
+        for the diffusion family, by grid size; the K5 or K8 trajectory
+        for 2D systems, by grid size; the K9 trajectory in 3D), or None
+        when none applies."""
         from pararealml_tpu_torch.ops.fused_diffusion import (
             build_fused_diffusion_rk4_trajectory,
             fused_diffusion_step_applicable,
@@ -378,7 +383,14 @@ class FDMOperator(TorchOperator):
                 temporal_block=temporal_block,
             )
         if fused_system_step_applicable(cp, self._integrator, dtype):
-            return build_fused_system_rk4_trajectory(cp, self._d_t, steps)
+            # kernel_traj_dtype and kernel_temporal_block do not reach
+            # the system kernels, as in the JAX package
+            return build_fused_system_rk4_trajectory(
+                cp,
+                self._d_t,
+                steps,
+                storage_dtype=self._kernel_storage_dtype,
+            )
         if fused_system_3d_step_applicable(cp, self._integrator, dtype):
             return build_fused_system_3d_rk4_trajectory(cp, self._d_t, steps)
         return None
@@ -397,7 +409,7 @@ class FDMOperator(TorchOperator):
         """Builds ``fn(y_0, t_0) -> ys`` for the whole trajectory: for
         parallel-in-time callers on linear problems, the affine
         propagator; otherwise the fused trajectory kernel (K1, K5, K6,
-        K7 or K9) when applicable, else a loop over the generic step."""
+        K7, K8 or K9) when applicable, else a loop over the generic step."""
         dtype = self.dtype if dtype is None else dtype
         device = self.device if device is None else torch.device(device)
         if time_parallel and self._linear_propagator:
@@ -429,7 +441,7 @@ class FDMOperator(TorchOperator):
                 return fused_trajectory(y_init)
 
             # one CTA (K1, K5), one cluster (K9) or one launch sequence
-            # (K6, K7) per leading index
+            # (K6, K7; K8 over all of them at once) per leading index
             fused.vmappable = True
             fused.fused = True
             return fused
@@ -466,8 +478,8 @@ class FDMOperator(TorchOperator):
         all constraint data resolved to tensors. ``y`` may carry leading
         batch axes. With ``allow_fused``, the fused step kernel is
         used where it applies to states of ``dtype`` (K3 for the
-        diffusion family, the K5 step for 2D systems, the K9 step in
-        3D)."""
+        diffusion family, the K5 step for 2D systems, or the one-step K8
+        trajectory past one CTA, the K9 step in 3D)."""
         _require_static(cp)
         dtype = self.dtype if dtype is None else dtype
         if self._fused_kernels and allow_fused:

@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` file exports a plain C interface. On first use it
 is compiled (several sources at once with :func:`build_libraries`, one
 ``nvcc`` each) with ``nvcc`` for Hopper (``sm_90a``) into a shared library
 under ``build/`` beside the package, and loaded with :mod:`ctypes`. The
-library file is named by a hash of the source and the compiler flags, so
-an edited source is rebuilt and never mixed up with a stale build.
+library file is named by a hash of the source, the headers of ``csrc/``
+(``*.cuh``) and the compiler flags, so an edited source or header is
+rebuilt and never mixed up with a stale build.
 Nothing is built when the package is imported: CPU-only hosts (which
 have no ``nvcc``) import every module and run the kernels' plain PyTorch
 versions instead.
@@ -63,12 +64,14 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> str:
-    source = os.path.join(_SOURCE_DIR, f"{name}.cu")
-    with open(source, "rb") as f:
-        digest = hashlib.sha256(
-            f.read() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"{name}-{digest}.so")
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(
+        entry for entry in os.listdir(_SOURCE_DIR) if entry.endswith(".cuh")
+    )
+    for file_name in [f"{name}.cu"] + headers:
+        with open(os.path.join(_SOURCE_DIR, file_name), "rb") as f:
+            digest.update(f.read())
+    return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 
 def build_libraries(names: Sequence[str]) -> None:

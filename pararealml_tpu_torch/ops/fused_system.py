@@ -1,13 +1,16 @@
 """Fused RK4 kernels for multi-component 2D systems (K5).
 
-Port of the JAX package's ``ops/fused_system.py`` for the viscous Burgers
-system on Cartesian meshes. Its three Pallas TPU kernels — the trajectory,
-the end state (single or batched) and the single step — become launches
-of one hand-written CUDA kernel template for Hopper,
-``csrc/fused_system.cu`` (see its header for the design), which the
-batched kernels of ``ops/packed_system.py`` (K4) launch too.
-One CTA keeps one state on-chip for all steps, so an RK4 solve reads the
-state once and writes either every step or the end state.
+Port of the JAX package's ``ops/fused_system.py`` for the wave, viscous
+Burgers, shallow-water and Cahn-Hilliard systems on Cartesian meshes. Its
+three Pallas TPU kernels — the trajectory, the end state (single or
+batched) and the single step — become launches of one hand-written CUDA
+kernel template for Hopper, ``csrc/fused_system.cu`` (see its header for
+the design), which the batched kernels of ``ops/packed_system.py`` (K4)
+launch too. One CTA keeps one state on-chip for all steps, so a solve reads
+the state once and writes either every step or the end state. The
+equation functors live in ``csrc/system_2d.cuh``, shared with the tiled
+kernel K8 (``ops/tiled_system.py``), which takes the grids one CTA cannot
+hold.
 
 Each kernel has a wrapper and a plain PyTorch version beside it:
 
@@ -17,19 +20,23 @@ Each kernel has a wrapper and a plain PyTorch version beside it:
   fallback: on a CUDA tensor the kernel runs or the wrapper raises. Each
   counts its kernel launches in a plain integer attribute, ``launches``.
 - ``fused_system_rk4_{trajectory,end,step}_reference`` are the plain
-  versions, following the JAX package's ``_make_rhs_builder`` and
-  ``_StencilHelpers`` term for term. They run on any device.
+  versions, following the JAX package's ``_make_rhs_builder``,
+  ``_make_step_factory`` and ``_StencilHelpers`` term for term. They run
+  on any device and in any floating-point type.
 
 States use the JAX package's layout: ``(H, W, n)``, or ``(B, H, W, n)``
 for a batch (one CTA per state).
 
-Applicability (:func:`fused_system_step_applicable`): a 2D Cartesian
-``BurgersEquation`` problem with static boundary conditions, solved with
-RK4, in float32, on a grid whose kernel working set fits the 227 KB of
-shared memory one CTA can hold. The JAX package's other families of this
-kernel (wave, shallow water, Cahn-Hilliard, Navier-Stokes), its polar
-meshes and its beyond-VMEM tiled variant are not ported yet (ROADMAP.md,
-Queue 2): those problems take the generic path.
+Applicability (:func:`fused_system_step_applicable` and the per-family
+gates): one of the four exact equation types on a 2D Cartesian mesh with
+static boundary conditions, solved with RK4, in float32. Where the grid's
+working set fits the 227 KB of shared memory one CTA can hold (about 74²
+for two components, 60² for three), the trajectory, end and step take K5;
+past that, the trajectory and the step take K8 where the Dirichlet
+constraints lie on the grid's faces, and the end returns ``None`` (the
+generic carry-only loop), as the JAX package's end does past VMEM. The
+JAX package's Navier-Stokes family and polar meshes are not ported yet
+(ROADMAP.md, Queue 2): those problems take the generic path.
 """
 
 from __future__ import annotations
@@ -41,35 +48,52 @@ import numpy as np
 import torch
 
 from pararealml_tpu_torch.constrained_problem import ConstrainedProblem
-from pararealml_tpu_torch.differential_equation import BurgersEquation
+from pararealml_tpu_torch.differential_equation import (
+    BurgersEquation,
+    CahnHilliardEquation,
+    ShallowWaterEquation,
+    WaveEquation,
+)
 from pararealml_tpu_torch.mesh import CoordinateSystem
 
 # the dynamic shared memory one CTA can opt into on Hopper (232,448 B)
 MAX_SHARED_MEMORY_BYTES = 227 * 1024
 
-# the kernel template's equation functors, by equation type
-_EQUATION_IDS = {BurgersEquation: 0}
+# the kernel templates' equation functors, by equation type (the numbers
+# of EquationId in csrc/system_2d.cuh)
+_EQUATION_TYPES = (
+    WaveEquation,
+    BurgersEquation,
+    ShallowWaterEquation,
+    CahnHilliardEquation,
+)
+_EQUATION_IDS = {equation: i for i, equation in enumerate(_EQUATION_TYPES)}
 
 
 def shared_memory_bytes(height: int, width: int, n_components: int) -> int:
-    """The kernel's shared-memory working set for an H x W grid of
+    """The K5 kernel's shared-memory working set for an H x W grid of
     n-component states: five sets of n float planes (state, two stage
     buffers, the RK4 accumulator and the Dirichlet values), the float
-    Neumann face vectors and the byte masks. Must match
-    ``fused_system_shared_bytes`` in the CUDA source."""
+    Neumann face vectors and the byte masks, in the order the CUDA kernel
+    carves them; the launch passes it to the kernel."""
     values = height * width * n_components
     faces = 2 * n_components * (height + width)
     return 4 * (5 * values + faces) + values + faces
 
 
-def fused_system_step_applicable(
+def fits_one_block(cp: ConstrainedProblem) -> bool:
+    """Whether the problem's grid fits one CTA's shared memory (K5, K4)."""
+    height, width = cp.mesh.vertices_shape
+    n = cp.differential_equation.y_dimension
+    return shared_memory_bytes(height, width, n) <= MAX_SHARED_MEMORY_BYTES
+
+
+def _system_applicable(
     cp: ConstrainedProblem,
     integrator,
+    equation_type,
     dtype: Optional[torch.dtype] = None,
 ) -> bool:
-    """Whether the fused system kernels reproduce the generic path for
-    this problem (and, when ``dtype`` is given, for states of that
-    dtype: the kernels are float32 only)."""
     from pararealml_tpu_torch.operators.fdm.numerical_integrator import RK4
 
     diff_eq = cp.differential_equation
@@ -77,47 +101,97 @@ def fused_system_step_applicable(
     # equation system that the fused kernel would silently ignore
     if not (
         (dtype is None or dtype == torch.float32)
-        and type(diff_eq) in _EQUATION_IDS
+        and type(diff_eq) is equation_type
         and isinstance(integrator, RK4)
         and diff_eq.x_dimension == 2
         and cp.mesh is not None
         and cp.mesh.coordinate_system_type == CoordinateSystem.CARTESIAN
         and cp.are_all_boundary_conditions_static
+        and min(cp.mesh.vertices_shape) >= 3
     ):
         return False
-    height, width = cp.mesh.vertices_shape
-    return (
-        min(height, width) >= 3
-        and shared_memory_bytes(height, width, diff_eq.y_dimension)
-        <= MAX_SHARED_MEMORY_BYTES
+    if fits_one_block(cp):
+        return True
+    # past one CTA: the tiled kernel (K8)
+    from pararealml_tpu_torch.ops.tiled_system import tiled_system_applicable
+
+    return tiled_system_applicable(cp)
+
+
+def fused_wave_step_applicable(cp, integrator, dtype=None) -> bool:
+    """Whether the fused wave kernels reproduce the generic path for this
+    problem (and, when ``dtype`` is given, for states of that dtype)."""
+    return _system_applicable(cp, integrator, WaveEquation, dtype)
+
+
+def fused_burgers_step_applicable(cp, integrator, dtype=None) -> bool:
+    """Whether the fused Burgers kernels reproduce the generic path for
+    this problem (and, when ``dtype`` is given, for states of that
+    dtype)."""
+    return _system_applicable(cp, integrator, BurgersEquation, dtype)
+
+
+def fused_shallow_water_step_applicable(cp, integrator, dtype=None) -> bool:
+    """Whether the fused shallow-water kernels reproduce the generic path
+    for this problem (and, when ``dtype`` is given, for states of that
+    dtype)."""
+    return _system_applicable(cp, integrator, ShallowWaterEquation, dtype)
+
+
+def fused_cahn_hilliard_step_applicable(cp, integrator, dtype=None) -> bool:
+    """Whether the fused Cahn-Hilliard kernels reproduce the generic path
+    for this problem (and, when ``dtype`` is given, for states of that
+    dtype)."""
+    return _system_applicable(cp, integrator, CahnHilliardEquation, dtype)
+
+
+def fused_system_step_applicable(
+    cp: ConstrainedProblem,
+    integrator,
+    dtype: Optional[torch.dtype] = None,
+) -> bool:
+    """Whether any fused system kernel (K5 on one CTA, K8 past it)
+    reproduces the generic path for this problem (and, when ``dtype`` is
+    given, for states of that dtype: the kernels are float32 only)."""
+    return any(
+        _system_applicable(cp, integrator, equation_type, dtype)
+        for equation_type in _EQUATION_TYPES
     )
 
 
-def _component_constraint_tensors(
+def _dirichlet_grids(
     cp: ConstrainedProblem, n: int
-) -> Dict[str, np.ndarray]:
-    """Dense static constraint arrays, one entry per component: Dirichlet
-    grids ``(n, H, W)`` and Neumann face vectors ``(2 faces, n, length)``
-    (the JAX package's ``_component_constraint_tensors``)."""
+) -> Tuple[np.ndarray, np.ndarray]:
+    """The static Dirichlet mask and values as ``(n, H, W)`` grids, the
+    values zeroed where the mask is unset and kept float64."""
     height, width = cp.mesh.vertices_shape
-    dtype = np.float32
+    if cp.static_y_vertex_constraints is None:
+        return (
+            np.zeros((n, height, width), bool),
+            np.zeros((n, height, width)),
+        )
+    mask = cp.static_y_vertex_constraints.mask.numpy().reshape(
+        height, width, n
+    )
+    values = cp.static_y_vertex_constraints.values.numpy().reshape(
+        height, width, n
+    )
+    values = np.where(mask, values, 0.0).astype(np.float64)
+    return np.moveaxis(mask, -1, 0), np.moveaxis(values, -1, 0)
 
-    if cp.static_y_vertex_constraints is not None:
-        dir_mask = cp.static_y_vertex_constraints.mask.numpy().reshape(
-            height, width, n
-        )
-        dir_vals = cp.static_y_vertex_constraints.values.numpy().reshape(
-            height, width, n
-        )
-        dir_vals = np.where(dir_mask, dir_vals, 0.0)
-    else:
-        dir_mask = np.zeros((height, width, n), bool)
-        dir_vals = np.zeros((height, width, n))
+
+def _ghost_faces(cp: ConstrainedProblem, n: int) -> Dict[str, np.ndarray]:
+    """The static Neumann face vectors, one per component: ghost rows
+    ``(2 faces, n, W)`` and columns ``(2 faces, n, H)``, the lower face
+    first, values zeroed where the mask is unset and kept float64 (they
+    take the state's dtype on the device). Both system kernels read
+    them."""
+    height, width = cp.mesh.vertices_shape
 
     def face_vectors(pair, length):
         """(2 sides, n components, length) mask and value arrays."""
         masks = np.zeros((2, n, length), bool)
-        values = np.zeros((2, n, length), dtype)
+        values = np.zeros((2, n, length))
         for side_index, side in enumerate(
             (pair.lower, pair.upper) if pair else (None, None)
         ):
@@ -128,15 +202,13 @@ def _component_constraint_tensors(
             )
             values[side_index] = np.moveaxis(
                 side.values.numpy().reshape(length, n), -1, 0
-            ).astype(dtype)
-        return masks, values
+            )
+        return masks, np.where(masks, values, 0.0)
 
     d_y = cp.static_boundary_vertex_constraints.d_y
     ghost_row_mask, ghost_row_vals = face_vectors(d_y[0], width)
     ghost_col_mask, ghost_col_vals = face_vectors(d_y[1], height)
     return dict(
-        dir_mask=np.moveaxis(dir_mask, -1, 0),
-        dir_vals=np.moveaxis(dir_vals.astype(dtype), -1, 0),
         ghost_row_mask=ghost_row_mask,
         ghost_row_vals=ghost_row_vals,
         ghost_col_mask=ghost_col_mask,
@@ -144,33 +216,50 @@ def _component_constraint_tensors(
     )
 
 
-_CONSTANT_NAMES = (
-    "dir_mask",
-    "dir_vals",
-    "ghost_row_mask",
-    "ghost_row_vals",
-    "ghost_col_mask",
-    "ghost_col_vals",
-)
-
-
 class _SystemKernelConfig:
     """Static configuration of the fused system kernels for one problem:
-    grid geometry, the equation and its coefficient, the RK4 step's
+    grid geometry, the equation and its coefficients, the RK4 step's
     float32 constants, and the constraint tensors (copied to each device
     a state arrives on, once)."""
 
     def __init__(self, cp: ConstrainedProblem, d_t: float):
         diff_eq = cp.differential_equation
-        self.equation = _EQUATION_IDS[type(diff_eq)]
-        self.n = n = diff_eq.y_dimension
+        if type(diff_eq) not in _EQUATION_IDS:
+            raise ValueError(
+                f"no fused 2D system kernel for {type(diff_eq).__name__}"
+            )
         mesh = cp.mesh
+        if (
+            diff_eq.x_dimension != 2
+            or mesh is None
+            or mesh.coordinate_system_type != CoordinateSystem.CARTESIAN
+        ):
+            raise ValueError(
+                "the fused 2D system kernels take 2D Cartesian meshes only"
+            )
+        self.equation_type = type(diff_eq)
+        self.equation = _EQUATION_IDS[self.equation_type]
+        self.n = diff_eq.y_dimension
         self.height, self.width = mesh.vertices_shape
         d_x0, d_x1 = mesh.d_x
         # the JAX package computes these in float64 on the host and the
         # kernel rounds them to float32, as the plain version's Python
         # scalars are rounded
-        self.coefficient = 1.0 / float(diff_eq._re)
+        self.gamma = 0.0
+        self.depth = self.drag = self.coriolis = self.gravity = 0.0
+        if self.equation_type is WaveEquation:
+            self.coefficient = float(diff_eq._c) ** 2
+        elif self.equation_type is BurgersEquation:
+            self.coefficient = 1.0 / float(diff_eq._re)
+        elif self.equation_type is ShallowWaterEquation:
+            self.coefficient = float(diff_eq._v)
+            self.depth = float(diff_eq._h)
+            self.drag = float(diff_eq._b)
+            self.coriolis = float(diff_eq._f)
+            self.gravity = float(diff_eq._g)
+        else:
+            self.coefficient = float(diff_eq._d)
+            self.gamma = float(diff_eq._gamma)
         self.d_t = float(d_t)
         self.half_d_t = 0.5 * self.d_t
         self.sixth_d_t = self.d_t / 6.0
@@ -182,24 +271,61 @@ class _SystemKernelConfig:
         self.two_dx1 = 2.0 * float(d_x1)
         self._host_constants = {
             name: torch.as_tensor(value)
-            for name, value in _component_constraint_tensors(cp, n).items()
+            for name, value in self._constraint_arrays(cp).items()
         }
-        self._constants: Dict[torch.device, Tuple[torch.Tensor, ...]] = {}
+        self._constants: Dict[tuple, Tuple[torch.Tensor, ...]] = {}
+
+    def _constraint_arrays(self, cp: ConstrainedProblem):
+        """The constraint arrays in kernel argument order: K5's Dirichlet
+        grids ``(n, H, W)`` and the ghost face vectors (the JAX package's
+        ``_component_constraint_tensors``)."""
+        dir_mask, dir_vals = _dirichlet_grids(cp, self.n)
+        return dict(
+            dir_mask=dir_mask, dir_vals=dir_vals, **_ghost_faces(cp, self.n)
+        )
 
     @property
     def state_shape(self) -> Tuple[int, int, int]:
         return (self.height, self.width, self.n)
 
-    def constants(self, device: torch.device) -> Tuple[torch.Tensor, ...]:
-        """The six constraint tensors on ``device``, in kernel argument
-        order."""
-        constants = self._constants.get(device)
+    def coefficient_array(self):
+        """The kernels' coefficient argument as C floats, in the order of
+        ``make_params`` in ``csrc/system_2d.cuh``."""
+        values = (
+            self.half_d_t,
+            self.d_t,
+            self.sixth_d_t,
+            self.coefficient,
+            self.gamma,
+            self.depth,
+            self.drag,
+            self.coriolis,
+            self.gravity,
+            self.inv_dx0_sqr,
+            self.inv_dx1_sqr,
+            self.inv_two_dx0,
+            self.inv_two_dx1,
+            self.two_dx0,
+            self.two_dx1,
+        )
+        return (ctypes.c_float * len(values))(*values)
+
+    def constants(
+        self, device: torch.device, dtype: torch.dtype = torch.float32
+    ) -> Tuple[torch.Tensor, ...]:
+        """The constraint tensors on ``device`` in kernel argument order:
+        masks as bool, values in ``dtype``."""
+        key = (device, dtype)
+        constants = self._constants.get(key)
         if constants is None:
             constants = tuple(
-                self._host_constants[name].to(device).contiguous()
-                for name in _CONSTANT_NAMES
+                value.to(
+                    device=device,
+                    dtype=torch.bool if name.endswith("mask") else dtype,
+                ).contiguous()
+                for name, value in self._host_constants.items()
             )
-            self._constants[device] = constants
+            self._constants[key] = constants
         return constants
 
     def check_state(self, y: torch.Tensor, batched: bool = False):
@@ -234,11 +360,16 @@ class _SystemKernelConfig:
 
 class _Helpers:
     """``_StencilHelpers`` of the JAX package (Cartesian, unpadded) over
-    ``(..., H, W)`` component planes."""
+    ``(..., H, W)`` component planes; with ``sum_then_ghost``, the
+    Laplacian of its ``_TiledStencilHelpers`` (the two axis terms summed,
+    then the ghost rows, then the ghost columns added). ``faces`` are the
+    Neumann ghost row mask and values ``(2, n, W)`` and ghost column mask
+    and values ``(2, n, H)``."""
 
-    def __init__(self, cfg: _SystemKernelConfig, constants):
+    def __init__(self, cfg: _SystemKernelConfig, faces, sum_then_ghost=False):
         self._cfg = cfg
-        _, _, self._grm, self._grv, self._gcm, self._gcv = constants
+        self._grm, self._grv, self._gcm, self._gcv = faces
+        self._sum_then_ghost = sum_then_ghost
         self._shift_cache = {}
 
     def _shifts(self, state):
@@ -257,50 +388,69 @@ class _Helpers:
         self._shift_cache[id(state)] = (state, shifts)
         return shifts
 
-    def laplacian(self, comp, state):
+    def _ghost_rows(self, comp, state):
+        """The masked ghost rows of the two axis-0 faces times 1 / dx0²."""
         cfg = self._cfg
-        height, width = cfg.height, cfg.width
-        above, below, left, right = self._shifts(state)
-        d2_0 = (above - 2.0 * state + below) * cfg.inv_dx0_sqr
-        ghost_top = torch.where(
+        top = torch.where(
             self._grm[0, comp],
             state[..., 1, :] - cfg.two_dx0 * self._grv[0, comp],
             0.0,
         )
-        ghost_bottom = torch.where(
+        bottom = torch.where(
             self._grm[1, comp],
-            state[..., height - 2, :] + cfg.two_dx0 * self._grv[1, comp],
+            state[..., cfg.height - 2, :] + cfg.two_dx0 * self._grv[1, comp],
             0.0,
         )
-        d2_0 = torch.cat(
-            [
-                d2_0[..., :1, :] + ghost_top[..., None, :] * cfg.inv_dx0_sqr,
-                d2_0[..., 1: height - 1, :],
-                d2_0[..., height - 1:, :]
-                + ghost_bottom[..., None, :] * cfg.inv_dx0_sqr,
-            ],
-            dim=-2,
-        )
-        d2_1 = (left - 2.0 * state + right) * cfg.inv_dx1_sqr
-        ghost_left = torch.where(
+        return top * cfg.inv_dx0_sqr, bottom * cfg.inv_dx0_sqr
+
+    def _ghost_cols(self, comp, state):
+        """The masked ghost columns of the two axis-1 faces times 1 /
+        dx1²."""
+        cfg = self._cfg
+        left = torch.where(
             self._gcm[0, comp],
             state[..., :, 1] - cfg.two_dx1 * self._gcv[0, comp],
             0.0,
         )
-        ghost_right = torch.where(
+        right = torch.where(
             self._gcm[1, comp],
-            state[..., :, width - 2] + cfg.two_dx1 * self._gcv[1, comp],
+            state[..., :, cfg.width - 2] + cfg.two_dx1 * self._gcv[1, comp],
             0.0,
         )
-        d2_1 = torch.cat(
+        return left * cfg.inv_dx1_sqr, right * cfg.inv_dx1_sqr
+
+    def _add_rows(self, grid, top, bottom):
+        height = self._cfg.height
+        return torch.cat(
             [
-                d2_1[..., :, :1] + ghost_left[..., :, None] * cfg.inv_dx1_sqr,
-                d2_1[..., :, 1: width - 1],
-                d2_1[..., :, width - 1:]
-                + ghost_right[..., :, None] * cfg.inv_dx1_sqr,
+                grid[..., :1, :] + top[..., None, :],
+                grid[..., 1: height - 1, :],
+                grid[..., height - 1:, :] + bottom[..., None, :],
+            ],
+            dim=-2,
+        )
+
+    def _add_cols(self, grid, left, right):
+        width = self._cfg.width
+        return torch.cat(
+            [
+                grid[..., :, :1] + left[..., :, None],
+                grid[..., :, 1: width - 1],
+                grid[..., :, width - 1:] + right[..., :, None],
             ],
             dim=-1,
         )
+
+    def laplacian(self, comp, state):
+        cfg = self._cfg
+        above, below, left, right = self._shifts(state)
+        d2_0 = (above - 2.0 * state + below) * cfg.inv_dx0_sqr
+        d2_1 = (left - 2.0 * state + right) * cfg.inv_dx1_sqr
+        if self._sum_then_ghost:
+            lap = self._add_rows(d2_0 + d2_1, *self._ghost_rows(comp, state))
+            return self._add_cols(lap, *self._ghost_cols(comp, state))
+        d2_0 = self._add_rows(d2_0, *self._ghost_rows(comp, state))
+        d2_1 = self._add_cols(d2_1, *self._ghost_cols(comp, state))
         return d2_0 + d2_1
 
     def gradient_0(self, comp, state):
@@ -342,50 +492,103 @@ class _Helpers:
         )
 
 
-def _burgers_rhs(cfg: _SystemKernelConfig, helpers: _Helpers, y):
-    """The JAX package's ``_make_rhs_builder``, BurgersEquation branch,
-    over a tuple of component planes."""
-    viscosity = cfg.coefficient
-    return tuple(
-        viscosity * helpers.laplacian(comp, plane)
-        - y[0] * helpers.gradient_0(comp, plane)
-        - y[1] * helpers.gradient_1(comp, plane)
-        for comp, plane in enumerate(y)
-    )
-
-
-def _rk4_reference(
-    state: torch.Tensor, cfg: _SystemKernelConfig, constants
-) -> torch.Tensor:
-    """One RK4 step over ``(..., H, W, n)`` states in the evaluation
-    order of the kernel and of the JAX package's RK4 step factory."""
-    dir_mask, dir_vals = constants[0], constants[1]
-    helpers = _Helpers(cfg, constants)
-
-    def rhs(y):
-        return _burgers_rhs(cfg, helpers, y)
-
-    def apply_dirichlet(y):
+def _rhs(cfg: _SystemKernelConfig, helpers: _Helpers, y):
+    """The JAX package's ``_make_rhs_builder`` over a tuple of component
+    planes (wave, Burgers and shallow water; Cartesian)."""
+    if cfg.equation_type is WaveEquation:
+        return (y[1], cfg.coefficient * helpers.laplacian(0, y[0]))
+    if cfg.equation_type is BurgersEquation:
         return tuple(
-            torch.where(dir_mask[comp], dir_vals[comp], plane)
+            cfg.coefficient * helpers.laplacian(comp, plane)
+            - y[0] * helpers.gradient_0(comp, plane)
+            - y[1] * helpers.gradient_1(comp, plane)
             for comp, plane in enumerate(y)
         )
+    eta, u, w = y
+    d_eta_0 = helpers.gradient_0(0, eta)
+    d_eta_1 = helpers.gradient_1(0, eta)
+    d_u_0 = helpers.gradient_0(1, u)
+    d_u_1 = helpers.gradient_1(1, u)
+    d_w_0 = helpers.gradient_0(2, w)
+    d_w_1 = helpers.gradient_1(2, w)
+    div = d_u_0 + d_w_1
+    r_eta = (
+        -cfg.depth * div
+        - eta * d_u_0
+        - u * d_eta_0
+        - eta * d_w_1
+        - w * d_eta_1
+    )
+    r_u = (
+        cfg.coefficient * helpers.laplacian(1, u)
+        - u * d_u_0
+        - w * d_u_1
+        - cfg.gravity * d_eta_0
+        - cfg.drag * u
+        + cfg.coriolis * w
+    )
+    r_w = (
+        cfg.coefficient * helpers.laplacian(2, w)
+        - u * d_w_0
+        - w * d_w_1
+        - cfg.gravity * d_eta_1
+        - cfg.drag * w
+        - cfg.coriolis * u
+    )
+    return (r_eta, r_u, r_w)
 
-    def axpy(y, k, scale):
-        return tuple(plane + scale * k_plane for plane, k_plane in zip(y, k))
 
+def _step_reference(
+    state: torch.Tensor, cfg: _SystemKernelConfig, helpers: _Helpers, dirichlet
+) -> torch.Tensor:
+    """One step over ``(..., H, W, n)`` states in the evaluation order of
+    the kernels and of the JAX package's step factories; ``dirichlet(comp,
+    plane)`` is the Dirichlet override of one component."""
     y = tuple(state[..., comp] for comp in range(cfg.n))
+    if cfg.equation_type is CahnHilliardEquation:
+        # RK4 on y0' = d lap(y1) with y1 held through the stages (so k2 =
+        # k3 = k4), then y1 assigned from the step-initial y0
+        y0, y1 = y
+        k1 = cfg.coefficient * helpers.laplacian(1, y1)
+        k_rest = cfg.coefficient * helpers.laplacian(1, dirichlet(1, y1))
+        y0_next = dirichlet(0, y0 + cfg.sixth_d_t * (k1 + 5.0 * k_rest))
+        y1_next = dirichlet(
+            1, (y0 * y0) * y0 - y0 - cfg.gamma * helpers.laplacian(0, y0)
+        )
+        return torch.stack((y0_next, y1_next), dim=-1)
+
+    def rhs(planes):
+        return _rhs(cfg, helpers, planes)
+
+    def stage(k, scale):
+        return tuple(
+            dirichlet(comp, plane + scale * k_plane)
+            for comp, (plane, k_plane) in enumerate(zip(y, k))
+        )
+
     k1 = rhs(y)
-    k2 = rhs(apply_dirichlet(axpy(y, k1, cfg.half_d_t)))
-    k3 = rhs(apply_dirichlet(axpy(y, k2, cfg.half_d_t)))
-    k4 = rhs(apply_dirichlet(axpy(y, k3, cfg.d_t)))
+    k2 = rhs(stage(k1, cfg.half_d_t))
+    k3 = rhs(stage(k2, cfg.half_d_t))
+    k4 = rhs(stage(k3, cfg.d_t))
     combined = tuple(
         k1_p + 2.0 * k2_p + 2.0 * k3_p + k4_p
         for k1_p, k2_p, k3_p, k4_p in zip(k1, k2, k3, k4)
     )
-    return torch.stack(
-        apply_dirichlet(axpy(y, combined, cfg.sixth_d_t)), dim=-1
-    )
+    return torch.stack(stage(combined, cfg.sixth_d_t), dim=-1)
+
+
+def _k5_step_reference(
+    state: torch.Tensor, cfg: _SystemKernelConfig, constants
+) -> torch.Tensor:
+    """One K5 step: the whole-grid helpers and the dense Dirichlet
+    grids."""
+    dir_mask, dir_vals = constants[0], constants[1]
+    helpers = _Helpers(cfg, constants[2:])
+
+    def dirichlet(comp, plane):
+        return torch.where(dir_mask[comp], dir_vals[comp], plane)
+
+    return _step_reference(state, cfg, helpers, dirichlet)
 
 
 def fused_system_rk4_trajectory_reference(
@@ -393,11 +596,11 @@ def fused_system_rk4_trajectory_reference(
 ) -> torch.Tensor:
     """Plain version of the K5 trajectory: ``(..., H, W, n) -> (...,
     n_steps, H, W, n)``."""
-    constants = cfg.constants(y.device)
+    constants = cfg.constants(y.device, y.dtype)
     out = y.new_empty(tuple(y.shape[:-3]) + (n_steps,) + tuple(y.shape[-3:]))
     state = y
     for k in range(n_steps):
-        state = _rk4_reference(state, cfg, constants)
+        state = _k5_step_reference(state, cfg, constants)
         out[..., k, :, :, :] = state
     return out
 
@@ -407,10 +610,10 @@ def fused_system_rk4_end_reference(
 ) -> torch.Tensor:
     """Plain version of the K5 end state: ``(..., H, W, n) -> (..., H, W,
     n)``."""
-    constants = cfg.constants(y.device)
+    constants = cfg.constants(y.device, y.dtype)
     state = y
     for _ in range(n_steps):
-        state = _rk4_reference(state, cfg, constants)
+        state = _k5_step_reference(state, cfg, constants)
     return state
 
 
@@ -419,26 +622,24 @@ def fused_system_rk4_step_reference(
 ) -> torch.Tensor:
     """Plain version of the K5 step: ``(..., H, W, n) -> (..., H, W,
     n)``."""
-    return _rk4_reference(y, cfg, cfg.constants(y.device))
+    return _k5_step_reference(y, cfg, cfg.constants(y.device, y.dtype))
 
 
 # -- kernel wrappers ----------------------------------------------------------
 
 
 def _configure(library: ctypes.CDLL):
-    c_int, c_float, c_void_p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
+    c_int, c_void_p = ctypes.c_int, ctypes.c_void_p
     library.fused_system_rk4.argtypes = (
         [c_int, c_void_p, c_void_p]
         + [c_int] * 5
+        + [ctypes.c_size_t]
         + [c_void_p] * 6
-        + [c_float] * 10
-        + [c_void_p]
+        + [ctypes.POINTER(ctypes.c_float), c_void_p]
     )
     library.fused_system_rk4.restype = c_int
     library.fused_system_error_string.argtypes = [c_int]
     library.fused_system_error_string.restype = ctypes.c_char_p
-    library.fused_system_shared_bytes.argtypes = [c_int, c_int, c_int]
-    library.fused_system_shared_bytes.restype = ctypes.c_size_t
 
 
 def load_kernels() -> ctypes.CDLL:
@@ -448,16 +649,6 @@ def load_kernels() -> ctypes.CDLL:
     library = load_library("fused_system")
     if not getattr(library, "_signatures_set", False):
         _configure(library)
-        # the applicability gate sizes the kernel's shared memory in
-        # Python; the kernel carves it in C: both must agree
-        for shape in ((3, 3, 2), (21, 21, 2), (17, 40, 2)):
-            if library.fused_system_shared_bytes(
-                *shape
-            ) != shared_memory_bytes(*shape):
-                raise RuntimeError(
-                    "shared_memory_bytes disagrees with the kernel's "
-                    "fused_system_shared_bytes"
-                )
         library._signatures_set = True
     return library
 
@@ -471,14 +662,23 @@ def launch(
 ):
     """Launches the kernel on ``y``'s device and its current stream for a
     contiguous ``(B, H, W, n)`` float32 CUDA state (one CTA per state)
-    and raises if the launch is refused. The wrappers here and in
-    ``ops/packed_system.py`` call it and count their launches."""
+    and raises if the grid does not fit one CTA or the launch is refused.
+    The wrappers here and in ``ops/packed_system.py`` call it and count
+    their launches."""
+    shared_bytes = shared_memory_bytes(cfg.height, cfg.width, cfg.n)
+    if shared_bytes > MAX_SHARED_MEMORY_BYTES:
+        raise ValueError(
+            f"a {cfg.height} x {cfg.width} grid of {cfg.n}-component "
+            f"states needs {shared_bytes} bytes of shared memory, more "
+            "than one CTA holds"
+        )
     library = load_kernels()
     constants = cfg.constants(y.device)
     if any(t.device != y.device for t in (out,) + constants):
         raise ValueError(
             f"the output and constraint tensors must be on {y.device}"
         )
+    coefficients = cfg.coefficient_array()
     # the ctypes launch targets the current device: make it y's
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream(y.device).cuda_stream
@@ -491,17 +691,9 @@ def launch(
             cfg.width,
             n_steps,
             int(write_trajectory),
+            shared_bytes,
             *(c.data_ptr() for c in constants),
-            cfg.half_d_t,
-            cfg.d_t,
-            cfg.sixth_d_t,
-            cfg.coefficient,
-            cfg.inv_dx0_sqr,
-            cfg.inv_dx1_sqr,
-            cfg.inv_two_dx0,
-            cfg.inv_two_dx1,
-            cfg.two_dx0,
-            cfg.two_dx1,
+            coefficients,
             stream,
         )
     if error != 0:
@@ -590,11 +782,27 @@ def states(y: torch.Tensor, cfg: _SystemKernelConfig):
 
 
 def build_fused_system_rk4_trajectory(
-    cp: ConstrainedProblem, d_t: float, n_steps: int
+    cp: ConstrainedProblem, d_t: float, n_steps: int, storage_dtype=None
 ):
     """Builds ``trajectory(y) -> ys`` computing ``n_steps`` fused RK4
-    steps through the K5 trajectory kernel: ``(..., H, W, n) -> (...,
-    n_steps, H, W, n)``, one CTA per leading index."""
+    steps, ``(..., H, W, n) -> (..., n_steps, H, W, n)``: through the K5
+    trajectory kernel (one CTA per leading index) where the grid fits one
+    CTA, else through the tiled kernel K8
+    (``build_tiled_system_rk4_trajectory`` of
+    :mod:`pararealml_tpu_torch.ops.tiled_system`).
+
+    ``storage_dtype`` (K8 only; K5 ignores it, as the JAX package's
+    VMEM-resident kernel does) selects the precision of the stored
+    trajectory and of the state carried from step to step; the trajectory
+    is returned in it."""
+    if not fits_one_block(cp):
+        from pararealml_tpu_torch.ops.tiled_system import (
+            build_tiled_system_rk4_trajectory,
+        )
+
+        return build_tiled_system_rk4_trajectory(
+            cp, d_t, n_steps, storage_dtype=storage_dtype
+        )
     cfg = _SystemKernelConfig(cp, d_t)
 
     def trajectory(y: torch.Tensor) -> torch.Tensor:
@@ -613,13 +821,11 @@ def build_fused_system_rk4_end(
 ):
     """Builds ``end(y) -> y_final`` advancing ``n_steps`` fused RK4 steps
     through the K5 end kernel and returning ONLY the final state, or
-    ``None`` when the grid does not fit the kernel's shared memory.
+    ``None`` when the grid does not fit one CTA's shared memory.
 
     With ``batch=B``, ``end`` maps ``(B, H, W, n) -> (B, H, W, n)``, one
     CTA per state; otherwise it maps one ``(H, W, n)`` state."""
-    height, width = cp.mesh.vertices_shape
-    n = cp.differential_equation.y_dimension
-    if shared_memory_bytes(height, width, n) > MAX_SHARED_MEMORY_BYTES:
+    if not fits_one_block(cp):
         return None
     cfg = _SystemKernelConfig(cp, d_t)
     expected_lead = () if batch is None else (batch,)
@@ -637,8 +843,17 @@ def build_fused_system_rk4_end(
 
 
 def build_fused_system_rk4_step(cp: ConstrainedProblem, d_t: float):
-    """Builds ``step(y) -> y_next`` computing one fused RK4 step through
-    the K5 step kernel, ``(..., H, W, n) -> (..., H, W, n)``."""
+    """Builds ``step(y) -> y_next`` computing one fused RK4 step, ``(...,
+    H, W, n) -> (..., H, W, n)``: the K5 step kernel where the grid fits
+    one CTA, else the one-step K8 trajectory (as the JAX package reaches
+    its tiled kernel through the trajectory builder)."""
+    if not fits_one_block(cp):
+        trajectory = build_fused_system_rk4_trajectory(cp, d_t, 1)
+
+        def tiled_step(y: torch.Tensor) -> torch.Tensor:
+            return trajectory(y).reshape(y.shape)
+
+        return tiled_step
     cfg = _SystemKernelConfig(cp, d_t)
 
     def step(y: torch.Tensor) -> torch.Tensor:
@@ -647,3 +862,8 @@ def build_fused_system_rk4_step(cp: ConstrainedProblem, d_t: float):
         return out.reshape(y.shape)
 
     return step
+
+
+# the JAX package's wave-specific aliases
+build_fused_wave_rk4_trajectory = build_fused_system_rk4_trajectory
+build_fused_wave_rk4_step = build_fused_system_rk4_step

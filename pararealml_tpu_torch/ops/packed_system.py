@@ -1,14 +1,14 @@
 """Batched RK4 kernels over Parareal's slices (K4).
 
-Port of the JAX package's ``ops/packed_system.py`` for the viscous
-Burgers system. On the TPU, the B slice states of a Parareal iteration
-are packed side by side along the vector lanes of one plane set, so that
-small grids fill the vector unit, and one kernel program advances them
-all. On Hopper that packing has no purpose: the batch is the grid of the
-same CUDA kernel template as K5 (``csrc/fused_system.cu``), one CTA per
-slice, so 100 slices of a 21 x 21 grid run side by side on 100 SMs. The
-lane packing, its gap columns and multi-hot edge masks are not carried
-over.
+Port of the JAX package's ``ops/packed_system.py`` for the wave, viscous
+Burgers, shallow-water and Cahn-Hilliard systems. On the TPU, the B slice
+states of a Parareal iteration are packed side by side along the vector
+lanes of one plane set, so that small grids fill the vector unit, and one
+kernel program advances them all. On Hopper that packing has no purpose:
+the batch is the grid of the same CUDA kernel template as K5
+(``csrc/fused_system.cu``), one CTA per slice, so 100 slices of a 21 x 21
+grid run side by side on 100 SMs. The lane packing, its gap columns and
+multi-hot edge masks are not carried over.
 
 - ``packed_system_rk4_ends`` (every iteration's fine end states) and
   ``packed_system_rk4_trajectory`` (the final expansion of every slice's
@@ -21,12 +21,13 @@ over.
 Shapes are the JAX package's: ``(B, H, W, n) -> (B, H, W, n)`` and
 ``(B, H, W, n) -> (B, n_steps, H, W, n)``.
 
-Applicability (:func:`packed_system_applicable`): K5's gate (Burgers,
-Cartesian, static boundary conditions, RK4, float32, the grid fits one
-CTA's shared memory) and a batch of at least two slices. The JAX
-package's other packed families (wave, shallow water, Cahn-Hilliard and
-the diffusion family) are not ported yet (ROADMAP.md, Queue 2); the port
-serves the diffusion family with the batched K2 launch of
+Applicability (:func:`packed_system_applicable`): K5's gate for one of
+its four families (Cartesian, static boundary conditions, RK4, float32),
+a grid that fits one CTA's shared memory (past it the K5 gate admits the
+tiled kernel K8, which has no batched ends; the JAX package's packed
+kernels have a VMEM budget instead) and a batch of at least two slices.
+The JAX package's packed diffusion family is not ported (ROADMAP.md,
+Queue 2); the port serves it with the batched K2 launch of
 ``ops/fused_diffusion.py``.
 """
 
@@ -41,6 +42,7 @@ from pararealml_tpu_torch.ops.fused_system import (
     _SystemKernelConfig,
     fused_system_rk4_end_reference,
     fused_system_rk4_trajectory_reference,
+    fits_one_block,
     fused_system_step_applicable,
     launch,
     states,
@@ -57,7 +59,11 @@ def packed_system_applicable(
     """Whether the batched kernels reproduce ``batch`` generic-path
     sub-solves for this problem (and, when ``dtype`` is given, for
     states of that dtype)."""
-    return batch >= 2 and fused_system_step_applicable(cp, integrator, dtype)
+    return (
+        batch >= 2
+        and fused_system_step_applicable(cp, integrator, dtype)
+        and fits_one_block(cp)
+    )
 
 
 def packed_system_rk4_ends_reference(

@@ -33,6 +33,7 @@ from pararealml_tpu_torch.operators.parareal import PararealOperator
 from pararealml_tpu_torch.ops import fused_diffusion, fused_system
 from pararealml_tpu_torch.ops import fused_system_3d, packed_system
 from pararealml_tpu_torch.ops import resident_diffusion, tiled_diffusion
+from pararealml_tpu_torch.ops import tiled_system
 from pararealml_tpu_torch.utils import load_pytree
 
 torch.set_num_threads(1)
@@ -229,6 +230,67 @@ def problem_3d(module, family, dirichlet=False, shape=(7, 8, 9), d_x=0.125):
             * 2
         ] * 3
     return module["ConstrainedProblem"](equation(module), mesh, bcs)
+
+
+# the four families of the 2D system kernels (K4, K5, K8): (equation,
+# components)
+FAMILIES_2D = {
+    "wave": (lambda m: m["WaveEquation"](2, 1.5), 2),
+    "burgers": (lambda m: m["BurgersEquation"](2, 100.0), 2),
+    "shallow_water": (lambda m: m["ShallowWaterEquation"](0.5), 3),
+    "cahn_hilliard": (lambda m: m["CahnHilliardEquation"](2), 2),
+}
+
+
+def system_problem(
+    module, family, faces="dirichlet", shape=(17, 33), d_x=0.25
+):
+    """A 2D Cartesian problem of one of the system kernels' families on a
+    ``shape`` grid of spacing ``d_x``. ``faces``: ``"dirichlet"`` is
+    Dirichlet 0.1 on the axis-0 faces and Neumann 0.05 on the axis-1
+    faces (tests/test_tiled_system.py's ``_bcs``); ``"neumann"`` Neumann
+    0.05 on every face; ``"partial"`` Neumann 0.05 on component 0 alone,
+    the other components unconstrained (the shallow-water example's
+    faces). The default (17, 33) grid is tests/test_tiled_system.py's."""
+    equation, n = FAMILIES_2D[family]
+    mesh = module["Mesh"](
+        [(0.0, (s - 1) * d_x) for s in shape], [d_x, d_x]
+    )
+
+    def neumann(values):
+        return module["NeumannBoundaryCondition"](
+            lambda x, t: np.tile(values, (len(x), 1)), is_static=True
+        )
+
+    if faces == "dirichlet":
+        dirichlet = module["DirichletBoundaryCondition"](
+            lambda x, t: np.full((len(x), n), 0.1), is_static=True
+        )
+        bcs = [(dirichlet, dirichlet), (neumann([0.05] * n),) * 2]
+    elif faces == "neumann":
+        bcs = [(neumann([0.05] * n),) * 2] * 2
+    else:
+        bcs = [(neumann([0.05] + [np.nan] * (n - 1)),) * 2] * 2
+    return module["ConstrainedProblem"](equation(module), mesh, bcs)
+
+
+def states_2d(shape, n, batch=None, seed=0):
+    """Smooth O(1) float32 states of a 2D grid from a seed: per state and
+    component, an offset and one low Fourier mode (noise would make the
+    shallow-water system blow up within the tests' horizons)."""
+    rng = np.random.default_rng(seed)
+    x = np.linspace(0.0, np.pi, shape[0])[:, None]
+    y = np.linspace(0.0, np.pi, shape[1])[None, :]
+    count = 1 if batch is None else batch
+    states = np.empty((count,) + tuple(shape) + (n,))
+    for index in np.ndindex(count, n):
+        offset, amplitude = rng.uniform(-0.3, 0.3), rng.uniform(0.2, 0.6)
+        k, m = rng.integers(1, 4, 2)
+        states[index[0], ..., index[1]] = offset + amplitude * np.sin(
+            k * x
+        ) * np.cos(m * y)
+    states = states.astype(np.float32)
+    return states[0] if batch is None else states
 
 
 def states_3d(shape, n, batch=None, seed=0):
@@ -603,3 +665,106 @@ def test_cuda_3d_kernel_raises_instead_of_falling_back(cuda_device):
     end = fused_system_3d.fused_system_3d_rk4_end(y, cfg, 2)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(end).all())
+
+
+def _assert_matches(kernel, expected):
+    torch.cuda.synchronize()
+    assert kernel.shape == expected.shape and kernel.dtype == expected.dtype
+    kernel, expected = kernel.float(), expected.float()
+    scale = float(expected.abs().max())
+    assert float((kernel - expected).abs().max()) <= KERNEL_TOL * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("faces", ["dirichlet", "partial"])
+@pytest.mark.parametrize("family", sorted(FAMILIES_2D))
+def test_cuda_tiled_system_kernel_matches_plain_version(
+    family, faces, cuda_device
+):
+    """K8 against its plain version on a 17 x 33 grid, float32 and
+    bfloat16 storage, a batch of two, on the plan's tiles (12 x 32, 8 x
+    32 for Cahn-Hilliard; the last row and column of tiles clamped) and on tiles three by five
+    cells inside their halo (many tiles, the last ones clamped)."""
+    cp = system_problem(vars(torch_pkg), family, faces)
+    cfg = tiled_system._TiledSystemConfig(cp, 2e-3)
+    ys = torch.as_tensor(
+        states_2d((17, 33), cfg.n, batch=2), device=cuda_device
+    )
+    small = cfg.plan._replace(rows=2 * cfg.halo + 3, cols=2 * cfg.halo + 5)
+    launches = tiled_system.tiled_system_rk4_trajectory.launches
+    for storage_dtype in (torch.float32, torch.bfloat16):
+        expected = tiled_system.tiled_system_rk4_trajectory_reference(
+            ys, cfg, 12, storage_dtype
+        )
+        for plan in (None, small):
+            _assert_matches(
+                tiled_system.tiled_system_rk4_trajectory(
+                    ys, cfg, 12, storage_dtype, plan=plan
+                ),
+                expected,
+            )
+    assert tiled_system.tiled_system_rk4_trajectory.launches == launches + 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "family, faces, shape",
+    [
+        ("wave", "dirichlet", (21, 23)),
+        ("shallow_water", "partial", (21, 23)),
+        ("cahn_hilliard", "neumann", (21, 23)),
+        # past the block's 1,024 threads: most threads advance two cells
+        ("cahn_hilliard", "neumann", (41, 41)),
+        ("shallow_water", "partial", (31, 37)),
+    ],
+)
+def test_cuda_new_system_families_match_plain_versions(
+    family, faces, shape, cuda_device
+):
+    """K5 (trajectory, end, step) and K4 (B = 4 ends and trajectory) for
+    the wave, shallow-water and Cahn-Hilliard functors against their plain
+    versions over 200 steps, on a 21 x 23 grid (a thread a cell) and on
+    grids of more cells than a block has threads."""
+    cp = system_problem(vars(torch_pkg), family, faces, shape)
+    cfg = fused_system._SystemKernelConfig(cp, 1e-3)
+    y = torch.as_tensor(states_2d(shape, cfg.n), device=cuda_device)
+    ys = torch.as_tensor(
+        states_2d(shape, cfg.n, batch=4, seed=1), device=cuda_device
+    )
+    checks = (
+        (fused_system.fused_system_rk4_trajectory, (y, cfg, 200)),
+        (fused_system.fused_system_rk4_end, (ys, cfg, 200)),
+        (fused_system.fused_system_rk4_step, (ys, cfg)),
+        (packed_system.packed_system_rk4_ends, (ys, cfg, 200)),
+        (packed_system.packed_system_rk4_trajectory, (ys, cfg, 200)),
+    )
+    for wrapper, args in checks:
+        module = packed_system if wrapper.__name__.startswith("packed") else (
+            fused_system
+        )
+        plain = getattr(module, f"{wrapper.__name__}_reference")
+        _assert_matches(wrapper(*args), plain(*args))
+
+
+@pytest.mark.cuda
+def test_cuda_tiled_system_raises_instead_of_falling_back(cuda_device):
+    """A tile plan whose halo is too narrow for RK4, or that belongs to
+    another grid, is refused before any launch; so is a grid past one CTA
+    with interior Dirichlet constraints, at build time."""
+    cp = system_problem(vars(torch_pkg), "burgers", "dirichlet")
+    cfg = tiled_system._TiledSystemConfig(cp, 1e-3)
+    y = torch.as_tensor(states_2d((17, 33), 2), device=cuda_device)
+    launches = tiled_system.tiled_system_rk4_trajectory.launches
+    for plan in (
+        cfg.plan._replace(halo=1),
+        tiled_system.make_system_tile_plan(17, 35, 2),
+    ):
+        with pytest.raises(ValueError, match="tile plan"):
+            tiled_system.tiled_system_rk4_trajectory(y, cfg, 2, plan=plan)
+    assert tiled_system.tiled_system_rk4_trajectory.launches == launches
+    with pytest.raises(TypeError, match="float32"):
+        tiled_system.tiled_system_rk4_trajectory(y.double(), cfg, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        tiled_system.tiled_system_rk4_trajectory(
+            torch.zeros((17, 33, 4), device=cuda_device)[..., ::2], cfg, 2
+        )

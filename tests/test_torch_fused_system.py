@@ -1,11 +1,13 @@
 """The fused system kernels' plain PyTorch versions (the CPU side of the
 CUDA kernels K5 and K4) held against the JAX package's Pallas kernels in
 interpret mode, in float32 to atol = rtol = 1e-5 after at most 12 steps
-on 9 x 9 Burgers problems (the two evaluate the same operations in the
-same order; the tolerance covers float32 rounding of contracted or
-reordered operations), plus the applicability gates, the wrappers' CPU
-routing and the FDM operator's dispatch to K5. The CUDA kernels
-themselves are held against their plain versions in
+on 9 x 9 Burgers problems and a 9 x 11 Cahn-Hilliard one (the two
+evaluate the same operations in the same order; the tolerance covers
+float32 rounding of contracted or reordered operations), the wave,
+shallow-water and Cahn-Hilliard plain versions against the JAX package's
+generic path in float64 to 1e-10, plus the applicability gates, the
+wrappers' CPU routing and the FDM operator's dispatch to K5. The CUDA
+kernels themselves are held against their plain versions in
 tests/test_torch_cuda.py."""
 
 import jax
@@ -15,7 +17,11 @@ import torch
 
 import pararealml_tpu as jax_pkg
 import pararealml_tpu_torch as torch_pkg
+from pararealml_tpu.operators.fdm import FDMOperator as JaxFDMOperator
 from pararealml_tpu.operators.fdm import RK4 as JaxRK4
+from pararealml_tpu.operators.fdm import (
+    ThreePointCentralDifferenceMethod as JaxThreePoint,
+)
 from pararealml_tpu.ops import fused_system as jax_fused
 from pararealml_tpu.ops import packed_system as jax_packed
 from pararealml_tpu_torch.operators.fdm import (
@@ -26,7 +32,8 @@ from pararealml_tpu_torch.operators.fdm import (
 )
 from pararealml_tpu_torch.ops import fused_system as torch_fused
 from pararealml_tpu_torch.ops import packed_system as torch_packed
-from tests.test_torch_cuda import burgers_problem
+from pararealml_tpu_torch.ops import tiled_system as torch_tiled
+from tests.test_torch_cuda import burgers_problem, states_2d, system_problem
 
 torch.set_num_threads(1)
 
@@ -144,21 +151,30 @@ def test_plain_versions_agree_with_each_other():
 
 
 def _other_families(module):
-    """Problems of the JAX kernels' families that the port does not
-    cover yet (wave and shallow water on 9 x 9 Cartesian meshes)."""
-    mesh = module.Mesh([(0.0, 2.0)] * 2, [0.25] * 2)
-    problems = {}
-    for name, equation, n in (
-        ("wave", module.WaveEquation(2, 0.5), 2),
-        ("shallow_water", module.ShallowWaterEquation(0.5), 3),
-    ):
-        bc = module.NeumannBoundaryCondition(
-            lambda x, t, n=n: np.zeros((len(x), n)), is_static=True
-        )
-        problems[name] = module.ConstrainedProblem(
-            equation, mesh, [(bc, bc)] * 2
-        )
-    return problems
+    """Problems of the JAX kernels' families and meshes that the port does
+    not cover yet: Navier-Stokes on a 9 x 9 Cartesian mesh and the wave
+    system on a 9 x 9 polar mesh away from the origin."""
+    bc = module.DirichletBoundaryCondition(
+        lambda x, t: np.zeros((len(x), 4)), is_static=True
+    )
+    navier_stokes = module.ConstrainedProblem(
+        module.NavierStokesEquation(500.0),
+        module.Mesh([(0.0, 2.0)] * 2, [0.25] * 2),
+        [(bc, bc)] * 2,
+    )
+    bc = module.NeumannBoundaryCondition(
+        lambda x, t: np.zeros((len(x), 2)), is_static=True
+    )
+    polar = module.ConstrainedProblem(
+        module.WaveEquation(2, 0.5),
+        module.Mesh(
+            [(1.0, 3.0), (0.0, 2.0)],
+            [0.25] * 2,
+            module.CoordinateSystem.POLAR,
+        ),
+        [(bc, bc)] * 2,
+    )
+    return {"navier_stokes": navier_stokes, "polar_wave": polar}
 
 
 @pytest.mark.parametrize("kind", ["bench", "mixed"])
@@ -185,9 +201,9 @@ def test_applicability_matches_jax_on_burgers(kind, x64_off):
 
 
 def test_families_not_ported_yet_take_the_generic_path(x64_off):
-    """A deliberate difference: the JAX kernels cover wave and shallow
-    water too; the port's gates send them to the generic path until
-    their functors are ported (ROADMAP.md, Queue 2)."""
+    """A deliberate difference: the JAX kernels cover Navier-Stokes and
+    polar meshes too; the port's gates send them to the generic path until
+    they are ported (ROADMAP.md, Queue 2)."""
     jax_problems = _other_families(jax_pkg)
     torch_problems = _other_families(torch_pkg)
     for name, torch_cp in torch_problems.items():
@@ -201,6 +217,9 @@ def test_families_not_ported_yet_take_the_generic_path(x64_off):
 
 
 def test_applicability_requires_the_grid_to_fit_shared_memory():
+    """Past one CTA's shared memory (an 81 x 81 Burgers grid), the
+    trajectory takes the tiled kernel K8, and the end and K4, which need
+    the whole grid in one CTA, have none."""
     assert torch_fused.shared_memory_bytes(64, 64, 2) <= (
         torch_fused.MAX_SHARED_MEMORY_BYTES
     )
@@ -209,8 +228,72 @@ def test_applicability_requires_the_grid_to_fit_shared_memory():
     )
     cp = burgers_problem(vars(torch_pkg), extent=20.0).constrained_problem
     assert cp.mesh.vertices_shape == (81, 81)
-    assert not torch_fused.fused_system_step_applicable(cp, RK4())
+    assert not torch_fused.fits_one_block(cp)
+    assert torch_fused.fused_system_step_applicable(cp, RK4())
+    assert not torch_packed.packed_system_applicable(cp, RK4(), 4)
     assert torch_fused.build_fused_system_rk4_end(cp, D_T, 3) is None
+    y = torch.as_tensor(
+        np.random.default_rng(0).uniform(0.5, 1.5, (81, 81, 2)),
+        dtype=torch.float32,
+    )
+    launches = torch_tiled.tiled_system_rk4_trajectory.launches
+    trajectory = torch_fused.build_fused_system_rk4_trajectory(cp, D_T, 2)(y)
+    cfg = torch_tiled._TiledSystemConfig(cp, D_T)
+    np.testing.assert_array_equal(
+        trajectory.numpy(),
+        torch_tiled.tiled_system_rk4_trajectory_reference(y, cfg, 2).numpy(),
+    )
+    # the CPU runs the plain version: no launch
+    assert torch_tiled.tiled_system_rk4_trajectory.launches == launches
+
+
+# the JAX package's generic path in float64 against the new families'
+# plain versions (K5 trajectory, K4 ends) over 5 steps on 9 x 11 grids
+@pytest.mark.parametrize(
+    "family, faces",
+    [
+        ("wave", "neumann"),
+        ("shallow_water", "partial"),
+        ("cahn_hilliard", "dirichlet"),
+    ],
+)
+def test_new_families_match_the_generic_path_in_float64(family, faces):
+    jax_cp, torch_cp = (
+        system_problem(vars(module), family, faces, (9, 11))
+        for module in (jax_pkg, torch_pkg)
+    )
+    n = torch_cp.differential_equation.y_dimension
+    ys = states_2d((9, 11), n, batch=2).astype(np.float64)
+    generic, _ = JaxFDMOperator(
+        JaxRK4(), JaxThreePoint(), D_T, fused_kernels=False
+    ).trajectory_function(jax_cp, (0.0, 5 * D_T))
+    expected = np.stack([np.asarray(generic(y, 0.0)) for y in ys])
+    cfg = torch_fused._SystemKernelConfig(torch_cp, D_T)
+    batch = torch.as_tensor(ys)
+    trajectory = torch_fused.fused_system_rk4_trajectory_reference(
+        batch, cfg, 5
+    )
+    ends = torch_packed.packed_system_rk4_ends_reference(batch, cfg, 5)
+    scale = np.abs(expected).max()
+    assert np.abs(trajectory.numpy() - expected).max() <= 1e-10 * scale
+    assert np.abs(ends.numpy() - expected[:, -1]).max() <= 1e-10 * scale
+
+
+def test_cahn_hilliard_plain_version_matches_pallas_kernel(x64_off):
+    """Cahn-Hilliard's own step, in float32, against the JAX package's K5
+    in interpret mode."""
+    jax_cp, torch_cp = (
+        system_problem(vars(module), "cahn_hilliard", "dirichlet", (9, 11))
+        for module in (jax_pkg, torch_pkg)
+    )
+    y = states_2d((9, 11), 2)
+    expected = jax_fused.build_fused_system_rk4_trajectory(
+        jax_cp, D_T, STEPS, interpret=True
+    )(y)
+    actual = torch_fused.build_fused_system_rk4_trajectory(
+        torch_cp, D_T, STEPS
+    )(torch.as_tensor(y))
+    _assert_close(actual, expected)
 
 
 def test_wrappers_run_the_plain_version_for_cpu_tensors():

@@ -45,8 +45,8 @@ from pararealml_tpu_torch.operators.fdm import (
 from pararealml_tpu.operators.ml import supervised as jax_supervised
 from pararealml_tpu_torch.operators.ml import supervised
 from pararealml_tpu_torch.operators.parareal import PararealOperator
-from pararealml_tpu_torch.ops import fused_diffusion, fused_system_3d
-from pararealml_tpu_torch.ops import packed_system
+from pararealml_tpu_torch.ops import fused_diffusion, fused_system
+from pararealml_tpu_torch.ops import fused_system_3d, packed_system
 from tests.test_torch_cuda import burgers_problem, problem_3d
 from tests.test_torch_supervised_ml import fitted_quad_arrays
 
@@ -325,6 +325,115 @@ def test_burgers_3d_parareal_reaches_k9_and_matches_jax(monkeypatch):
         .discrete_y()
     )
     assert actual.shape == expected.shape == (80, 7, 7, 7, 3)
+    scale = float(np.abs(expected).max())
+    assert float(np.abs(actual - expected).max()) <= 1e-5 * scale
+
+
+# Cahn-Hilliard (the 2D example's gamma 0.01 and d_x 0.1, zero-flux
+# faces) on a 9 x 11 grid over T = 0.02: 4 slices of 50 fine steps (d_t
+# 1e-4) and 10 coarse steps (d_t 5e-4, the example's own). The coarse
+# slice ends miss the fine ones by about 1.3e-2, and the tolerance stops
+# Parareal after 3 of 4 iterations.
+CAHN_HILLIARD_T_END = 0.02
+CAHN_HILLIARD_TOLERANCE = 1e-4
+
+
+def _cahn_hilliard_ivp(module):
+    """The example's problem shrunk to 9 x 11, y0 a uniform perturbation
+    of amplitude 0.05 from numpy seed 0 and y1 its chemical potential
+    (computed once, with the port's differentiator, for both packages)."""
+    from pararealml_tpu_torch.operators.fdm.numerical_differentiator import (
+        slice_all_constraint_pairs,
+    )
+
+    gamma = 0.01
+
+    def problem(pkg):
+        bc = pkg.NeumannBoundaryCondition(
+            lambda x, t: np.zeros((len(x), 2)), is_static=True
+        )
+        return pkg.ConstrainedProblem(
+            pkg.CahnHilliardEquation(2, gamma=gamma),
+            pkg.Mesh([(0.0, 0.8), (0.0, 1.0)], [0.1, 0.1]),
+            [(bc, bc)] * 2,
+        )
+
+    cp = problem(torch_pkg)
+    y_0_0 = 0.05 * np.random.default_rng(0).uniform(-1.0, 1.0, (9, 11, 1))
+    laplacian = ThreePointCentralDifferenceMethod().laplacian(
+        torch.as_tensor(y_0_0),
+        cp.mesh,
+        slice_all_constraint_pairs(
+            cp.static_boundary_vertex_constraints.d_y, slice(0, 1)
+        ),
+    ).numpy()
+    y_0 = np.concatenate(
+        [y_0_0, y_0_0**3 - y_0_0 - gamma * laplacian], axis=-1
+    )
+    if module is not torch_pkg:
+        cp = problem(module)
+    ic = module.DiscreteInitialCondition(cp, y_0, True)
+    return module.InitialValueProblem(cp, (0.0, CAHN_HILLIARD_T_END), ic)
+
+
+def test_cahn_hilliard_parareal_reaches_k4_k5_and_matches_jax(monkeypatch):
+    """float32: the port's fine ends and final expansion go through the
+    batched kernels (K4), its initial coarse sweep through the K5
+    trajectory and its coarse sweeps through the single-state K5 end,
+    their plain versions here. The JAX package's run is its generic
+    float64 path under the suite's x64 flag; the tolerance, 1e-5 of
+    max|y|, covers float32 rounding over 200 fine steps."""
+    calls = []
+    for module, name in (
+        (packed_system, "packed_system_rk4_ends"),
+        (packed_system, "packed_system_rk4_trajectory"),
+        (fused_system, "fused_system_rk4_end"),
+        (fused_system, "fused_system_rk4_trajectory"),
+    ):
+        wrapper = getattr(module, name)
+
+        def counting(y, *args, _wrapper=wrapper, _name=name, **kwargs):
+            # the builders hand the wrappers a (B, H, W, n) batch
+            calls.append((_name, y.shape[0]))
+            return _wrapper(y, *args, **kwargs)
+
+        monkeypatch.setattr(module, name, counting)
+
+    def fdm(d_t):
+        return FDMOperator(
+            RK4(),
+            ThreePointCentralDifferenceMethod(),
+            d_t,
+            device="cpu",
+            dtype=torch.float32,
+        )
+
+    parareal = PararealOperator(
+        fdm(1e-4), fdm(5e-4), CAHN_HILLIARD_TOLERANCE, num_time_slices=4
+    )
+    actual = parareal.solve(_cahn_hilliard_ivp(torch_pkg)).discrete_y()
+    iterations = parareal.last_iterations
+    assert iterations == 3
+    assert calls.count(("packed_system_rk4_ends", 4)) == iterations
+    assert calls.count(("packed_system_rk4_trajectory", 4)) == 1
+    # one whole-domain coarse roll-out, then single-state coarse ends
+    assert calls.count(("fused_system_rk4_trajectory", 1)) == 1
+    assert ("fused_system_rk4_end", 1) in calls
+
+    def jax_fdm(d_t):
+        return JaxFDMOperator(JaxRK4(), JaxThreePoint(), d_t)
+
+    expected = (
+        JaxPararealOperator(
+            jax_fdm(1e-4),
+            jax_fdm(5e-4),
+            CAHN_HILLIARD_TOLERANCE,
+            num_time_slices=4,
+        )
+        .solve(_cahn_hilliard_ivp(jax_pkg))
+        .discrete_y()
+    )
+    assert actual.shape == expected.shape == (200, 9, 11, 2)
     scale = float(np.abs(expected).max())
     assert float(np.abs(actual - expected).max()) <= 1e-5 * scale
 
