@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port's main paths on one NVIDIA GPU.
 
-Drives ``pararealml_tpu_torch`` — never JAX — through its five ported
+Drives ``pararealml_tpu_torch`` — never JAX — through its six ported
 paths at full size, each through the entry points a user calls.
 
 The diffusion_2d Parareal flagship (21 x 21 grid, Dirichlet 1.5 on the x
@@ -142,6 +142,36 @@ card by default:
     fine ends and expansion over 500 steps, the 800-step coarse roll-out
     and a 100-step coarse end; 1e-5 relative);
 20. profiles each run as in phase 4.
+
+The curvilinear path (``examples/shallow_water_polar_fdm.py`` and
+``examples/wave_polar_fdm.py`` unchanged, and ``examples/burgers_3d_fdm.py``'s
+spherical problem), on the card by default:
+
+21. holds polar K5 (trajectory, B = 4 end, step over 100 steps) and polar
+    K8 (a batch of two, float32 and bfloat16 storage, on its plan's tiles,
+    small tiles and one tile) against their plain versions for the four
+    families on the JAX tests' 21 x 41 polar mesh, polar K8 against polar
+    K5 (the same order of operations: equal frames), and K4's trajectory
+    with bfloat16 frames (``kernel_traj_dtype`` under Parareal) against its
+    plain version and the float32 frames rounded once;
+22. runs the path with every counter at 0 through ``FDMOperator.solve``:
+    shallow water polar 36 x 51 x 3 over 4,000 steps (one polar K5
+    launch), wave polar 51 x 201 x 2 over 25,000 steps (one polar K8
+    trajectory, one CUDA launch a step), with no generic step built, and
+    the spherical Burgers problem 9 x 21 x 6 x 3 over 200 steps (the
+    generic path, in both packages); it checks the first 20 frames of each
+    polar run against the plain version and the generic path (atol = rtol
+    = 1e-4), its last frame against the generic path run over the whole
+    horizon in float32 (``POLAR_LAST_TOL``; 100 generic steps captured in
+    a CUDA graph and replayed), and the spherical solve against the port's
+    CPU float64 solve (``SPHERICAL_TOL``);
+23. times both polar runs and the spherical one (once: seconds of eager
+    steps), the generic path over 20 steps (scaled, and labelled so), and
+    each polar kernel function at its path's grid over 100 steps beside
+    its plain version and its bound, and K4 with bfloat16 frames beside
+    float32 frames;
+24. profiles each run as in phase 4 (the spherical one over its first 20
+    steps).
 
 Run it from the repository root with no arguments: ``python3
 chip_smoke.py``. It needs one CUDA card and ``nvcc`` and exits non-zero,
@@ -359,6 +389,41 @@ TILED_SYSTEM_SOURCE = "pararealml_tpu_torch/csrc/tiled_system.cu"
 TILED_SYSTEM_KERNEL = "tiled_system_rk4_trajectory"
 TILED_SYSTEM_REPLACES = "pararealml_tpu/ops/tiled_system.py:369"
 
+# the curvilinear path: examples/shallow_water_polar_fdm.py (36 x 51 x 3,
+# d_t 0.0025, T = 10: 4,000 steps, one CTA: polar K5),
+# examples/wave_polar_fdm.py (51 x 201 x 2, d_t 0.002, T = 50: 25,000
+# steps, past one CTA: polar K8, the port's carrier of the JAX package's
+# polar K5 there) and examples/burgers_3d_fdm.py (spherical 9 x 21 x 6 x 3,
+# d_t 0.5, T = 100: 200 steps, the generic path in both packages)
+SHALLOW_WATER_POLAR_T_END = 10.0
+WAVE_POLAR_T_END = 50.0
+SPHERICAL_T_END = 100.0
+# the kernels against their plain versions on the JAX tests' polar mesh
+# (tests/test_fused_system.py _polar_cp: r in [2.5, 7.5], 21 x 41)
+POLAR_SMALL_STEPS = 100
+# each polar kernel function timed at its path's grid over this many steps
+# (the plain versions take milliseconds a step)
+POLAR_TIMED_STEPS = 100
+# the last frame of each polar example against the generic path in float32
+# on the card, of the largest value: float32 rounding over the whole
+# horizon, in two orders of evaluation. On the CPU the plain versions
+# missed it by 1.4e-6 (shallow water, 4,000 steps) and by 3.0e-5 (wave,
+# 25,000 steps)
+POLAR_LAST_TOL = 1e-4
+# the spherical Burgers solve on the card (float32) against the port's CPU
+# float64 solve, of the largest value: float32 rounding over 200 steps
+SPHERICAL_TOL = 1e-5
+POLAR_KERNELS = (
+    ("fused_system_rk4_trajectory", "fused_system", SYSTEM_SOURCE,
+     "pararealml_tpu/ops/fused_system.py:822"),
+    ("fused_system_rk4_end", "fused_system", SYSTEM_SOURCE,
+     "pararealml_tpu/ops/fused_system.py:964"),
+    ("fused_system_rk4_step", "fused_system", SYSTEM_SOURCE,
+     "pararealml_tpu/ops/fused_system.py:1098"),
+    (TILED_SYSTEM_KERNEL, "tiled_system", TILED_SYSTEM_SOURCE,
+     "pararealml_tpu/ops/fused_system.py:822"),
+)
+
 # the card's published peaks (NVIDIA H100 SXM data sheet, at the 700 W
 # power limit): HBM bytes per second and float32 operations per second
 # outside the tensor cores
@@ -391,6 +456,21 @@ FLOPS_PER_CELL_STEP = {
 # stage and 13 stage updates per component and step (4 x 3 x 25 + 39);
 # Cahn-Hilliard three Laplacians and 4 + 4 updates a step (3 x 13 + 8)
 K9_FLOPS_PER_CELL_STEP = {"burgers": 339, "cahn-hilliard": 47}
+# the polar families (polar K5 and K8), counted the same way: the polar
+# Laplacian adds d2_1 / r, the radial derivative and the sum, times 1 / r
+# (3 operations, and the radial derivative's 2 where the right-hand side
+# does not compute it anyway), gradient_1 one product, and the
+# shallow-water divergence u / r and its sum (2). Wave: 4 x (9 + 5) + 2 x
+# 13 = 82; Burgers: 4 x 2 x (17 + 3 + 1) + 2 x 13 = 194; shallow water:
+# 4 x (60 + 2 x 3 + 3 + 2) + 3 x 13 = 323; Cahn-Hilliard: 35 + 3 x 5 = 50
+FLOPS_PER_CELL_STEP.update(
+    {
+        "polar-wave": 82,
+        "polar-burgers": 194,
+        "polar-shallow-water": 323,
+        "polar-cahn-hilliard": 50,
+    }
+)
 
 
 def bound(bytes_moved: float, flops: float):
@@ -987,6 +1067,7 @@ def large_grid_phases(
         FDMOperator,
         ThreePointCentralDifferenceMethod,
     )
+    from pararealml_tpu_torch.ops import fused_diffusion as fd
     from pararealml_tpu_torch.ops import resident_diffusion as rd
     from pararealml_tpu_torch.ops import tiled_diffusion as td
 
@@ -1114,6 +1195,11 @@ def large_grid_phases(
     stream_cp = stream_ivp.constrained_problem
     assert rd.make_resident_plan(LARGE_N, LARGE_N) is not None
     assert td.takes_streaming_path(stream_cp)
+    # the storage knobs take effect past the JAX package's VMEM cap only,
+    # as there: both grids lie past it, so their bfloat16 runs keep
+    # bfloat16 (the dtype checks below)
+    assert fd.past_reference_vmem(large_cp)
+    assert fd.past_reference_vmem(stream_cp)
 
     def initial(ivp):
         return torch.as_tensor(
@@ -2299,6 +2385,10 @@ def system_2d_phases(
         examples[label] = (family, ivp, d_t, initial(ivp))
     burgers_ivp = burgers_641(prml)
     burgers_cp = burgers_ivp.constrained_problem
+    # kernel_storage_dtype takes effect past the JAX package's VMEM cap
+    # only, as there: 641^2 lies past it, so the bfloat16 run keeps
+    # bfloat16 storage (the dtype check below)
+    assert not fs.fits_reference_vmem(burgers_cp)
     burgers_y = initial(burgers_ivp)
     burgers_t = (0.0, BURGERS_641_STEPS * BURGERS_641_D_T)
     burgers_fns = {
@@ -2690,6 +2780,639 @@ def system_2d_phases(
     return entries
 
 
+def shallow_water_polar_example(prml):
+    """examples/shallow_water_polar_fdm.py's problem: shallow water (h =
+    0.5) on the polar mesh r in [4, 11], theta in [pi / 2, 3 pi / 2] at
+    (0.2, pi / 50) (36 x 51), zero-flux faces for the height alone,
+    Gaussians of covariance 0.25 I at (-6, 6) with amplitudes (1, 0, 0),
+    to T = 10 at d_t 0.0025 (4,000 steps). Returns the problem and its
+    d_t."""
+    flux = prml.NeumannBoundaryCondition(
+        prml.vectorize_bc_function(lambda x, t: (0.0, None, None)),
+        is_static=True,
+    )
+    cp = prml.ConstrainedProblem(
+        prml.ShallowWaterEquation(0.5),
+        prml.Mesh(
+            [(4.0, 11.0), (0.5 * np.pi, 1.5 * np.pi)],
+            [0.2, np.pi / 50.0],
+            prml.CoordinateSystem.POLAR,
+        ),
+        [(flux, flux)] * 2,
+    )
+    ic = prml.GaussianInitialCondition(
+        cp,
+        [(np.array([-6.0, 6.0]), np.array([[0.25, 0.0], [0.0, 0.25]]))] * 3,
+        [1.0, 0.0, 0.0],
+    )
+    return (
+        prml.InitialValueProblem(cp, (0.0, SHALLOW_WATER_POLAR_T_END), ic),
+        0.0025,
+    )
+
+
+def wave_polar_example(prml):
+    """examples/wave_polar_fdm.py's problem: the wave equation (c = 1) on
+    the polar mesh r in [2.5, 7.5], theta in [0, 2 pi] at (0.1, pi / 100)
+    (51 x 201), zero-flux faces, Gaussians of covariance 0.1 I at (-5, 0)
+    with amplitudes (4, 0), to T = 50 at d_t 0.002 (25,000 steps). Returns
+    the problem and its d_t."""
+    flux = prml.NeumannBoundaryCondition(
+        lambda x, t: np.zeros((len(x), 2)), is_static=True
+    )
+    cp = prml.ConstrainedProblem(
+        prml.WaveEquation(2),
+        prml.Mesh(
+            [(2.5, 7.5), (0.0, 2 * np.pi)],
+            [0.1, np.pi / 100.0],
+            prml.CoordinateSystem.POLAR,
+        ),
+        [(flux, flux)] * 2,
+    )
+    ic = prml.GaussianInitialCondition(
+        cp,
+        [(np.array([-5.0, 0.0]), np.array([[0.1, 0.0], [0.0, 0.1]]))] * 2,
+        [4.0, 0.0],
+    )
+    return prml.InitialValueProblem(cp, (0.0, WAVE_POLAR_T_END), ic), 0.002
+
+
+def burgers_spherical_example(prml):
+    """examples/burgers_3d_fdm.py's problem: viscous Burgers (Re = 100) on
+    the spherical mesh r in [1, 5], theta in [0, 2 pi], phi in [pi / 4,
+    3 pi / 4] at (0.5, pi / 10, pi / 10) (9 x 21 x 6), zero-flux faces,
+    y = (1 / r^2, 0, 0), to T = 100 at d_t 0.5 (200 steps). Returns the
+    problem and its d_t."""
+    flux = prml.NeumannBoundaryCondition(
+        lambda x, t: np.zeros((len(x), 3)), is_static=True
+    )
+    cp = prml.ConstrainedProblem(
+        prml.BurgersEquation(3, 100),
+        prml.Mesh(
+            [(1.0, 5.0), (0.0, 2.0 * np.pi), (0.25 * np.pi, 0.75 * np.pi)],
+            [0.5, np.pi / 10.0, np.pi / 10.0],
+            prml.CoordinateSystem.SPHERICAL,
+        ),
+        [(flux, flux)] * 3,
+    )
+    ic = prml.ContinuousInitialCondition(
+        cp,
+        lambda x: np.stack(
+            [
+                1.0 / x[:, 0] ** 2,
+                np.zeros_like(x[:, 1]),
+                np.zeros_like(x[:, 1]),
+            ],
+            axis=-1,
+        ),
+    )
+    return prml.InitialValueProblem(cp, (0.0, SPHERICAL_T_END), ic), 0.5
+
+
+def polar_problem_2d(prml, family, faces):
+    """A polar problem of one of the 2D system families on the JAX tests'
+    polar mesh (tests/test_fused_system.py ``_polar_cp``: r in [2.5,
+    7.5] at 0.25, theta in [0, 2 pi] at pi / 20, 21 x 41); ``faces``
+    "neumann" is Neumann 0.05 on every face, "dirichlet" Dirichlet 0.1 on
+    the r faces and Neumann 0.05 on the theta faces."""
+    equation, n = {
+        "wave": (prml.WaveEquation(2), 2),
+        "burgers": (prml.BurgersEquation(2, 100.0), 2),
+        "shallow-water": (prml.ShallowWaterEquation(0.5), 3),
+        "cahn-hilliard": (prml.CahnHilliardEquation(2), 2),
+    }[family]
+    mesh = prml.Mesh(
+        [(2.5, 7.5), (0.0, 2 * np.pi)],
+        [0.25, np.pi / 20.0],
+        prml.CoordinateSystem.POLAR,
+    )
+    neumann = prml.NeumannBoundaryCondition(
+        lambda x, t: np.full((len(x), n), 0.05), is_static=True
+    )
+    if faces == "dirichlet":
+        dirichlet = prml.DirichletBoundaryCondition(
+            lambda x, t: np.full((len(x), n), 0.1), is_static=True
+        )
+        bcs = [(dirichlet, dirichlet), (neumann, neumann)]
+    else:
+        bcs = [(neumann, neumann)] * 2
+    return prml.ConstrainedProblem(equation, mesh, bcs)
+
+
+def generic_end_on_card(torch, operator, cp, y_0, steps, chunk=100):
+    """The generic path's state after ``steps`` steps of ``operator`` from
+    ``y_0`` on the card, the reference for a kernel's last frame: the
+    eager loop launches each of a step's hundreds of small operations from
+    Python (milliseconds a step), so ``chunk`` steps are captured once in a
+    CUDA graph and replayed. Returns the state and how it was computed;
+    where the capture fails, the eager loop runs instead."""
+    step = operator._build_step_function(cp, allow_fused=False)
+    if steps % chunk:
+        chunk = 1
+    state = y_0.clone()
+    # a warm step on a side stream first: the constraint tensors reach the
+    # card before the capture
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step(state, 0, 0.0)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    try:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            y = state
+            for k in range(chunk):
+                y = step(y, k, 0.0)
+        out = y
+    except RuntimeError as error:
+        torch.cuda.synchronize()
+        y = y_0
+        for k in range(steps):
+            y = step(y, k, 0.0)
+        return y, f"eager ({error.__class__.__name__}: capture refused)"
+    for _ in range(steps // chunk):
+        graph.replay()
+        state.copy_(out)
+    torch.cuda.synchronize()
+    del graph
+    return state, f"{steps // chunk} replays of a CUDA graph of {chunk} steps"
+
+
+def polar_phases(
+    torch, prml, device, card, cuda_ms, once_ms, device_busy_ms
+):
+    """Phases 21-24: the curvilinear path (polar K5 in one CTA, polar K8
+    past it, the spherical generic path) and K4's bfloat16 frames. Returns
+    their entries of the JSON line. ``cuda_ms``, ``once_ms`` and
+    ``device_busy_ms`` are the timing and profiling functions."""
+    from pararealml_tpu_torch.operators.fdm import (
+        RK4,
+        FDMOperator,
+        ThreePointCentralDifferenceMethod,
+    )
+    from pararealml_tpu_torch.ops import fused_system as fs
+    from pararealml_tpu_torch.ops import fused_system_3d as f3
+    from pararealml_tpu_torch.ops import packed_system as ps
+    from pararealml_tpu_torch.ops import tiled_system as ts
+
+    modules = {"fused_system": fs, "tiled_system": ts}
+    wrappers = {
+        name: getattr(modules[module], name)
+        for name, module, _, _ in POLAR_KERNELS
+    }
+    plains = {
+        name: getattr(modules[module], f"{name}_reference")
+        for name, module, _, _ in POLAR_KERNELS
+    }
+    k8 = wrappers[TILED_SYSTEM_KERNEL]
+    k4_trajectory = ps.packed_system_rk4_trajectory
+    errors = {}
+    started = time.perf_counter()
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def check(key, what, kernel, plain):
+        torch.cuda.synchronize()
+        assert kernel.shape == plain.shape, (key, what)
+        assert kernel.dtype == plain.dtype, (key, what)
+        abs_err = float((kernel.float() - plain.float()).abs().max())
+        rel_err = abs_err / float(plain.float().abs().max())
+        errors[key] = max(errors.get(key, 0.0), abs_err)
+        if not rel_err <= KERNEL_REL_TOL:
+            raise AssertionError(
+                f"{key} disagrees with its plain version ({what}): "
+                f"{rel_err:.3e}"
+            )
+        return rel_err
+
+    # -- phase 21: polar K5, polar K8 and K4's bfloat16 frames -------------
+    families = ("wave", "burgers", "shallow-water", "cahn-hilliard")
+    for family in families:
+        faces = "dirichlet" if family in ("wave", "shallow-water") else (
+            "neumann"
+        )
+        cp = polar_problem_2d(prml, family, faces)
+        shape = cp.mesh.vertices_shape
+        cfg = fs._SystemKernelConfig(cp, 1e-3)
+        assert cfg.polar and fs.fits_one_block(cp)
+        y = smooth_states_2d(torch, device, shape, cfg.n)
+        ys = smooth_states_2d(torch, device, shape, cfg.n, batch=4, seed=1)
+        steps = POLAR_SMALL_STEPS
+        worst = 0.0
+        for name, args in (
+            ("fused_system_rk4_trajectory", (y, cfg, steps)),
+            ("fused_system_rk4_end", (ys, cfg, steps)),
+            ("fused_system_rk4_step", (ys, cfg)),
+        ):
+            worst = max(
+                worst,
+                check(
+                    f"{name}:polar",
+                    f"{family}, {faces}",
+                    wrappers[name](*args),
+                    plains[name](*args),
+                ),
+            )
+        tcfg = ts._TiledSystemConfig(cp, 1e-3)
+        halo = tcfg.halo
+        plans = (
+            tcfg.plan,
+            tcfg.plan._replace(rows=2 * halo + 3, cols=2 * halo + 5),
+            tcfg.plan._replace(
+                rows=2 * halo + shape[0], cols=2 * halo + shape[1]
+            ),
+        )
+        pair = ys[:2].contiguous()
+        tiled_worst = 0.0
+        for storage in (f32, bf16):
+            expected = plains[TILED_SYSTEM_KERNEL](
+                pair, tcfg, SYSTEM_SMALL_STEPS, storage
+            )
+            for plan in plans:
+                tiled_worst = max(
+                    tiled_worst,
+                    check(
+                        f"{TILED_SYSTEM_KERNEL}:polar",
+                        f"{family}, {faces}, {storage}, {plan.blocks} tiles",
+                        k8(pair, tcfg, SYSTEM_SMALL_STEPS, storage, plan=plan),
+                        expected,
+                    ),
+                )
+        # polar K8 keeps polar K5's order of operations: equal frames
+        k5_frames = wrappers["fused_system_rk4_trajectory"](
+            pair, cfg, SYSTEM_SMALL_STEPS
+        )
+        k8_frames = k8(pair, tcfg, SYSTEM_SMALL_STEPS)
+        torch.cuda.synchronize()
+        k8_vs_k5 = float((k8_frames - k5_frames).abs().max())
+        log(
+            f"kernels: polar {family} on {shape[0]} x {shape[1]}, {faces} "
+            f"faces: K5 trajectory, B=4 end and step over {steps} steps "
+            f"max|d|/max|y| = {worst:.3e}; K8 on {len(plans)} tilings "
+            f"({', '.join(str(plan.blocks) for plan in plans)} tiles), "
+            f"float32 and bfloat16 storage, {SYSTEM_SMALL_STEPS} steps "
+            f"{tiled_worst:.3e}; K8 against K5 max|d| = {k8_vs_k5:.3e}"
+        )
+        assert k8_vs_k5 <= KERNEL_REL_TOL * float(k5_frames.abs().max())
+    # K4's frames in the snapshot dtype (bfloat16 over the float32 state,
+    # cast back), as Parareal's final expansion stores them when the fine
+    # operator asks for kernel_traj_dtype=bfloat16
+    cp = system_problem_2d(prml, "burgers", "dirichlet", K5_FAMILY_SHAPE)
+    k4_cfg = fs._SystemKernelConfig(cp, 1e-3)
+    k4_ys = smooth_states_2d(
+        torch, device, K5_FAMILY_SHAPE, 2, batch=4, seed=2
+    )
+    k4_args = (k4_ys, k4_cfg, K5_FAMILY_STEPS, bf16)
+    k4_key = "packed_system_rk4_trajectory:bfloat16-frames"
+    rounded = k4_trajectory(*k4_args)
+    exact = k4_trajectory(*k4_args[:3])
+    rel = check(
+        k4_key,
+        "Burgers, B=4",
+        rounded,
+        ps.packed_system_rk4_trajectory_reference(*k4_args),
+    )
+    assert rounded.dtype == f32
+    assert torch.equal(rounded, exact.to(bf16).to(f32))
+    log(
+        f"kernels: K4 trajectory with bfloat16 frames (B=4 x "
+        f"{K5_FAMILY_SHAPE[0]} x {K5_FAMILY_SHAPE[1]} Burgers, "
+        f"{K5_FAMILY_STEPS} steps): max|d|/max|y| = {rel:.3e} against its "
+        "plain version, and each frame the float32 frame rounded once"
+    )
+    del rounded, exact
+    torch.cuda.empty_cache()
+    log(f"phase polar kernels: ok ({time.perf_counter() - started:.1f} s)")
+
+    # -- phase 22: the path at full width, counted -----------------------
+    def fdm(d_t, **kwargs):
+        # no device argument: the entry points run on the card
+        return FDMOperator(
+            RK4(), ThreePointCentralDifferenceMethod(), d_t, **kwargs
+        )
+
+    def initial(ivp, dtype=f32, on=device):
+        return torch.as_tensor(
+            ivp.initial_condition.discrete_y_0(True), dtype=dtype, device=on
+        )
+
+    # label: (family, problem, d_t, initial state, kernel)
+    examples = {}
+    for label, family, kernel, (ivp, d_t) in (
+        ("shallow water polar 36 x 51 x 3", "polar-shallow-water",
+         "fused_system_rk4_trajectory", shallow_water_polar_example(prml)),
+        ("wave polar 51 x 201 x 2", "polar-wave", TILED_SYSTEM_KERNEL,
+         wave_polar_example(prml)),
+    ):
+        examples[label] = (family, ivp, d_t, initial(ivp), kernel)
+    sw_cp = examples["shallow water polar 36 x 51 x 3"][1].constrained_problem
+    wave_cp = examples["wave polar 51 x 201 x 2"][1].constrained_problem
+    assert fs.fits_one_block(sw_cp) and not fs.fits_one_block(wave_cp)
+    assert fs.fits_reference_vmem(wave_cp)
+    spherical_ivp, spherical_d_t = burgers_spherical_example(prml)
+    k9_wrappers = {
+        name: getattr(f3, name)
+        for name in (
+            "fused_system_3d_rk4_trajectory",
+            "fused_system_3d_rk4_end",
+            "fused_system_3d_rk4_step",
+        )
+    }
+    counted = dict(
+        wrappers,
+        **k9_wrappers,
+        packed_system_rk4_ends=ps.packed_system_rk4_ends,
+        packed_system_rk4_trajectory=k4_trajectory,
+    )
+    generic_builds = []
+    build_step = FDMOperator._build_step_function
+
+    def counting_build(self, cp, allow_fused=True, dtype=None):
+        if not allow_fused:
+            generic_builds.append(cp)
+        return build_step(self, cp, allow_fused, dtype)
+
+    for wrapper in counted.values():
+        wrapper.launches = 0
+    FDMOperator._build_step_function = counting_build
+    try:
+        solutions = {
+            label: fdm(d_t).solve(ivp).discrete_y()
+            for label, (_, ivp, d_t, _, _) in examples.items()
+        }
+        polar_builds = len(generic_builds)
+        spherical = fdm(spherical_d_t).solve(spherical_ivp).discrete_y()
+    finally:
+        FDMOperator._build_step_function = build_step
+    launches = {name: w.launches for name, w in counted.items()}
+    log(
+        f"polar main-path launches: {launches} (the two polar examples' "
+        f"solves built the generic step {polar_builds} times; the "
+        f"spherical solve {len(generic_builds) - polar_builds})"
+    )
+    assert polar_builds == 0, "a polar example took the generic path"
+    assert launches == dict(
+        {name: 0 for name in counted},
+        fused_system_rk4_trajectory=1,
+        **{TILED_SYSTEM_KERNEL: 1},
+    ), launches
+    # the spherical problem has no kernel in either package: generic
+    assert len(generic_builds) - polar_builds >= 1
+
+    head = SYSTEM_HEAD_STEPS
+    for label, (family, ivp, d_t, y_0, kernel) in examples.items():
+        cp = ivp.constrained_problem
+        ys = solutions[label]
+        steps = round(ivp.t_interval[1] / d_t)
+        assert ys.shape == (steps,) + tuple(y_0.shape), (label, ys.shape)
+        assert np.isfinite(ys).all(), label
+        frames = torch.as_tensor(ys[:head], device=device)
+        if kernel == TILED_SYSTEM_KERNEL:
+            plain = plains[kernel](y_0, ts._TiledSystemConfig(cp, d_t), head)
+        else:
+            plain = plains[kernel](y_0, fs._SystemKernelConfig(cp, d_t), head)
+        plain = plain.double()
+        rel = float((frames - plain).abs().max()) / float(plain.abs().max())
+        errors[f"{kernel}:polar"] = max(
+            errors.get(f"{kernel}:polar", 0.0),
+            float((frames - plain).abs().max()),
+        )
+        generic_fn, _ = fdm(d_t, fused_kernels=False).trajectory_function(
+            cp, (0.0, head * d_t)
+        )
+        assert not generic_fn.fused
+        generic = generic_fn(y_0, 0.0).double()
+        difference = (frames - generic).abs()
+        # the last frame against the generic path over the whole horizon
+        last_generic, how = generic_end_on_card(
+            torch, fdm(d_t, fused_kernels=False), cp, y_0, steps
+        )
+        last_generic = last_generic.double()
+        last = torch.as_tensor(ys[-1], device=device)
+        scale = float(last_generic.abs().max())
+        last_rel = float((last - last_generic).abs().max()) / scale
+        log(
+            f"phase polar path: {label} ({kernel}, {steps} steps): first "
+            f"{head} frames against the plain version max|d|/max|y| = "
+            f"{rel:.3e}, against the generic path max|d| = "
+            f"{float(difference.max()):.3e} (atol = rtol = 1e-4); frame "
+            f"{steps} against the generic path (float32, run over the "
+            f"whole horizon: {how}) max|d|/max|y| = {last_rel:.3e} (limit "
+            f"{POLAR_LAST_TOL:g}; max|y| {scale:.4f})"
+        )
+        assert rel <= KERNEL_REL_TOL, (label, rel)
+        assert bool((difference <= 1e-4 + 1e-4 * generic.abs()).all()), label
+        assert last_rel <= POLAR_LAST_TOL, (label, last_rel)
+    del solutions
+    torch.cuda.empty_cache()
+    # the spherical problem: the card's generic path (float32) against the
+    # port's CPU float64 solve
+    steps = round(SPHERICAL_T_END / spherical_d_t)
+    assert spherical.shape == (steps, 9, 21, 6, 3), spherical.shape
+    cpu = (
+        FDMOperator(
+            RK4(),
+            ThreePointCentralDifferenceMethod(),
+            spherical_d_t,
+            device="cpu",
+            dtype=torch.float64,
+        )
+        .solve(spherical_ivp)
+        .discrete_y()
+    )
+    spherical_rel = float(np.abs(spherical - cpu).max()) / float(
+        np.abs(cpu).max()
+    )
+    log(
+        f"phase polar spherical: Burgers 9 x 21 x 6 x 3, {steps} steps, "
+        f"generic path on the card (float32) against the CPU (float64): "
+        f"max|d|/max|y| = {spherical_rel:.3e} (limit {SPHERICAL_TOL:g})"
+    )
+    assert np.isfinite(spherical).all()
+    assert spherical_rel <= SPHERICAL_TOL, spherical_rel
+    log(f"phase polar path: ok ({time.perf_counter() - started:.1f} s)")
+
+    # -- phase 23: times -------------------------------------------------
+    runs, run_ms = {}, {}
+    for label, (family, ivp, d_t, y_0, kernel) in examples.items():
+        cp = ivp.constrained_problem
+        fn, t = fdm(d_t).trajectory_function(cp, ivp.t_interval)
+        steps = len(t)
+        runs[label] = lambda fn=fn, y_0=y_0: fn(y_0, 0.0)
+        run_ms[label] = cuda_ms(torch, runs[label], reps=3)
+        if kernel == TILED_SYSTEM_KERNEL:
+            kcfg = ts._TiledSystemConfig(cp, d_t)
+            bound_ms, bound_by = tiled_system_bound(family, kcfg, 1, steps, 4)
+            what = f"K8 ({kcfg.plan.blocks} blocks of {kcfg.plan.rows} x "
+            what += f"{kcfg.plan.cols})"
+        else:
+            kcfg = fs._SystemKernelConfig(cp, d_t)
+            bound_ms, bound_by = stencil_bound(
+                family, 1, steps, kcfg.height * kcfg.width, kcfg.n, True
+            )
+            what = "K5, one CTA"
+        generic_fn, _ = fdm(d_t, fused_kernels=False).trajectory_function(
+            cp, (0.0, SYSTEM_TIMED_STEPS * d_t)
+        )
+        generic_ms = cuda_ms(torch, lambda: generic_fn(y_0, 0.0), reps=3)
+        scaled_ms = generic_ms * steps / SYSTEM_TIMED_STEPS
+        log(
+            f"time: {label}, {what} trajectory, {steps} steps: "
+            f"{run_ms[label]:.3f} ms ({1e3 * run_ms[label] / steps:.3f} us "
+            f"a step), bound {bound_ms * 1e3:.3f} us ({bound_by}); generic "
+            f"path "
+            f"{SYSTEM_TIMED_STEPS} steps {generic_ms:.3f} ms, scaled to "
+            f"{steps} steps {scaled_ms:.3f} ms (scaled, not run): "
+            f"{scaled_ms / run_ms[label]:.3f}x [{card}]"
+        )
+    spherical_fn, spherical_t = fdm(spherical_d_t).trajectory_function(
+        spherical_ivp.constrained_problem, spherical_ivp.t_interval
+    )
+    spherical_y = initial(spherical_ivp)
+    # the solve above warmed the path: one run (seconds of eager steps)
+    ms = once_ms(torch, lambda: spherical_fn(spherical_y, 0.0))
+    log(
+        f"time: burgers spherical 9 x 21 x 6 x 3, generic path, "
+        f"{len(spherical_t)} steps: {ms:.3f} ms (one run; "
+        f"{1e3 * ms / len(spherical_t):.3f} us a step) [{card}]"
+    )
+    # profiled over its first SYSTEM_TIMED_STEPS steps
+    spherical_head, _ = fdm(spherical_d_t).trajectory_function(
+        spherical_ivp.constrained_problem,
+        (0.0, SYSTEM_TIMED_STEPS * spherical_d_t),
+    )
+    label = f"burgers spherical, first {SYSTEM_TIMED_STEPS} steps"
+    runs[label] = lambda: spherical_head(spherical_y, 0.0)
+    run_ms[label] = once_ms(torch, runs[label])
+
+    # each polar kernel function at its path's grid, beside its plain
+    # version (one run) and its bound
+    sw_ivp, sw_d_t = shallow_water_polar_example(prml)
+    wave_ivp, wave_d_t = wave_polar_example(prml)
+    sw_cfg = fs._SystemKernelConfig(sw_ivp.constrained_problem, sw_d_t)
+    wave_cfg = ts._TiledSystemConfig(wave_ivp.constrained_problem, wave_d_t)
+    sw_y = examples["shallow water polar 36 x 51 x 3"][3]
+    wave_y = examples["wave polar 51 x 201 x 2"][3]
+    sw_cells = sw_cfg.height * sw_cfg.width
+    steps = POLAR_TIMED_STEPS
+    sources = {name: (source, replaces) for name, _, source, replaces in (
+        POLAR_KERNELS
+    )}
+    timings = [
+        ("fused_system_rk4_trajectory",
+         f"36 x 51 x 3 polar shallow water, {steps} steps",
+         (sw_y, sw_cfg, steps),
+         stencil_bound("polar-shallow-water", 1, steps, sw_cells, 3, True),
+         True),
+        ("fused_system_rk4_end",
+         f"36 x 51 x 3 polar shallow water, {steps} steps",
+         (sw_y, sw_cfg, steps),
+         stencil_bound("polar-shallow-water", 1, steps, sw_cells, 3, False),
+         False),
+        ("fused_system_rk4_step", "36 x 51 x 3 polar shallow water, 1 step",
+         (sw_y, sw_cfg),
+         stencil_bound("polar-shallow-water", 1, 1, sw_cells, 3, True),
+         False),
+        (TILED_SYSTEM_KERNEL, f"51 x 201 x 2 polar wave, {steps} steps",
+         (wave_y, wave_cfg, steps),
+         tiled_system_bound("polar-wave", wave_cfg, 1, steps, 4), True),
+    ]
+    entries = []
+    for name, what, args, (bound_ms, bound_by), on_path in timings:
+        key = f"{name}:polar"
+        kernel_ms = cuda_ms(torch, lambda: wrappers[name](*args))
+        outputs = []
+        plain_ms = once_ms(torch, lambda: outputs.append(plains[name](*args)))
+        rel_err = check(key, f"{what}, timed", wrappers[name](*args),
+                        outputs[0])
+        del outputs
+        log(
+            f"time: {key} ({what}): kernel {kernel_ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms (one run), bound {bound_ms * 1e3:.3f} us "
+            f"({bound_by}); against the plain version there "
+            f"max|d|/max|y| = {rel_err:.3e} [{card}]"
+        )
+        source, replaces = sources[name]
+        entries.append(
+            {
+                "name": key,
+                "route": "cuda",
+                "source": source,
+                "replaces": replaces,
+                "on_path": on_path,
+                "launches": launches[name] if on_path else 0,
+                "max_abs_err": errors.get(key, 0.0),
+                "ms": kernel_ms,
+                "plain_ms": plain_ms,
+                "bound_ms": bound_ms,
+                "bound_us": bound_ms * 1e3,
+                "bound_by": bound_by,
+                "library_ms": None,
+                "timed": what,
+            }
+        )
+    # K4's bfloat16 frames against its float32 frames, same call
+    k4_ms = cuda_ms(torch, lambda: k4_trajectory(*k4_args))
+    k4_f32_ms = cuda_ms(torch, lambda: k4_trajectory(*k4_args[:3]))
+    outputs = []
+    k4_plain_ms = once_ms(
+        torch,
+        lambda: outputs.append(
+            ps.packed_system_rk4_trajectory_reference(*k4_args)
+        ),
+    )
+    del outputs
+    # stencil_bound's reads, and bfloat16 frames: 2 bytes a value
+    k4_cells = K5_FAMILY_SHAPE[0] * K5_FAMILY_SHAPE[1]
+    k4_values = 2 * k4_cells
+    k4_bound = bound(
+        4 * 4 * k4_values
+        + 5 * k4_values
+        + 2 * 4 * k4_values * K5_FAMILY_STEPS,
+        FLOPS_PER_CELL_STEP["burgers"] * 4 * K5_FAMILY_STEPS * k4_cells,
+    )
+    log(
+        f"time: {k4_key} (B=4 x {K5_FAMILY_SHAPE[0]} x {K5_FAMILY_SHAPE[1]} "
+        f"Burgers, {K5_FAMILY_STEPS} steps): kernel {k4_ms:.3f} ms, with "
+        f"float32 frames {k4_f32_ms:.3f} ms, plain {k4_plain_ms:.3f} ms (one "
+        f"run), bound {k4_bound[0] * 1e3:.3f} us ({k4_bound[1]}) [{card}]"
+    )
+    entries.append(
+        {
+            "name": k4_key,
+            "route": "cuda",
+            "source": SYSTEM_SOURCE,
+            "replaces": "pararealml_tpu/ops/packed_system.py:559",
+            "on_path": False,
+            "launches": 0,
+            "max_abs_err": errors.get(k4_key, 0.0),
+            "ms": k4_ms,
+            "plain_ms": k4_plain_ms,
+            "bound_ms": k4_bound[0],
+            "bound_us": k4_bound[0] * 1e3,
+            "bound_by": k4_bound[1],
+            "library_ms": None,
+            "timed": f"B=4 x {K5_FAMILY_SHAPE[0]} x {K5_FAMILY_SHAPE[1]} "
+            f"Burgers, {K5_FAMILY_STEPS} steps, bfloat16 frames",
+        }
+    )
+    torch.cuda.empty_cache()
+    log(f"phase polar times: ok ({time.perf_counter() - started:.1f} s)")
+
+    # -- phase 24: device busy time and idle share (torch.profiler) ------
+    for label, run in runs.items():
+        busy_ms, top = device_busy_ms(torch, run, reps=1)
+        if busy_ms is None:
+            log(f"profile: {label}: not measured (no device events)")
+            continue
+        log(
+            f"profile: {label}: device busy {busy_ms:.3f} ms of "
+            f"{run_ms[label]:.3f} ms, idle share "
+            f"{1.0 - busy_ms / run_ms[label]:.3f}; top: {top} [{card}]"
+        )
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -2994,18 +3717,16 @@ def main() -> int:
             f"({bound_by}) [{card}]"
         )
 
-    kernels += burgers_phases(
-        torch, prml, device, card, cuda_ms, device_busy_ms
-    )
-    kernels += large_grid_phases(
-        torch, prml, device, card, cuda_ms, once_ms, device_busy_ms
-    )
-    kernels += three_d_phases(
-        torch, prml, device, card, cuda_ms, once_ms, device_busy_ms
-    )
-    kernels += system_2d_phases(
-        torch, prml, device, card, cuda_ms, once_ms, device_busy_ms
-    )
+    log(f"phases 1-4 done at {time.perf_counter() - start:.1f} s")
+    for label, phases, timing in (
+        ("5-8", burgers_phases, (cuda_ms, device_busy_ms)),
+        ("9-12", large_grid_phases, (cuda_ms, once_ms, device_busy_ms)),
+        ("13-16", three_d_phases, (cuda_ms, once_ms, device_busy_ms)),
+        ("17-20", system_2d_phases, (cuda_ms, once_ms, device_busy_ms)),
+        ("21-24", polar_phases, (cuda_ms, once_ms, device_busy_ms)),
+    ):
+        kernels += phases(torch, prml, device, card, *timing)
+        log(f"phases {label} done at {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(

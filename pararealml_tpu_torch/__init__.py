@@ -7,13 +7,15 @@ the JAX package has Pallas TPU kernels. It imports torch, numpy, scipy
 and sympy, and nothing of JAX, flax, scikit-learn or msgpack. Its
 operators run on the CUDA card unless given another ``device``.
 
-Ported so far (ROADMAP.md, "Done"): slice 1, the problem-definition
-layer, the FDM operator for Cartesian meshes with static boundary
+Ported so far (ROADMAP.md, "Ported so far"): slice 1, the
+problem-definition layer, the FDM operator with static boundary
 conditions, and classic single-device Parareal; slice 2, the supervised
 ML operator with the closed-form state-operator regressors
 (``operators.ml.supervised``), flax-format checkpoints and seeding
-(``utils``), and the Burgers kernels. Plots are not ported yet (slice
-8), so this root does not export them.
+(``utils``), and the Burgers kernels; slices 6a-6c, the large-grid, 3D
+and 2D-system kernels; slice 6d, the polar, cylindrical and spherical
+metric terms of the FDM operator and the polar kernels. Plots are not
+ported yet (slice 8), so this root does not export them.
 """
 
 from pararealml_tpu_torch.boundary_condition import (

@@ -6,7 +6,8 @@ entries are meaningful only where the mask is ``True`` — and application
 is an element-wise ``torch.where``. The tensors are kept as built (on the
 CPU, in float64 for values built from NumPy) and copied to the dtype and
 device of the array they are applied to on first use; the copies are
-memoized on the constraint, so a solver's step loop converts each
+memoized on the constraint, and so are its slices over the trailing
+(component) axis, so a solver's step loop slices and converts each
 constraint once.
 """
 
@@ -41,6 +42,7 @@ class Constraint:
         self._converted: Dict[
             Tuple[torch.dtype, torch.device], Tuple[torch.Tensor, torch.Tensor]
         ] = {}
+        self._components: Dict[tuple, "Constraint"] = {}
 
     @property
     def values(self) -> torch.Tensor:
@@ -70,6 +72,24 @@ class Constraint:
             )
             self._converted[key] = converted
         return converted
+
+    def components(self, component_slice) -> "Constraint":
+        """The constraint on the components ``component_slice`` (a slice
+        or a sequence of indices) of the trailing axis, memoized with its
+        converted copies."""
+        if isinstance(component_slice, slice):
+            key = (component_slice.start, component_slice.stop,
+                   component_slice.step)
+        else:
+            key = tuple(component_slice)
+        sliced = self._components.get(key)
+        if sliced is None:
+            sliced = Constraint(
+                self._values[..., component_slice],
+                self._mask[..., component_slice],
+            )
+            self._components[key] = sliced
+        return sliced
 
     def apply(self, array: Array) -> torch.Tensor:
         """Returns a copy of ``array`` with constrained positions replaced

@@ -1,6 +1,6 @@
-// The equation functors and stencil helpers of the 2D Cartesian system
-// kernels, shared by the whole-grid kernel (K5 and K4, fused_system.cu)
-// and the tiled kernel (K8, tiled_system.cu).
+// The equation functors and stencil helpers of the 2D system kernels,
+// Cartesian and polar, shared by the whole-grid kernel (K5 and K4,
+// fused_system.cu) and the tiled kernel (K8, tiled_system.cu).
 //
 // They compute what the JAX package's _make_rhs_builder and
 // _make_step_factory compute over its _StencilHelpers (ops/fused_system.py)
@@ -11,6 +11,18 @@
 // derivatives first and then adds the ghost rows and the ghost columns. So
 // the two kernels agree to float32 rounding, not bit for bit; each matches
 // its own plain PyTorch version exactly.
+//
+// Polar meshes (r along axis 0, theta along axis 1) take the polar grids
+// (PolarWholeGrid, PolarTile): the JAX package's polar _StencilHelpers
+// terms with a per-row coefficient 1 / r, r = r_low + r_spacing i in
+// float32 as the JAX kernel computes it (the host passes the H values):
+//   lap = d2_0 + (d2_1 / r + d_0) / r, as d2_0 + (d2_1 inv_r + d_0) inv_r
+//     with each axis's ghost added first;
+//   gradient_1 = d_1 inv_r (after the face override);
+//   the shallow-water divergence gains u inv_r.
+// The JAX package has no tiled polar kernel; its polar K5 is the
+// reference, so the polar tile (K8 past one CTA) keeps K5's order of
+// operations and is bit for bit with the polar whole grid.
 //
 // Layout: a state is n component planes of `stride` floats each; a cell is
 // its global row and column and its index in a plane, whose rows are `row`
@@ -82,6 +94,8 @@ struct Faces {
   const uint8_t* gcm;
   const float* gcv;
   int n;
+  // polar grids: 1 / r of each of the H rows; unused otherwise
+  const float* inv_r;
 };
 
 struct Planes {
@@ -109,6 +123,7 @@ struct Neighbours {
 // a bounds test; the Laplacian adds each axis's ghost before the sum.
 struct WholeGrid {
   static constexpr bool kSumThenGhost = false;
+  static constexpr bool kPolar = false;
   static __device__ __forceinline__ Neighbours fetch(const Planes& v,
                                                      int comp,
                                                      const Cell& x,
@@ -129,6 +144,7 @@ struct WholeGrid {
 // the Laplacian sums the axes first and adds the ghosts after.
 struct Tile {
   static constexpr bool kSumThenGhost = true;
+  static constexpr bool kPolar = false;
   static __device__ __forceinline__ Neighbours fetch(const Planes& v,
                                                      int comp,
                                                      const Cell& x,
@@ -142,6 +158,17 @@ struct Tile {
     n.right = plane[x.idx + 1];
     return n;
   }
+};
+
+// The polar whole grid (polar K5).
+struct PolarWholeGrid : WholeGrid {
+  static constexpr bool kPolar = true;
+};
+
+// The polar tile (polar K8): K5's order of operations, not K8's.
+struct PolarTile : Tile {
+  static constexpr bool kSumThenGhost = false;
+  static constexpr bool kPolar = true;
 };
 
 // The Neumann ghost terms of component `comp` at a boundary cell, each the
@@ -169,34 +196,6 @@ __device__ __forceinline__ float ghost_col(const Neighbours& v, int comp,
   return ghost * p.inv_dx1_sqr;
 }
 
-// _StencilHelpers.laplacian (SUM_THEN_GHOST false) or
-// _TiledStencilHelpers.laplacian (true) of component `comp`.
-template <bool SUM_THEN_GHOST>
-__device__ __forceinline__ float laplacian(const Neighbours& v, int comp,
-                                           const Cell& x, const Params& p,
-                                           const Faces& f) {
-  const float two_centre = 2.0f * v.centre;
-  float d2_0 = ((v.above - two_centre) + v.below) * p.inv_dx0_sqr;
-  float d2_1 = ((v.left - two_centre) + v.right) * p.inv_dx1_sqr;
-  const bool top = x.i == 0;
-  const bool bottom = x.i == p.height - 1;
-  const bool first = x.j == 0;
-  const bool last = x.j == p.width - 1;
-  if (SUM_THEN_GHOST) {
-    float lap = d2_0 + d2_1;
-    if (top) lap = lap + ghost_row(v, comp, x, p, f, false);
-    if (bottom) lap = lap + ghost_row(v, comp, x, p, f, true);
-    if (first) lap = lap + ghost_col(v, comp, x, p, f, false);
-    if (last) lap = lap + ghost_col(v, comp, x, p, f, true);
-    return lap;
-  }
-  if (top) d2_0 = d2_0 + ghost_row(v, comp, x, p, f, false);
-  if (bottom) d2_0 = d2_0 + ghost_row(v, comp, x, p, f, true);
-  if (first) d2_1 = d2_1 + ghost_col(v, comp, x, p, f, false);
-  if (last) d2_1 = d2_1 + ghost_col(v, comp, x, p, f, true);
-  return d2_0 + d2_1;
-}
-
 // gradient_0: the central row derivative, replaced on a boundary row by
 // the constrained normal derivative where the face has one.
 __device__ __forceinline__ float gradient_0(const Neighbours& v, int comp,
@@ -213,7 +212,9 @@ __device__ __forceinline__ float gradient_0(const Neighbours& v, int comp,
   return gradient;
 }
 
-// gradient_1 (Cartesian): the column derivative, likewise.
+// gradient_1: the column derivative, likewise; times 1 / r on a polar
+// grid.
+template <class Grid>
 __device__ __forceinline__ float gradient_1(const Neighbours& v, int comp,
                                             const Cell& x, const Params& p,
                                             const Faces& f) {
@@ -225,7 +226,41 @@ __device__ __forceinline__ float gradient_1(const Neighbours& v, int comp,
     const int face = (f.n + comp) * p.height + x.i;
     if (f.gcm[face]) gradient = f.gcv[face];
   }
+  if constexpr (Grid::kPolar) gradient = gradient * f.inv_r[x.i];
   return gradient;
+}
+
+// _StencilHelpers.laplacian (Grid::kSumThenGhost false: each axis's
+// ghost added first; with the polar metric where Grid::kPolar) or
+// _TiledStencilHelpers.laplacian (true) of component `comp`.
+template <class Grid>
+__device__ __forceinline__ float laplacian(const Neighbours& v, int comp,
+                                           const Cell& x, const Params& p,
+                                           const Faces& f) {
+  const float two_centre = 2.0f * v.centre;
+  float d2_0 = ((v.above - two_centre) + v.below) * p.inv_dx0_sqr;
+  float d2_1 = ((v.left - two_centre) + v.right) * p.inv_dx1_sqr;
+  const bool top = x.i == 0;
+  const bool bottom = x.i == p.height - 1;
+  const bool first = x.j == 0;
+  const bool last = x.j == p.width - 1;
+  if constexpr (Grid::kSumThenGhost) {
+    float lap = d2_0 + d2_1;
+    if (top) lap = lap + ghost_row(v, comp, x, p, f, false);
+    if (bottom) lap = lap + ghost_row(v, comp, x, p, f, true);
+    if (first) lap = lap + ghost_col(v, comp, x, p, f, false);
+    if (last) lap = lap + ghost_col(v, comp, x, p, f, true);
+    return lap;
+  }
+  if (top) d2_0 = d2_0 + ghost_row(v, comp, x, p, f, false);
+  if (bottom) d2_0 = d2_0 + ghost_row(v, comp, x, p, f, true);
+  if (first) d2_1 = d2_1 + ghost_col(v, comp, x, p, f, false);
+  if (last) d2_1 = d2_1 + ghost_col(v, comp, x, p, f, true);
+  if constexpr (Grid::kPolar) {
+    const float inv_r = f.inv_r[x.i];
+    return d2_0 + (d2_1 * inv_r + gradient_0(v, comp, x, p, f)) * inv_r;
+  }
+  return d2_0 + d2_1;
 }
 
 // Each functor with kRK4 writes the right-hand side of every component at
@@ -242,7 +277,7 @@ struct Wave2D {
                                              float* out) {
     const Neighbours y0 = Grid::fetch(v, 0, x, p);
     out[0] = v.data[v.stride + x.idx];
-    out[1] = p.coefficient * laplacian<Grid::kSumThenGhost>(y0, 0, x, p, f);
+    out[1] = p.coefficient * laplacian<Grid>(y0, 0, x, p, f);
   }
 };
 
@@ -260,14 +295,15 @@ struct Burgers2D {
     for (int comp = 0; comp < kComponents; ++comp) {
       const Neighbours n = Grid::fetch(v, comp, x, p);
       out[comp] =
-          p.coefficient * laplacian<Grid::kSumThenGhost>(n, comp, x, p, f) -
+          p.coefficient * laplacian<Grid>(n, comp, x, p, f) -
           y_0 * gradient_0(n, comp, x, p, f) -
-          y_1 * gradient_1(n, comp, x, p, f);
+          y_1 * gradient_1<Grid>(n, comp, x, p, f);
     }
   }
 };
 
-// The non-conservative shallow-water system (eta, u, w):
+// The non-conservative shallow-water system (eta, u, w), Cartesian (on a
+// polar grid the gradients along axis 1 and the divergence carry 1 / r):
 //   eta' = -h div(u, w) - eta du/dx0 - u deta/dx0 - eta dw/dx1 - w deta/dx1
 //   u'   = v lap(u) - u du/dx0 - w du/dx1 - g deta/dx0 - b u + f w
 //   w'   = v lap(w) - u dw/dx0 - w dw/dx1 - g deta/dx1 - b w - f u
@@ -285,24 +321,26 @@ struct ShallowWater2D {
     const float u = n_u.centre;
     const float w = n_w.centre;
     const float d_eta_0 = gradient_0(n_eta, 0, x, p, f);
-    const float d_eta_1 = gradient_1(n_eta, 0, x, p, f);
+    const float d_eta_1 = gradient_1<Grid>(n_eta, 0, x, p, f);
     const float d_u_0 = gradient_0(n_u, 1, x, p, f);
-    const float d_u_1 = gradient_1(n_u, 1, x, p, f);
+    const float d_u_1 = gradient_1<Grid>(n_u, 1, x, p, f);
     const float d_w_0 = gradient_0(n_w, 2, x, p, f);
-    const float d_w_1 = gradient_1(n_w, 2, x, p, f);
-    const float div = d_u_0 + d_w_1;
+    const float d_w_1 = gradient_1<Grid>(n_w, 2, x, p, f);
+    float div = d_u_0 + d_w_1;
+    // the polar divergence's u / r
+    if constexpr (Grid::kPolar) div = div + u * f.inv_r[x.i];
     out[0] = (((-p.depth * div - eta * d_u_0) - u * d_eta_0) -
               eta * d_w_1) -
              w * d_eta_1;
     out[1] = ((((p.coefficient *
-                     laplacian<Grid::kSumThenGhost>(n_u, 1, x, p, f) -
+                     laplacian<Grid>(n_u, 1, x, p, f) -
                  u * d_u_0) -
                 w * d_u_1) -
                p.gravity * d_eta_0) -
               p.drag * u) +
              p.coriolis * w;
     out[2] = ((((p.coefficient *
-                     laplacian<Grid::kSumThenGhost>(n_w, 2, x, p, f) -
+                     laplacian<Grid>(n_w, 2, x, p, f) -
                  u * d_w_0) -
                 w * d_w_1) -
                p.gravity * d_eta_1) -
@@ -329,11 +367,11 @@ struct CahnHilliard2D {
                                                const Faces& f, float* k1,
                                                float* potential) {
     const Neighbours n1 = Grid::fetch(v, 1, x, p);
-    *k1 = p.coefficient * laplacian<Grid::kSumThenGhost>(n1, 1, x, p, f);
+    *k1 = p.coefficient * laplacian<Grid>(n1, 1, x, p, f);
     const Neighbours n0 = Grid::fetch(v, 0, x, p);
     const float y0 = n0.centre;
     *potential = ((y0 * y0) * y0 - y0) -
-                 p.gamma * laplacian<Grid::kSumThenGhost>(n0, 0, x, p, f);
+                 p.gamma * laplacian<Grid>(n0, 0, x, p, f);
   }
 
   // the second stage at one cell of the planes holding D1(y1) as their
@@ -344,7 +382,7 @@ struct CahnHilliard2D {
                                                  const Params& p,
                                                  const Faces& f) {
     const Neighbours n = Grid::fetch(v, 1, x, p);
-    return p.coefficient * laplacian<Grid::kSumThenGhost>(n, 1, x, p, f);
+    return p.coefficient * laplacian<Grid>(n, 1, x, p, f);
   }
 };
 

@@ -1,7 +1,7 @@
-// Tiled RK4 trajectory kernel for multi-component 2D Cartesian systems
-// past one thread block (K8), for Hopper (sm_90a): wave, Burgers, shallow
-// water and Cahn-Hilliard with static boundary conditions whose Dirichlet
-// constraints lie on the grid's faces.
+// Tiled RK4 trajectory kernel for multi-component 2D systems past one
+// thread block (K8), for Hopper (sm_90a): wave, Burgers, shallow water and
+// Cahn-Hilliard with static boundary conditions whose Dirichlet
+// constraints lie on the grid's faces, on Cartesian and polar meshes.
 //
 // Replaces the JAX package's Pallas TPU kernel
 //   K8 ops/tiled_system.py build_tiled_system_rk4_trajectory
@@ -20,6 +20,15 @@
 // affine (Burgers, shallow water and Cahn-Hilliard are nonlinear), so the
 // Horner form of the diffusion kernels (K6, K7) does not apply: each block
 // keeps the state, two stage buffers and the RK4 accumulator of its tile.
+//
+// Polar meshes: the JAX package has no tiled polar kernel; its polar K5
+// (ops/fused_system.py _StencilHelpers with inv_r) covers polar grids up to
+// its VMEM cap, and the port's polar K8 is that K5 past one block. So a
+// polar tile (system_2d.cuh PolarTile) keeps K5's order of operations
+// (each axis's ghost added first, then d2_0 + (d2_1 inv_r + d_0) inv_r)
+// and reads 1 / r of its rows from the H values the host passes; it
+// matches the polar whole-grid kernel bit for bit. The halo stays 4: the
+// polar terms read only the row neighbours the Laplacian reads.
 //
 // What bounds it on the card. At 641 x 641 x 2 (Burgers) a step writes one
 // frame of 3.3 MB (1.0 us at 3.35 TB/s; half of that in bfloat16) and
@@ -132,7 +141,7 @@ __device__ __forceinline__ float dirichlet(const TiledArgs& a, int comp,
 // (STAGE < 3) or the state `y` in place (STAGE == 3: each thread rewrites
 // only its own cells of y, which no other thread reads in this stage).
 // Cells outside the grid are written as zero.
-template <class Equation, int STAGE>
+template <class Equation, class Grid, int STAGE>
 __device__ __forceinline__ void rk4_stage(const TiledArgs& a,
                                           const Planes& in, float* next,
                                           float* y, float* acc, int gi0,
@@ -156,7 +165,7 @@ __device__ __forceinline__ void rk4_stage(const TiledArgs& a,
         continue;
       }
       const Cell x = {gi, gj, idx};
-      Equation::template rhs<Tile>(in, x, p, a.ghost, k);
+      Equation::template rhs<Grid>(in, x, p, a.ghost, k);
 #pragma unroll
       for (int comp = 0; comp < N; ++comp) {
         const int e = comp * plane + idx;
@@ -181,6 +190,7 @@ __device__ __forceinline__ void rk4_stage(const TiledArgs& a,
 // D1(y1) in stage_a over the whole tile and k1 and D1(potential) in the
 // accumulator one cell inside its edge; the second updates y in place
 // there. A block barrier follows each.
+template <class Grid>
 __device__ __forceinline__ void cahn_hilliard_step(const TiledArgs& a,
                                                    float* y, float* stage_a,
                                                    float* acc, int gi0,
@@ -204,7 +214,7 @@ __device__ __forceinline__ void cahn_hilliard_step(const TiledArgs& a,
       stage_a[plane + idx] = dirichlet(a, 1, x, y[plane + idx]);
       if (row_inner && lj >= 1 && lj < a.cols - 1) {
         float k1, potential;
-        CahnHilliard2D::first<Tile>(state_in, x, p, a.ghost, &k1,
+        CahnHilliard2D::first<Grid>(state_in, x, p, a.ghost, &k1,
                                     &potential);
         acc[idx] = k1;
         acc[plane + idx] = dirichlet(a, 1, x, potential);
@@ -220,7 +230,7 @@ __device__ __forceinline__ void cahn_hilliard_step(const TiledArgs& a,
       if (gj < 0 || gj >= p.width) continue;
       const int idx = li * a.cols + lj;
       const Cell x = {gi, gj, idx};
-      const float rest = CahnHilliard2D::k_rest<Tile>(stage_in, x, p, a.ghost);
+      const float rest = CahnHilliard2D::k_rest<Grid>(stage_in, x, p, a.ghost);
       const float combined = acc[idx] + 5.0f * rest;
       y[idx] = dirichlet(a, 0, x, y[idx] + p.sixth_d_t * combined);
       y[plane + idx] = acc[plane + idx];
@@ -231,7 +241,7 @@ __device__ __forceinline__ void cahn_hilliard_step(const TiledArgs& a,
 
 // One RK4 step: block (bx, by, b) advances its tile of state b from
 // `source` and writes its part of frame `step` of state b.
-template <class Equation>
+template <class Equation, class Grid>
 __global__ void __launch_bounds__(512) tiled_system_kernel(const TiledArgs a) {
   constexpr int N = Equation::kComponents;
   extern __shared__ __align__(16) float shared[];
@@ -281,16 +291,16 @@ __global__ void __launch_bounds__(512) tiled_system_kernel(const TiledArgs a) {
     const Planes y_in = {y, plane, cols};
     const Planes a_in = {stage_a, plane, cols};
     const Planes b_in = {stage_b, plane, cols};
-    rk4_stage<Equation, 0>(a, y_in, stage_a, y, acc, gi0, gj0);
+    rk4_stage<Equation, Grid, 0>(a, y_in, stage_a, y, acc, gi0, gj0);
     __syncthreads();
-    rk4_stage<Equation, 1>(a, a_in, stage_b, y, acc, gi0, gj0);
+    rk4_stage<Equation, Grid, 1>(a, a_in, stage_b, y, acc, gi0, gj0);
     __syncthreads();
-    rk4_stage<Equation, 2>(a, b_in, stage_a, y, acc, gi0, gj0);
+    rk4_stage<Equation, Grid, 2>(a, b_in, stage_a, y, acc, gi0, gj0);
     __syncthreads();
-    rk4_stage<Equation, 3>(a, a_in, nullptr, y, acc, gi0, gj0);
+    rk4_stage<Equation, Grid, 3>(a, a_in, nullptr, y, acc, gi0, gj0);
     __syncthreads();
   } else {
-    cahn_hilliard_step(a, y, stage_a, acc, gi0, gj0);
+    cahn_hilliard_step<Grid>(a, y, stage_a, acc, gi0, gj0);
   }
 
   const size_t frame = (b * a.n_steps + a.step) * values;
@@ -312,6 +322,14 @@ __global__ void __launch_bounds__(512) tiled_system_kernel(const TiledArgs a) {
   }
 }
 
+template <class Equation>
+const void* select_kernel(int polar) {
+  return polar ? reinterpret_cast<const void*>(
+                     tiled_system_kernel<Equation, PolarTile>)
+               : reinterpret_cast<const void*>(
+                     tiled_system_kernel<Equation, Tile>);
+}
+
 }  // namespace
 
 extern "C" {
@@ -329,11 +347,13 @@ const char* tiled_system_error_string(int error) {
 // 16 n rows cols). The face vectors, each a byte mask and premasked
 // float values, are the Dirichlet and the Neumann ghost rows (2 faces, n,
 // W) and columns (2 faces, n, H), the lower face first; the ghost vectors
-// are the ones the whole-grid kernel reads. `coefficients` holds the
+// are the ones the whole-grid kernel reads. A polar grid (polar != 0)
+// takes the H values of 1 / r in inv_r. `coefficients` holds the
 // kCoefficients floats of system_2d.cuh make_params. Returns the
 // cudaError_t of the first failed call (0 on success); the caller raises
 // on anything else.
-int tiled_system_rk4(int equation, const float* y0, void* traj, int batch,
+int tiled_system_rk4(int equation, int polar, const float* y0, void* traj,
+                     int batch,
                      int height, int width, int n_steps,
                      int storage_bfloat16, int rows, int cols, int halo,
                      size_t shared_bytes, const uint8_t* dir_row_mask,
@@ -343,28 +363,26 @@ int tiled_system_rk4(int equation, const float* y0, void* traj, int batch,
                      const uint8_t* dir_col_mask,
                      const float* dir_col_vals,
                      const uint8_t* ghost_col_mask,
-                     const float* ghost_col_vals, const float* coefficients,
-                     void* stream) {
+                     const float* ghost_col_vals, const float* inv_r,
+                     const float* coefficients, void* stream) {
   const void* kernel = nullptr;
   int components = 0;
   int needed_halo = kRK4Halo;
   switch (equation) {
     case kWave2D:
-      kernel = reinterpret_cast<const void*>(tiled_system_kernel<Wave2D>);
+      kernel = select_kernel<Wave2D>(polar);
       components = Wave2D::kComponents;
       break;
     case kBurgers2D:
-      kernel = reinterpret_cast<const void*>(tiled_system_kernel<Burgers2D>);
+      kernel = select_kernel<Burgers2D>(polar);
       components = Burgers2D::kComponents;
       break;
     case kShallowWater2D:
-      kernel =
-          reinterpret_cast<const void*>(tiled_system_kernel<ShallowWater2D>);
+      kernel = select_kernel<ShallowWater2D>(polar);
       components = ShallowWater2D::kComponents;
       break;
     case kCahnHilliard2D:
-      kernel =
-          reinterpret_cast<const void*>(tiled_system_kernel<CahnHilliard2D>);
+      kernel = select_kernel<CahnHilliard2D>(polar);
       components = CahnHilliard2D::kComponents;
       needed_halo = kCahnHilliardHalo;
       break;
@@ -374,7 +392,8 @@ int tiled_system_rk4(int equation, const float* y0, void* traj, int batch,
   const int tile_h = rows - 2 * halo;
   const int tile_w = cols - 2 * halo;
   if (batch <= 0 || n_steps <= 0 || height < 3 || width < 3 ||
-      halo < needed_halo || tile_h <= 0 || tile_w <= 0) {
+      halo < needed_halo || tile_h <= 0 || tile_w <= 0 ||
+      (polar && inv_r == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (shared_bytes > 48 * 1024) {
@@ -387,7 +406,7 @@ int tiled_system_rk4(int equation, const float* y0, void* traj, int batch,
   TiledArgs a;
   a.p = make_params(height, width, coefficients);
   a.ghost = {ghost_row_mask, ghost_row_vals, ghost_col_mask, ghost_col_vals,
-             components};
+             components, inv_r};
   a.dir = {dir_row_mask, dir_row_vals, dir_col_mask, dir_col_vals};
   a.rows = rows;
   a.cols = cols;

@@ -8,9 +8,10 @@ chosen when it is built:
 - for parallel-in-time callers on linear problems, the exact affine
   propagator (:mod:`pararealml_tpu_torch.ops.linear_propagator`);
 - where the fused kernels apply (RK4, float32 states, static boundary
-  conditions on a Cartesian mesh: 2D diffusion, convection-diffusion,
-  wave, Burgers, shallow water or Cahn-Hilliard; 3D diffusion,
-  convection-diffusion, wave, Burgers or Cahn-Hilliard), the hand-written
+  conditions: 2D diffusion or convection-diffusion on a Cartesian mesh;
+  2D wave, Burgers, shallow water or Cahn-Hilliard on a Cartesian or a
+  polar mesh; 3D diffusion, convection-diffusion, wave, Burgers or
+  Cahn-Hilliard on a Cartesian mesh), the hand-written
   CUDA kernels of :mod:`pararealml_tpu_torch.ops.fused_diffusion` (K1-K3
   on grids that fit one CTA's shared memory, the resident K7 and the
   tiled K6 trajectory kernels on larger diffusion grids),
@@ -20,7 +21,8 @@ chosen when it is built:
   one thread block cluster), or their plain PyTorch versions for CPU
   tensors;
 - otherwise a Python loop over the generic step, which evaluates the
-  symbolic right-hand side with stencils on tensors.
+  symbolic right-hand side with stencils on tensors, with the metric
+  terms of polar, cylindrical and spherical meshes.
 
 Static boundary conditions become constant dense constraint tensors. All
 functions accept states with leading batch axes.
@@ -28,7 +30,7 @@ functions accept states with leading batch axes.
 Not ported yet: dynamic boundary conditions and the ``indexed_*``
 functions that serve them (ROADMAP.md, Queue 1, slice 1b), spatial
 domain decomposition (slice 7), and equations with ``Y_LAPLACIAN``
-left-hand sides, which need the anti-Laplacian (slice 6).
+left-hand sides, which need the anti-Laplacian (slice 6e).
 """
 
 from __future__ import annotations
@@ -98,13 +100,14 @@ class FDMOperator(TorchOperator):
         :param d_t: the temporal step size
         :param fused_kernels: whether to use the hand-written CUDA
             kernels for the problem classes they cover (RK4 with static
-            boundary conditions on Cartesian meshes, float32 states: 2D
-            diffusion, convection-diffusion, wave, Burgers, shallow water
-            and Cahn-Hilliard, the four systems past one CTA's shared
+            boundary conditions, float32 states: 2D diffusion and
+            convection-diffusion on Cartesian meshes; 2D wave, Burgers,
+            shallow water and Cahn-Hilliard on Cartesian meshes and on
+            polar meshes away from the origin, past one CTA's shared
             memory only with Dirichlet constraints on the grid's faces;
             3D diffusion, convection-diffusion, wave, Burgers and
-            Cahn-Hilliard on volumes that fit one thread block cluster);
-            the generic path is used otherwise
+            Cahn-Hilliard on Cartesian volumes that fit one thread block
+            cluster); the generic path is used otherwise
         :param linear_propagator: whether parallel-in-time callers
             (``trajectory_function(..., time_parallel=True)``, i.e.
             Parareal sub-solves) may compute trajectories of *linear*
@@ -114,16 +117,21 @@ class FDMOperator(TorchOperator):
         :param kernel_storage_dtype: precision of the stored trajectory
             (and, on the tiled paths, of the state carried between
             residencies or steps) of the large-grid diffusion kernels
-            and of the tiled system kernel (K8):
+            and of the tiled system kernel (K8), on grids past the JAX
+            package's VMEM caps, where it takes effect there too:
             ``torch.float32`` (default) or ``torch.bfloat16``, which
             halves the traffic while all arithmetic stays float32; the
             trajectory function then returns that dtype
         :param kernel_traj_dtype: precision of the tiled kernel's stored
             frames alone (defaults to ``kernel_storage_dtype``);
-            requires ``kernel_temporal_block >= 2`` when it differs
+            requires ``kernel_temporal_block >= 2`` when it differs; a
+            Parareal over this operator rounds the frames of its batched
+            fine trajectory (K4) to it too
         :param kernel_temporal_block: RK4 steps a tile of the tiled
             kernel advances per residency (1, or even; stepped down to
-            a divisor of a solve's step count with a feasible tile plan)
+            a divisor of a solve's step count with a feasible tile
+            plan); like the two dtypes, it takes effect past the JAX
+            package's VMEM cap only
         :param spatial_mesh: not ported yet (spatial domain
             decomposition; ROADMAP.md, Queue 1, slice 7)
         :param spatial_partition: not ported yet (likewise)
@@ -243,11 +251,14 @@ class FDMOperator(TorchOperator):
         state stays on-chip for the whole solve; ``batch=B`` builds the
         batched variant mapping ``(B, ...) -> (B, ...)`` with one CTA per
         state (tagged ``batched``), otherwise it maps one state. On the
-        generic path (which also serves diffusion grids past the one-CTA
-        gate, as in the JAX package) the solve is a carry-only loop that
-        never stacks per-step states, and the function takes any leading
-        batch axes (tagged ``vmappable``; ``batch`` is ignored). Returns
-        None for dynamic boundary conditions.
+        generic path the solve is a carry-only loop that never stacks
+        per-step states, and the function takes any leading batch axes
+        (tagged ``vmappable``; ``batch`` is ignored). The generic path
+        also serves grids past the one-CTA gate, which the JAX package
+        leaves to its own generic path only past its VMEM caps (504 x 512
+        padded cells for diffusion, ``_fits_vmem`` for 2D systems; below
+        them it runs its end kernels: ROADMAP.md, Queue 3). Returns None
+        for dynamic boundary conditions.
         """
         if (
             cp.differential_equation.x_dimension
@@ -290,9 +301,10 @@ class FDMOperator(TorchOperator):
         self, cp, steps: int, batch: Optional[int], dtype: torch.dtype
     ) -> Optional[Callable]:
         """The fused end kernel for this problem (K2 for the diffusion
-        family, the K5 end for 2D systems, the K9 end in 3D), or None when
-        none applies (among others, a 2D system past one CTA: its ends
-        take the generic carry-only loop, as in the JAX package)."""
+        family, the K5 end for 2D systems, Cartesian or polar, the K9 end
+        in 3D), or None when none applies (among others, a grid past one
+        CTA: its ends take the generic carry-only loop, which the JAX
+        package takes past its VMEM caps only)."""
         from pararealml_tpu_torch.ops.fused_diffusion import (
             build_fused_diffusion_rk4_end,
             fused_diffusion_step_applicable,
@@ -341,31 +353,43 @@ class FDMOperator(TorchOperator):
         )
 
         if fused_diffusion_step_applicable(cp, self._integrator, dtype):
+            from pararealml_tpu_torch.ops.fused_diffusion import (
+                past_reference_vmem,
+            )
             from pararealml_tpu_torch.ops.tiled_diffusion import (
                 resolve_temporal_block,
                 takes_streaming_path,
             )
 
+            # the knobs take effect past the JAX package's VMEM cap only:
+            # below it, its whole-grid kernel ignores them
+            if past_reference_vmem(cp):
+                storage_dtype = self._kernel_storage_dtype
+                traj_dtype = self._kernel_traj_dtype
+                requested_block = self._kernel_temporal_block
+            else:
+                storage_dtype = traj_dtype = None
+                requested_block = 1
             temporal_block = resolve_temporal_block(
                 cp,
                 steps,
-                self._kernel_temporal_block,
-                storage_dtype=self._kernel_storage_dtype,
-                traj_dtype=self._kernel_traj_dtype,
+                requested_block,
+                storage_dtype=storage_dtype,
+                traj_dtype=traj_dtype,
             )
             if (
                 temporal_block == 1
-                and self._kernel_traj_dtype is not None
-                and self._kernel_traj_dtype != self._kernel_storage_dtype
+                and traj_dtype is not None
+                and traj_dtype != storage_dtype
                 and takes_streaming_path(cp)
             ):
                 # a split frame dtype needs the blocked pipeline; falling
                 # back to the state dtype silently would yield
                 # differently-rounded trajectories per solve
                 warnings.warn(
-                    f"kernel_traj_dtype={self._kernel_traj_dtype} "
+                    f"kernel_traj_dtype={traj_dtype} "
                     "dropped: no even temporal block <= "
-                    f"{self._kernel_temporal_block} divides this "
+                    f"{requested_block} divides this "
                     f"solve's {steps} steps with a feasible tile "
                     "plan, so snapshots keep the storage dtype",
                     stacklevel=4,
@@ -374,17 +398,16 @@ class FDMOperator(TorchOperator):
                 cp,
                 self._d_t,
                 steps,
-                storage_dtype=self._kernel_storage_dtype,
+                storage_dtype=storage_dtype,
                 traj_dtype=(
-                    self._kernel_traj_dtype
-                    if temporal_block > 1
-                    else self._kernel_storage_dtype
+                    traj_dtype if temporal_block > 1 else storage_dtype
                 ),
                 temporal_block=temporal_block,
             )
         if fused_system_step_applicable(cp, self._integrator, dtype):
             # kernel_traj_dtype and kernel_temporal_block do not reach
-            # the system kernels, as in the JAX package
+            # the system kernels, and kernel_storage_dtype only past the
+            # JAX package's VMEM cap, as in the JAX package
             return build_fused_system_rk4_trajectory(
                 cp,
                 self._d_t,
@@ -516,7 +539,7 @@ class FDMOperator(TorchOperator):
             raise NotImplementedError(
                 "equations with Y_LAPLACIAN left-hand sides need the "
                 "anti-Laplacian, which is not ported to PyTorch yet "
-                "(ROADMAP.md, Queue 1, slice 6)"
+                "(ROADMAP.md, Queue 1, slice 6e)"
             )
         mapper = FDMSymbolMapper(cp, self._differentiator)
 

@@ -2,10 +2,13 @@
 
 Port of the JAX package's ``operators/fdm/numerical_differentiator.py``
 (capability match for PararealML's operators/fdm/
-numerical_differentiator.py:14-1242) for Cartesian meshes: three-point
-central differences with constraint-aware boundary handling and the
-Cartesian vector calculus (gradient, Hessian, divergence, curl, scalar
-and vector Laplacian).
+numerical_differentiator.py:14-1242): three-point central differences
+with constraint-aware boundary handling and the vector calculus
+(gradient, Hessian, divergence, curl, scalar and vector Laplacian) in
+Cartesian, polar, cylindrical and spherical coordinates, with the JAX
+package's metric terms term for term and in its evaluation order. The
+metric terms divide by the mesh's vertex coordinate grids (the radii
+``linspace(r_low, r_high, n)``), not by radii rebuilt from ``d_x``.
 
 Every operation is a pure function of dense tensors. The spatial axes
 are addressed from the end of the state (``(..., *grid, y_dimension)``),
@@ -15,9 +18,9 @@ concatenation, and Neumann ghost vertices are synthesized with masked
 selects from dense :class:`~pararealml_tpu_torch.constraint.Constraint`
 tensors.
 
-Not ported yet (ROADMAP.md, Queue 1, slice 6): the curvilinear (polar,
-cylindrical, spherical) metric terms, the five-point method and the
-Jacobi and BiCGStab anti-Laplacians.
+Not ported yet (ROADMAP.md, Queue 1, slices 6e and 6f): the five-point
+method and the Jacobi and BiCGStab anti-Laplacians (with their
+curvilinear sweeps).
 """
 
 from __future__ import annotations
@@ -33,8 +36,6 @@ from pararealml_tpu_torch.mesh import CoordinateSystem, Mesh
 # Per-axis sequence of optional lower/upper constraint pairs on the
 # derivative of y normal to the boundaries of that axis.
 DerivativeBoundaryConstraints = Sequence[Optional[BoundaryConstraintPair]]
-
-_NOT_PORTED_SLICE = "ROADMAP.md, Queue 1, slice 6"
 
 
 def _dim(x_axis: int, x_dimension: int) -> int:
@@ -74,13 +75,11 @@ def _shifted(
 def slice_constraint(
     constraint: Optional[Constraint], component_slice
 ) -> Optional[Constraint]:
-    """Slices a constraint's trailing (y component) axis."""
+    """Slices a constraint's trailing (y component) axis (memoized on the
+    constraint: a step loop slices a static constraint once)."""
     if constraint is None:
         return None
-    return Constraint(
-        constraint.values[..., component_slice],
-        constraint.mask[..., component_slice],
-    )
+    return constraint.components(component_slice)
 
 
 def slice_constraint_pair(
@@ -107,19 +106,10 @@ def slice_all_constraint_pairs(
     )
 
 
-def _require_cartesian(mesh: Mesh):
-    if mesh.coordinate_system_type != CoordinateSystem.CARTESIAN:
-        raise NotImplementedError(
-            "curvilinear differential operators "
-            f"({mesh.coordinate_system_type.name.lower()} meshes) are not "
-            f"ported to PyTorch yet ({_NOT_PORTED_SLICE})"
-        )
-
-
 class NumericalDifferentiator:
-    """Base class holding the vector calculus, expressed through the two
-    stencil primitives ``_derivative`` and ``_second_derivative`` that
-    subclasses implement."""
+    """Base class holding the coordinate-system-aware vector calculus,
+    expressed through the two stencil primitives ``_derivative`` and
+    ``_second_derivative`` that subclasses implement."""
 
     def __init__(
         self,
@@ -231,23 +221,36 @@ class NumericalDifferentiator:
         x_axis: int,
         derivative_boundary_constraints=None,
     ) -> torch.Tensor:
-        """One column of the Jacobian of y."""
+        """One column of the Jacobian of y, with the coordinate system's
+        metric scaling applied."""
         self._check_shape(y, mesh)
         if not 0 <= x_axis < mesh.dimensions:
             raise ValueError(
                 f"x-axis ({x_axis}) must be non-negative and less than "
                 f"number of x dimensions ({mesh.dimensions})"
             )
-        _require_cartesian(mesh)
         bcs = self._normalize_constraints(
             derivative_boundary_constraints, mesh.dimensions
         )
-        return self._derivative(
+        derivative = self._derivative(
             y,
             mesh.d_x[x_axis],
             _dim(x_axis, mesh.dimensions),
             bcs[x_axis],
         )
+
+        cs = mesh.coordinate_system_type
+        if cs == CoordinateSystem.CARTESIAN or x_axis == 0:
+            return derivative
+        r = self._grid(mesh, 0, y)
+        if cs == CoordinateSystem.SPHERICAL:
+            if x_axis == 1:
+                return derivative / (r * torch.sin(self._grid(mesh, 2, y)))
+            return derivative / r
+        # polar / cylindrical
+        if x_axis == 1:
+            return derivative / r
+        return derivative
 
     def hessian(
         self,
@@ -257,7 +260,8 @@ class NumericalDifferentiator:
         x_axis2: int,
         derivative_boundary_constraints=None,
     ) -> torch.Tensor:
-        """One component of the Hessian of y."""
+        """One component of the Hessian of y including all curvilinear
+        metric terms."""
         self._check_shape(y, mesh)
         if not (
             0 <= x_axis1 < mesh.dimensions
@@ -268,11 +272,10 @@ class NumericalDifferentiator:
                 f"({x_axis2}) must be non-negative and less than number "
                 f"of x dimensions ({mesh.dimensions})"
             )
-        _require_cartesian(mesh)
         bcs = self._normalize_constraints(
             derivative_boundary_constraints, mesh.dimensions
         )
-        return self._second_derivative(
+        d2 = self._second_derivative(
             y,
             mesh.d_x[x_axis1],
             mesh.d_x[x_axis2],
@@ -280,6 +283,46 @@ class NumericalDifferentiator:
             _dim(x_axis2, mesh.dimensions),
             bcs[x_axis1],
         )
+        cs = mesh.coordinate_system_type
+        if cs == CoordinateSystem.CARTESIAN:
+            return d2
+
+        def d1(axis: int) -> torch.Tensor:
+            return self._derivative(
+                y, mesh.d_x[axis], _dim(axis, mesh.dimensions), bcs[axis]
+            )
+
+        r = self._grid(mesh, 0, y)
+        axes = (x_axis1, x_axis2)
+
+        if cs == CoordinateSystem.SPHERICAL:
+            phi = self._grid(mesh, 2, y)
+            sin_phi, cos_phi = torch.sin(phi), torch.cos(phi)
+            if axes == (0, 0):
+                return d2
+            if axes == (1, 1):
+                return (
+                    d1(0)
+                    + (d2 / sin_phi + cos_phi * d1(2)) / (r * sin_phi)
+                ) / r
+            if axes == (2, 2):
+                return (d2 / r + d1(0)) / r
+            if 0 in axes and 1 in axes:
+                return (d2 - d1(1) / r) / (r * sin_phi)
+            if 0 in axes and 2 in axes:
+                return (d2 - d1(2) / r) / r
+            # mixed theta-phi
+            return (sin_phi * d2 - cos_phi * d1(1)) / (r * sin_phi) ** 2
+
+        # polar / cylindrical
+        if 1 not in axes:
+            return d2
+        if axes == (1, 1):
+            return (d2 / r + d1(0)) / r
+        if 0 in axes:
+            return (d2 - d1(1) / r) / r
+        # mixed theta-z (cylindrical)
+        return d2 / r
 
     def divergence(
         self,
@@ -289,14 +332,31 @@ class NumericalDifferentiator:
     ) -> torch.Tensor:
         """The divergence of the vector field y."""
         self._check_vector_field(y, mesh)
-        _require_cartesian(mesh)
         bcs = self._normalize_constraints(
             derivative_boundary_constraints, mesh.dimensions
         )
-        return sum(
-            self._component_derivative(y, mesh, bcs, i, i)
-            for i in range(mesh.dimensions)
-        )
+
+        def d(comp: int, axis: int) -> torch.Tensor:
+            return self._component_derivative(y, mesh, bcs, comp, axis)
+
+        cs = mesh.coordinate_system_type
+        if cs == CoordinateSystem.CARTESIAN:
+            return sum(d(i, i) for i in range(mesh.dimensions))
+
+        r = self._grid(mesh, 0, y)
+        y_r = y[..., :1]
+        if cs == CoordinateSystem.SPHERICAL:
+            phi = self._grid(mesh, 2, y)
+            sin_phi, cos_phi = torch.sin(phi), torch.cos(phi)
+            y_phi = y[..., 2:]
+            return d(0, 0) + (
+                d(2, 2) + 2.0 * y_r + (d(1, 1) + cos_phi * y_phi) / sin_phi
+            ) / r
+
+        div = d(0, 0) + (y_r + d(1, 1)) / r
+        if cs == CoordinateSystem.POLAR:
+            return div
+        return div + d(2, 2)
 
     def curl(
         self,
@@ -322,7 +382,6 @@ class NumericalDifferentiator:
                 f"curl index ({curl_ind}) must be non-negative and less "
                 f"than number of x dimensions ({mesh.dimensions})"
             )
-        _require_cartesian(mesh)
         bcs = self._normalize_constraints(
             derivative_boundary_constraints, mesh.dimensions
         )
@@ -330,10 +389,33 @@ class NumericalDifferentiator:
         def d(comp: int, axis: int) -> torch.Tensor:
             return self._component_derivative(y, mesh, bcs, comp, axis)
 
-        if mesh.dimensions == 2 or curl_ind == 2:
-            return d(1, 0) - d(0, 1)
+        cs = mesh.coordinate_system_type
+        if cs == CoordinateSystem.CARTESIAN:
+            if mesh.dimensions == 2 or curl_ind == 2:
+                return d(1, 0) - d(0, 1)
+            if curl_ind == 0:
+                return d(2, 1) - d(1, 2)
+            return d(0, 2) - d(2, 0)
+
+        r = self._grid(mesh, 0, y)
+        y_theta = y[..., 1:2]
+        if cs == CoordinateSystem.SPHERICAL:
+            y_phi = y[..., 2:]
+            phi = self._grid(mesh, 2, y)
+            sin_phi, cos_phi = torch.sin(phi), torch.cos(phi)
+            if curl_ind == 0:
+                return (
+                    d(1, 2) + (cos_phi * y_theta - d(2, 1)) / sin_phi
+                ) / r
+            if curl_ind == 1:
+                return d(2, 0) + (y_phi - d(0, 2)) / r
+            return -d(1, 0) + (d(0, 1) / sin_phi - y_theta) / r
+
+        # polar / cylindrical
+        if cs == CoordinateSystem.POLAR or curl_ind == 2:
+            return d(1, 0) + (y_theta - d(0, 1)) / r
         if curl_ind == 0:
-            return d(2, 1) - d(1, 2)
+            return d(2, 1) / r - d(1, 2)
         return d(0, 2) - d(2, 0)
 
     def laplacian(
@@ -344,21 +426,46 @@ class NumericalDifferentiator:
     ) -> torch.Tensor:
         """The element-wise scalar Laplacian of y."""
         self._check_shape(y, mesh)
-        _require_cartesian(mesh)
         bcs = self._normalize_constraints(
             derivative_boundary_constraints, mesh.dimensions
         )
-        return sum(
-            self._second_derivative(
-                y,
-                mesh.d_x[axis],
-                mesh.d_x[axis],
-                _dim(axis, mesh.dimensions),
-                _dim(axis, mesh.dimensions),
-                bcs[axis],
+
+        def d1(axis: int) -> torch.Tensor:
+            return self._derivative(
+                y, mesh.d_x[axis], _dim(axis, mesh.dimensions), bcs[axis]
             )
-            for axis in range(mesh.dimensions)
-        )
+
+        def d2(axis: int) -> torch.Tensor:
+            dim = _dim(axis, mesh.dimensions)
+            return self._second_derivative(
+                y, mesh.d_x[axis], mesh.d_x[axis], dim, dim, bcs[axis]
+            )
+
+        cs = mesh.coordinate_system_type
+        if cs == CoordinateSystem.CARTESIAN:
+            return sum(d2(axis) for axis in range(mesh.dimensions))
+
+        r = self._grid(mesh, 0, y)
+        if cs == CoordinateSystem.SPHERICAL:
+            phi = self._grid(mesh, 2, y)
+            sin_phi, cos_phi = torch.sin(phi), torch.cos(phi)
+            return (
+                d2(0)
+                + (
+                    2.0 * d1(0)
+                    + (
+                        d2(2)
+                        + (cos_phi * d1(2) + d2(1) / sin_phi) / sin_phi
+                    )
+                    / r
+                )
+                / r
+            )
+
+        laplacian = d2(0) + (d2(1) / r + d1(0)) / r
+        if cs == CoordinateSystem.POLAR:
+            return laplacian
+        return laplacian + d2(2)
 
     def vector_laplacian(
         self,
@@ -367,8 +474,12 @@ class NumericalDifferentiator:
         vector_laplacian_ind: int,
         derivative_boundary_constraints=None,
     ) -> torch.Tensor:
-        """One component of the vector Laplacian of the vector field y
-        (the component's scalar Laplacian on Cartesian meshes)."""
+        """One component of the vector Laplacian of the vector field y.
+
+        In spherical coordinates the components are assigned as the JAX
+        package assigns them (r, azimuthal theta, polar phi at indices 0,
+        1, 2), not with the cyclic shift of PararealML's own
+        (numerical_differentiator.py:773-841 there)."""
         self._check_vector_field(y, mesh)
         if not 0 <= vector_laplacian_ind < mesh.dimensions:
             raise ValueError(
@@ -379,20 +490,54 @@ class NumericalDifferentiator:
         bcs = self._normalize_constraints(
             derivative_boundary_constraints, mesh.dimensions
         )
-        component_slice = slice(
-            vector_laplacian_ind, vector_laplacian_ind + 1
-        )
-        return self.laplacian(
+        ind = vector_laplacian_ind
+        component_slice = slice(ind, ind + 1)
+        laplacian = self.laplacian(
             y[..., component_slice],
             mesh,
             slice_all_constraint_pairs(bcs, component_slice),
         )
 
+        cs = mesh.coordinate_system_type
+        if cs == CoordinateSystem.CARTESIAN:
+            return laplacian
+
+        def d(comp: int, axis: int) -> torch.Tensor:
+            return self._component_derivative(y, mesh, bcs, comp, axis)
+
+        r = self._grid(mesh, 0, y)
+        r_sqr = r**2
+        y_r = y[..., :1]
+        y_theta = y[..., 1:2]
+
+        if cs == CoordinateSystem.SPHERICAL:
+            phi = self._grid(mesh, 2, y)
+            sin_phi, cos_phi = torch.sin(phi), torch.cos(phi)
+            y_phi = y[..., 2:]
+            if ind == 0:
+                return laplacian - 2.0 * (
+                    y_r + d(2, 2) + (cos_phi * y_phi + d(1, 1)) / sin_phi
+                ) / r_sqr
+            if ind == 1:
+                return laplacian + 2.0 * (
+                    d(0, 1) + (cos_phi * d(2, 1) - y_theta / 2.0) / sin_phi
+                ) / (sin_phi * r_sqr)
+            return laplacian + 2.0 * (
+                d(0, 2) - (y_phi / 2.0 + cos_phi * d(1, 1)) / sin_phi**2
+            ) / r_sqr
+
+        # polar / cylindrical
+        if ind == 0:
+            return laplacian - (y_r + 2.0 * d(1, 1)) / r_sqr
+        if ind == 1:
+            return laplacian - (y_theta - 2.0 * d(0, 1)) / r_sqr
+        return laplacian
+
     def anti_laplacian(self, laplacian, mesh, y_constraints, *args, **kw):
         """Inverts the scalar Laplacian (not ported yet)."""
         raise NotImplementedError(
             "the anti-Laplacian (Jacobi and BiCGStab) is not ported to "
-            f"PyTorch yet ({_NOT_PORTED_SLICE})"
+            "PyTorch yet (ROADMAP.md, Queue 1, slice 6e)"
         )
 
     def _component_derivative(self, y, mesh, bcs, comp: int, axis: int):
@@ -507,5 +652,5 @@ class FivePointCentralDifferenceMethod(NumericalDifferentiator):
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
             "the five-point central difference method is not ported to "
-            f"PyTorch yet ({_NOT_PORTED_SLICE})"
+            "PyTorch yet (ROADMAP.md, Queue 1, slice 6f)"
         )

@@ -8,7 +8,7 @@ RK4. Both callbacks are parameterized by the stage offset fraction (0.0,
 ``y_constraint_function(offset) -> Optional[Constraint]`` — as in the
 JAX package.
 
-Not ported yet (ROADMAP.md, Queue 1, slice 6): the implicit backward
+Not ported yet (ROADMAP.md, Queue 1, slice 6f): the implicit backward
 Euler and Crank-Nicolson methods.
 """
 
@@ -106,7 +106,7 @@ class ImplicitMethod(NumericalIntegrator):
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
             f"{type(self).__name__} is not ported to PyTorch yet "
-            "(ROADMAP.md, Queue 1, slice 6)"
+            "(ROADMAP.md, Queue 1, slice 6f)"
         )
 
 

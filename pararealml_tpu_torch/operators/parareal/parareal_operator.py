@@ -541,8 +541,11 @@ class PararealOperator(TorchOperator):
     def _packed_fine_kernels(self, cp, n: int, fine_steps: int, dtype):
         """``(ends, trajectory)`` of the batched kernels over the ``n``
         slices (K4) for the fine operator, or None when they do not apply
-        (a fine operator without fused kernels, a problem family they do
-        not cover, fewer than two slices, a dtype other than float32)."""
+        (a fine operator without fused kernels, a problem family or mesh
+        they do not cover, fewer than two slices, a dtype other than
+        float32). The trajectory rounds its frames to the fine operator's
+        ``kernel_traj_dtype``, as the JAX package's final expansion does
+        (its ``parareal_operator.py:801-814``)."""
         from pararealml_tpu_torch.ops.packed_system import (
             build_packed_system_rk4_ends,
             build_packed_system_rk4_trajectory,
@@ -559,7 +562,11 @@ class PararealOperator(TorchOperator):
         return (
             build_packed_system_rk4_ends(cp, self._f.d_t, fine_steps, n),
             build_packed_system_rk4_trajectory(
-                cp, self._f.d_t, fine_steps, n
+                cp,
+                self._f.d_t,
+                fine_steps,
+                n,
+                traj_dtype=getattr(self._f, "_kernel_traj_dtype", None),
             ),
         )
 

@@ -29,8 +29,15 @@ package's dispatch: the resident kernel
 (:mod:`pararealml_tpu_torch.ops.resident_diffusion`, K7) where its plan
 exists and the Dirichlet constraints lie on the faces, else the tiled
 kernel (:mod:`pararealml_tpu_torch.ops.tiled_diffusion`, K6). End states
-on such a grid stay on the generic carry-only loop, as in the JAX
-package.
+on such a grid stay on the generic carry-only loop. The JAX package does
+the same only past its VMEM cap of 504 x 512 padded cells; below it, it
+runs its end kernel K2 (ROADMAP.md, Queue 3).
+
+``kernel_storage_dtype``, ``kernel_traj_dtype`` and
+``kernel_temporal_block`` take effect where the JAX package's do: past
+that cap (:func:`past_reference_vmem`). Below it the JAX package runs its
+whole-grid kernel K1, which ignores them, so the port's K7 runs there with
+float32 frames.
 """
 
 from __future__ import annotations
@@ -50,6 +57,24 @@ from pararealml_tpu_torch.mesh import CoordinateSystem
 
 # the dynamic shared memory one CTA can opt into on Hopper (232,448 B)
 MAX_SHARED_MEMORY_BYTES = 227 * 1024
+# the JAX package's VMEM cap for its whole-grid diffusion kernels (K1-K3),
+# in padded cells (its ops/fused_diffusion.py _MAX_VMEM_CELLS): not a limit
+# of the card, but where the JAX package starts to honour the storage,
+# frame and temporal-block knobs
+REFERENCE_MAX_VMEM_CELLS = 504 * 512
+
+
+def padded_cells(height: int, width: int) -> int:
+    """The cells of an H x W grid padded to the TPU's (8, 128) tiles, as
+    the JAX package counts them for its VMEM caps."""
+    return (-(-height // 8) * 8) * (-(-width // 128) * 128)
+
+
+def past_reference_vmem(cp: ConstrainedProblem) -> bool:
+    """Whether the JAX package takes its large-grid diffusion kernels
+    (resident or tiled, which honour the storage knobs) for this
+    problem's grid, rather than its whole-grid kernel K1."""
+    return padded_cells(*cp.mesh.vertices_shape) > REFERENCE_MAX_VMEM_CELLS
 
 
 def shared_memory_bytes(height: int, width: int) -> int:
@@ -565,12 +590,16 @@ def build_fused_diffusion_rk4_trajectory(
     plan exists and the Dirichlet constraints lie on the faces, else the
     tiled kernel (K6), one launch sequence per leading index.
 
-    ``storage_dtype`` (larger grids only) selects the precision of the
-    stored trajectory and, on the tiled path, of the carried state;
-    ``traj_dtype`` and ``temporal_block`` tune the tiled path the same
-    way (frame precision and RK4 steps per tile residency). The resident
-    kernel ignores the last two, K1 all three."""
+    ``storage_dtype`` selects the precision of the stored trajectory and,
+    on the tiled path, of the carried state; ``traj_dtype`` and
+    ``temporal_block`` tune the tiled path the same way (frame precision
+    and RK4 steps per tile residency). The resident kernel ignores the
+    last two, K1 all three, and all three take effect only past the JAX
+    package's VMEM cap (:func:`past_reference_vmem`), as there."""
     height, width = cp.mesh.vertices_shape
+    if not past_reference_vmem(cp):
+        storage_dtype = traj_dtype = None
+        temporal_block = 1
     if not fits_one_block(height, width):
         from pararealml_tpu_torch.ops.resident_diffusion import (
             build_resident_diffusion_rk4_trajectory,
@@ -624,8 +653,9 @@ def build_fused_diffusion_rk4_end(
     With ``batch=B``, ``end`` maps ``(B, H, W, 1) -> (B, H, W, 1)``, one
     CTA per slice; otherwise it maps one ``(H, W, 1)`` state."""
     if not fits_one_block(*cp.mesh.vertices_shape):
-        # larger grids have no end kernel: callers take the generic
-        # carry-only loop, as in the JAX package
+        # larger grids have no end kernel here: callers take the generic
+        # carry-only loop, as the JAX package does past its VMEM cap only
+        # (below it, it runs K2; ROADMAP.md, Queue 3)
         return None
     cfg = _KernelConfig(cp, d_t, diffusion_coefficient)
     expected_lead = () if batch is None else (batch,)

@@ -1,16 +1,16 @@
 """Fused RK4 kernels for multi-component 2D systems (K5).
 
 Port of the JAX package's ``ops/fused_system.py`` for the wave, viscous
-Burgers, shallow-water and Cahn-Hilliard systems on Cartesian meshes. Its
-three Pallas TPU kernels — the trajectory, the end state (single or
-batched) and the single step — become launches of one hand-written CUDA
-kernel template for Hopper, ``csrc/fused_system.cu`` (see its header for
-the design), which the batched kernels of ``ops/packed_system.py`` (K4)
-launch too. One CTA keeps one state on-chip for all steps, so a solve reads
-the state once and writes either every step or the end state. The
-equation functors live in ``csrc/system_2d.cuh``, shared with the tiled
-kernel K8 (``ops/tiled_system.py``), which takes the grids one CTA cannot
-hold.
+Burgers, shallow-water and Cahn-Hilliard systems on Cartesian and polar
+meshes. Its three Pallas TPU kernels — the trajectory, the end state
+(single or batched) and the single step — become launches of one
+hand-written CUDA kernel template for Hopper, ``csrc/fused_system.cu``
+(see its header for the design), which the batched kernels of
+``ops/packed_system.py`` (K4) launch too. One CTA keeps one state
+on-chip for all steps, so a solve reads the state once and writes either
+every step or the end state. The equation functors live in
+``csrc/system_2d.cuh``, shared with the tiled kernel K8
+(``ops/tiled_system.py``), which takes the grids one CTA cannot hold.
 
 Each kernel has a wrapper and a plain PyTorch version beside it:
 
@@ -21,22 +21,32 @@ Each kernel has a wrapper and a plain PyTorch version beside it:
   counts its kernel launches in a plain integer attribute, ``launches``.
 - ``fused_system_rk4_{trajectory,end,step}_reference`` are the plain
   versions, following the JAX package's ``_make_rhs_builder``,
-  ``_make_step_factory`` and ``_StencilHelpers`` term for term. They run
-  on any device and in any floating-point type.
+  ``_make_step_factory`` and ``_StencilHelpers`` term for term, the polar
+  metric terms included. They run on any device and in any floating-point
+  type.
 
 States use the JAX package's layout: ``(H, W, n)``, or ``(B, H, W, n)``
 for a batch (one CTA per state).
 
 Applicability (:func:`fused_system_step_applicable` and the per-family
-gates): one of the four exact equation types on a 2D Cartesian mesh with
-static boundary conditions, solved with RK4, in float32. Where the grid's
-working set fits the 227 KB of shared memory one CTA can hold (about 74²
-for two components, 60² for three), the trajectory, end and step take K5;
-past that, the trajectory and the step take K8 where the Dirichlet
-constraints lie on the grid's faces, and the end returns ``None`` (the
-generic carry-only loop), as the JAX package's end does past VMEM. The
-JAX package's Navier-Stokes family and polar meshes are not ported yet
-(ROADMAP.md, Queue 2): those problems take the generic path.
+gates): one of the four exact equation types on a 2D Cartesian or polar
+mesh with static boundary conditions, solved with RK4, in float32. A polar
+mesh is admitted as the JAX package's ``_system_applicable`` admits it:
+away from the origin (``r_low > 0``) and within the JAX package's VMEM cap
+(:func:`fits_reference_vmem`); past that cap it takes the generic path,
+as there. Where the grid's working set fits the 227 KB of shared memory
+one CTA can hold (about 74² for two components, 60² for three), the
+trajectory, end and step take K5; past that, the trajectory and the step
+take K8 where the Dirichlet constraints lie on the grid's faces (polar
+grids a polar K8 in K5's order of operations, the port's carrier of the
+JAX package's polar K5 past one CTA), and the end returns ``None`` (the
+generic carry-only loop, which the JAX package takes past VMEM only:
+ROADMAP.md, Queue 3). The JAX package's Navier-Stokes family is not
+ported yet (ROADMAP.md, Queue 2): it takes the generic path.
+
+``kernel_storage_dtype`` takes effect where the JAX package's does: past
+its VMEM cap. Below it the JAX package runs K5, which ignores the knob,
+so the port's K8 runs there with float32 storage and returns float32.
 """
 
 from __future__ import annotations
@@ -55,9 +65,16 @@ from pararealml_tpu_torch.differential_equation import (
     WaveEquation,
 )
 from pararealml_tpu_torch.mesh import CoordinateSystem
+from pararealml_tpu_torch.ops.fused_diffusion import padded_cells
 
 # the dynamic shared memory one CTA can opt into on Hopper (232,448 B)
 MAX_SHARED_MEMORY_BYTES = 227 * 1024
+# the JAX package's VMEM budget for its whole-grid system kernel K5, in
+# padded cells times live planes (its ops/fused_system.py _fits_vmem): not
+# a limit of the card, but where the JAX package's dispatch changes (polar
+# grids past it take the generic path, Cartesian ones the tiled kernel,
+# which honours kernel_storage_dtype)
+REFERENCE_VMEM_BUDGET_CELLS = 3_000_000
 
 # the kernel templates' equation functors, by equation type (the numbers
 # of EquationId in csrc/system_2d.cuh)
@@ -70,22 +87,42 @@ _EQUATION_TYPES = (
 _EQUATION_IDS = {equation: i for i, equation in enumerate(_EQUATION_TYPES)}
 
 
-def shared_memory_bytes(height: int, width: int, n_components: int) -> int:
+def shared_memory_bytes(
+    height: int, width: int, n_components: int, polar: bool = False
+) -> int:
     """The K5 kernel's shared-memory working set for an H x W grid of
     n-component states: five sets of n float planes (state, two stage
     buffers, the RK4 accumulator and the Dirichlet values), the float
-    Neumann face vectors and the byte masks, in the order the CUDA kernel
-    carves them; the launch passes it to the kernel."""
+    Neumann face vectors, on a polar grid the H floats of 1 / r, and the
+    byte masks, in the order the CUDA kernel carves them; the launch
+    passes it to the kernel."""
     values = height * width * n_components
     faces = 2 * n_components * (height + width)
-    return 4 * (5 * values + faces) + values + faces
+    rows = height if polar else 0
+    return 4 * (5 * values + faces + rows) + values + faces
+
+
+def _is_polar(cp: ConstrainedProblem) -> bool:
+    return cp.mesh.coordinate_system_type == CoordinateSystem.POLAR
 
 
 def fits_one_block(cp: ConstrainedProblem) -> bool:
     """Whether the problem's grid fits one CTA's shared memory (K5, K4)."""
     height, width = cp.mesh.vertices_shape
     n = cp.differential_equation.y_dimension
-    return shared_memory_bytes(height, width, n) <= MAX_SHARED_MEMORY_BYTES
+    return (
+        shared_memory_bytes(height, width, n, _is_polar(cp))
+        <= MAX_SHARED_MEMORY_BYTES
+    )
+
+
+def fits_reference_vmem(cp: ConstrainedProblem) -> bool:
+    """Whether the JAX package runs its whole-grid system kernel (K5) on
+    this problem's grid (its ``_fits_vmem``)."""
+    n = cp.differential_equation.y_dimension
+    return padded_cells(*cp.mesh.vertices_shape) <= (
+        REFERENCE_VMEM_BUDGET_CELLS // (7 * n + 4)
+    )
 
 
 def _system_applicable(
@@ -105,10 +142,22 @@ def _system_applicable(
         and isinstance(integrator, RK4)
         and diff_eq.x_dimension == 2
         and cp.mesh is not None
-        and cp.mesh.coordinate_system_type == CoordinateSystem.CARTESIAN
         and cp.are_all_boundary_conditions_static
         and min(cp.mesh.vertices_shape) >= 3
     ):
+        return False
+    coordinate_system = cp.mesh.coordinate_system_type
+    if coordinate_system == CoordinateSystem.POLAR:
+        # the JAX package's polar branch: away from the origin (1 / r is
+        # infinite on an r = 0 row) and within its VMEM cap (no tiled
+        # polar kernel there); its Navier-Stokes exclusion holds through
+        # the equation types
+        if not (
+            float(cp.mesh.x_intervals[0][0]) > 0.0
+            and fits_reference_vmem(cp)
+        ):
+            return False
+    elif coordinate_system != CoordinateSystem.CARTESIAN:
         return False
     if fits_one_block(cp):
         return True
@@ -219,8 +268,9 @@ def _ghost_faces(cp: ConstrainedProblem, n: int) -> Dict[str, np.ndarray]:
 class _SystemKernelConfig:
     """Static configuration of the fused system kernels for one problem:
     grid geometry, the equation and its coefficients, the RK4 step's
-    float32 constants, and the constraint tensors (copied to each device
-    a state arrives on, once)."""
+    float32 constants, and the constraint tensors and, on a polar mesh,
+    the per-row 1 / r (made for each device and dtype a state arrives in,
+    once)."""
 
     def __init__(self, cp: ConstrainedProblem, d_t: float):
         diff_eq = cp.differential_equation
@@ -229,13 +279,13 @@ class _SystemKernelConfig:
                 f"no fused 2D system kernel for {type(diff_eq).__name__}"
             )
         mesh = cp.mesh
-        if (
-            diff_eq.x_dimension != 2
-            or mesh is None
-            or mesh.coordinate_system_type != CoordinateSystem.CARTESIAN
+        if diff_eq.x_dimension != 2 or mesh is None or (
+            mesh.coordinate_system_type
+            not in (CoordinateSystem.CARTESIAN, CoordinateSystem.POLAR)
         ):
             raise ValueError(
-                "the fused 2D system kernels take 2D Cartesian meshes only"
+                "the fused 2D system kernels take 2D Cartesian and polar "
+                "meshes only"
             )
         self.equation_type = type(diff_eq)
         self.equation = _EQUATION_IDS[self.equation_type]
@@ -269,6 +319,15 @@ class _SystemKernelConfig:
         self.inv_two_dx1 = 1.0 / (2.0 * float(d_x1))
         self.two_dx0 = 2.0 * float(d_x0)
         self.two_dx1 = 2.0 * float(d_x1)
+        # the polar metric divides by the mesh's vertex radii, the
+        # linspace(r_low, r_high, H) of the generic path, whose spacing
+        # differs from d_x0 where d_x0 does not divide the interval
+        self.polar = mesh.coordinate_system_type == CoordinateSystem.POLAR
+        r_low, r_high = (float(r) for r in mesh.x_intervals[0])
+        self.r_low = r_low
+        self.r_spacing = (
+            (r_high - r_low) / (self.height - 1) if self.height > 1 else 0.0
+        )
         self._host_constants = {
             name: torch.as_tensor(value)
             for name, value in self._constraint_arrays(cp).items()
@@ -310,11 +369,25 @@ class _SystemKernelConfig:
         )
         return (ctypes.c_float * len(values))(*values)
 
+    def inv_r(self, dtype: torch.dtype) -> torch.Tensor:
+        """1 / r of each of the H rows as the JAX kernel computes it, ``1 /
+        (r_low + r_spacing i)`` rounded in ``dtype`` after each operation
+        (in float32 bit for bit with its interpret mode), on the CPU."""
+        rows = torch.arange(self.height, dtype=dtype)
+        r_low, r_spacing = (
+            torch.tensor(value, dtype=dtype)
+            for value in (self.r_low, self.r_spacing)
+        )
+        # a correctly rounded division, computed on the CPU for every
+        # device
+        return torch.reciprocal(r_low + r_spacing * rows)
+
     def constants(
         self, device: torch.device, dtype: torch.dtype = torch.float32
     ) -> Tuple[torch.Tensor, ...]:
-        """The constraint tensors on ``device`` in kernel argument order:
-        masks as bool, values in ``dtype``."""
+        """The constraint tensors on ``device`` in kernel argument order,
+        masks as bool and values in ``dtype``, then on a polar mesh the H
+        values of 1 / r in ``dtype``."""
         key = (device, dtype)
         constants = self._constants.get(key)
         if constants is None:
@@ -325,6 +398,8 @@ class _SystemKernelConfig:
                 ).contiguous()
                 for name, value in self._host_constants.items()
             )
+            if self.polar:
+                constants += (self.inv_r(dtype).to(device),)
             self._constants[key] = constants
         return constants
 
@@ -359,17 +434,26 @@ class _SystemKernelConfig:
 
 
 class _Helpers:
-    """``_StencilHelpers`` of the JAX package (Cartesian, unpadded) over
-    ``(..., H, W)`` component planes; with ``sum_then_ghost``, the
-    Laplacian of its ``_TiledStencilHelpers`` (the two axis terms summed,
-    then the ghost rows, then the ghost columns added). ``faces`` are the
-    Neumann ghost row mask and values ``(2, n, W)`` and ghost column mask
-    and values ``(2, n, H)``."""
+    """``_StencilHelpers`` of the JAX package (unpadded) over ``(..., H,
+    W)`` component planes, with its polar metric terms where ``inv_r``
+    (the ``(H,)`` values of 1 / r) is given; with ``sum_then_ghost``
+    (Cartesian only), the Laplacian of its ``_TiledStencilHelpers`` (the
+    two axis terms summed, then the ghost rows, then the ghost columns
+    added). ``faces`` are the Neumann ghost row mask and values ``(2, n,
+    W)`` and ghost column mask and values ``(2, n, H)``."""
 
-    def __init__(self, cfg: _SystemKernelConfig, faces, sum_then_ghost=False):
+    def __init__(
+        self,
+        cfg: _SystemKernelConfig,
+        faces,
+        sum_then_ghost=False,
+        inv_r: Optional[torch.Tensor] = None,
+    ):
         self._cfg = cfg
         self._grm, self._grv, self._gcm, self._gcv = faces
         self._sum_then_ghost = sum_then_ghost
+        # a column, to scale each row of a plane
+        self._inv_r = None if inv_r is None else inv_r[:, None]
         self._shift_cache = {}
 
     def _shifts(self, state):
@@ -451,7 +535,12 @@ class _Helpers:
             return self._add_cols(lap, *self._ghost_cols(comp, state))
         d2_0 = self._add_rows(d2_0, *self._ghost_rows(comp, state))
         d2_1 = self._add_cols(d2_1, *self._ghost_cols(comp, state))
-        return d2_0 + d2_1
+        if self._inv_r is None:
+            return d2_0 + d2_1
+        # polar: d2/dr2 + (d2/dtheta2 / r + d/dr) / r in the generic
+        # operator's evaluation order
+        inv_r = self._inv_r
+        return d2_0 + (d2_1 * inv_r + self.gradient_0(comp, state)) * inv_r
 
     def gradient_0(self, comp, state):
         height = self._cfg.height
@@ -473,10 +562,11 @@ class _Helpers:
         )
 
     def gradient_1(self, comp, state):
+        """The column derivative, times 1 / r on a polar mesh."""
         width = self._cfg.width
         _, _, left, right = self._shifts(state)
         gradient = (right - left) * self._cfg.inv_two_dx1
-        return torch.cat(
+        gradient = torch.cat(
             [
                 torch.where(
                     self._gcm[0, comp], self._gcv[0, comp], gradient[..., :, 0]
@@ -490,11 +580,17 @@ class _Helpers:
             ],
             dim=-1,
         )
+        return gradient if self._inv_r is None else gradient * self._inv_r
+
+    def over_r(self, plane):
+        """``plane / r`` (polar): the shallow-water divergence's u / r."""
+        return plane * self._inv_r
 
 
 def _rhs(cfg: _SystemKernelConfig, helpers: _Helpers, y):
     """The JAX package's ``_make_rhs_builder`` over a tuple of component
-    planes (wave, Burgers and shallow water; Cartesian)."""
+    planes (wave, Burgers and shallow water; the helpers carry the polar
+    metric, and the shallow-water divergence gains u / r)."""
     if cfg.equation_type is WaveEquation:
         return (y[1], cfg.coefficient * helpers.laplacian(0, y[0]))
     if cfg.equation_type is BurgersEquation:
@@ -512,6 +608,8 @@ def _rhs(cfg: _SystemKernelConfig, helpers: _Helpers, y):
     d_w_0 = helpers.gradient_0(2, w)
     d_w_1 = helpers.gradient_1(2, w)
     div = d_u_0 + d_w_1
+    if cfg.polar:
+        div = div + helpers.over_r(u)
     r_eta = (
         -cfg.depth * div
         - eta * d_u_0
@@ -583,7 +681,9 @@ def _k5_step_reference(
     """One K5 step: the whole-grid helpers and the dense Dirichlet
     grids."""
     dir_mask, dir_vals = constants[0], constants[1]
-    helpers = _Helpers(cfg, constants[2:])
+    helpers = _Helpers(
+        cfg, constants[2:6], inv_r=constants[6] if cfg.polar else None
+    )
 
     def dirichlet(comp, plane):
         return torch.where(dir_mask[comp], dir_vals[comp], plane)
@@ -631,10 +731,10 @@ def fused_system_rk4_step_reference(
 def _configure(library: ctypes.CDLL):
     c_int, c_void_p = ctypes.c_int, ctypes.c_void_p
     library.fused_system_rk4.argtypes = (
-        [c_int, c_void_p, c_void_p]
-        + [c_int] * 5
+        [c_int, c_int, c_void_p, c_void_p]
+        + [c_int] * 6
         + [ctypes.c_size_t]
-        + [c_void_p] * 6
+        + [c_void_p] * 7
         + [ctypes.POINTER(ctypes.c_float), c_void_p]
     )
     library.fused_system_rk4.restype = c_int
@@ -663,27 +763,37 @@ def launch(
     """Launches the kernel on ``y``'s device and its current stream for a
     contiguous ``(B, H, W, n)`` float32 CUDA state (one CTA per state)
     and raises if the grid does not fit one CTA or the launch is refused.
-    The wrappers here and in ``ops/packed_system.py`` call it and count
-    their launches."""
-    shared_bytes = shared_memory_bytes(cfg.height, cfg.width, cfg.n)
+    A trajectory's frames are stored in ``out``'s dtype, float32 or
+    bfloat16. The wrappers here and in ``ops/packed_system.py`` call it
+    and count their launches."""
+    shared_bytes = shared_memory_bytes(
+        cfg.height, cfg.width, cfg.n, cfg.polar
+    )
     if shared_bytes > MAX_SHARED_MEMORY_BYTES:
         raise ValueError(
             f"a {cfg.height} x {cfg.width} grid of {cfg.n}-component "
             f"states needs {shared_bytes} bytes of shared memory, more "
             "than one CTA holds"
         )
+    frame_bfloat16 = out.dtype == torch.bfloat16
+    if out.dtype not in (torch.float32, torch.bfloat16) or (
+        frame_bfloat16 and not write_trajectory
+    ):
+        raise TypeError(f"unsupported output dtype {out.dtype}")
     library = load_kernels()
     constants = cfg.constants(y.device)
     if any(t.device != y.device for t in (out,) + constants):
         raise ValueError(
             f"the output and constraint tensors must be on {y.device}"
         )
+    inv_r = constants[6].data_ptr() if cfg.polar else None
     coefficients = cfg.coefficient_array()
     # the ctypes launch targets the current device: make it y's
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream(y.device).cuda_stream
         error = library.fused_system_rk4(
             cfg.equation,
+            int(cfg.polar),
             y.data_ptr(),
             out.data_ptr(),
             y.shape[0],
@@ -691,8 +801,10 @@ def launch(
             cfg.width,
             n_steps,
             int(write_trajectory),
+            int(frame_bfloat16),
             shared_bytes,
-            *(c.data_ptr() for c in constants),
+            *(c.data_ptr() for c in constants[:6]),
+            inv_r,
             coefficients,
             stream,
         )
@@ -703,11 +815,14 @@ def launch(
         )
 
 
-def trajectory_buffer(batch: torch.Tensor, cfg, n_steps: int):
-    """An uninitialized ``(B, n_steps, H, W, n)`` float32 output."""
+def trajectory_buffer(
+    batch: torch.Tensor, cfg, n_steps: int, dtype: torch.dtype = torch.float32
+):
+    """An uninitialized ``(B, n_steps, H, W, n)`` output of frames in
+    ``dtype``."""
     return torch.empty(
         (batch.shape[0], n_steps) + cfg.state_shape,
-        dtype=torch.float32,
+        dtype=dtype,
         device=batch.device,
     )
 
@@ -789,19 +904,31 @@ def build_fused_system_rk4_trajectory(
     trajectory kernel (one CTA per leading index) where the grid fits one
     CTA, else through the tiled kernel K8
     (``build_tiled_system_rk4_trajectory`` of
-    :mod:`pararealml_tpu_torch.ops.tiled_system`).
+    :mod:`pararealml_tpu_torch.ops.tiled_system`). A polar grid past the
+    JAX package's VMEM cap raises, as the JAX builder does.
 
-    ``storage_dtype`` (K8 only; K5 ignores it, as the JAX package's
-    VMEM-resident kernel does) selects the precision of the stored
-    trajectory and of the state carried from step to step; the trajectory
-    is returned in it."""
+    ``storage_dtype`` selects the precision of the stored trajectory and
+    of the state carried from step to step, and the trajectory is returned
+    in it, past the JAX package's VMEM cap only (:func:`fits_reference_vmem`;
+    K8 there, as the JAX package's tiled kernel). Below the cap it is
+    ignored, as the JAX package's whole-grid kernel ignores it: K5, or K8
+    past one CTA, stores float32."""
+    within_reference_vmem = fits_reference_vmem(cp)
+    if _is_polar(cp) and not within_reference_vmem:
+        raise ValueError(
+            "polar grids past the JAX package's VMEM cap take the generic "
+            "path (it has no tiled polar kernel to mirror)"
+        )
     if not fits_one_block(cp):
         from pararealml_tpu_torch.ops.tiled_system import (
             build_tiled_system_rk4_trajectory,
         )
 
         return build_tiled_system_rk4_trajectory(
-            cp, d_t, n_steps, storage_dtype=storage_dtype
+            cp,
+            d_t,
+            n_steps,
+            storage_dtype=None if within_reference_vmem else storage_dtype,
         )
     cfg = _SystemKernelConfig(cp, d_t)
 
@@ -846,7 +973,8 @@ def build_fused_system_rk4_step(cp: ConstrainedProblem, d_t: float):
     """Builds ``step(y) -> y_next`` computing one fused RK4 step, ``(...,
     H, W, n) -> (..., H, W, n)``: the K5 step kernel where the grid fits
     one CTA, else the one-step K8 trajectory (as the JAX package reaches
-    its tiled kernel through the trajectory builder)."""
+    its tiled kernel through the trajectory builder), polar grids
+    included."""
     if not fits_one_block(cp):
         trajectory = build_fused_system_rk4_trajectory(cp, d_t, 1)
 

@@ -18,11 +18,20 @@ multi-hot edge masks are not carried over.
 - ``packed_system_rk4_{ends,trajectory}_reference`` are the plain
   versions (those of K5 over the batch).
 
+The trajectory takes the JAX kernel's snapshot dtype (``traj_dtype``,
+which the JAX Parareal takes from the fine operator's
+``kernel_traj_dtype``): frames rounded to bfloat16 over the float32 state
+that the steps carry, so the rounding touches the stored frames only,
+and returned cast back to float32, as the JAX kernel returns them. The
+CUDA kernel rounds in its store and writes bfloat16 frames.
+
 Shapes are the JAX package's: ``(B, H, W, n) -> (B, H, W, n)`` and
 ``(B, H, W, n) -> (B, n_steps, H, W, n)``.
 
 Applicability (:func:`packed_system_applicable`): K5's gate for one of
-its four families (Cartesian, static boundary conditions, RK4, float32),
+its four families on a Cartesian mesh (the JAX package's packed kernels
+are Cartesian only; polar Parareal's fine ends take the batched K5 end),
+static boundary conditions, RK4, float32,
 a grid that fits one CTA's shared memory (past it the K5 gate admits the
 tiled kernel K8, which has no batched ends; the JAX package's packed
 kernels have a VMEM budget instead) and a batch of at least two slices.
@@ -38,6 +47,7 @@ from typing import Optional
 import torch
 
 from pararealml_tpu_torch.constrained_problem import ConstrainedProblem
+from pararealml_tpu_torch.mesh import CoordinateSystem
 from pararealml_tpu_torch.ops.fused_system import (
     _SystemKernelConfig,
     fused_system_rk4_end_reference,
@@ -61,9 +71,20 @@ def packed_system_applicable(
     states of that dtype)."""
     return (
         batch >= 2
+        and cp.mesh is not None
+        and cp.mesh.coordinate_system_type == CoordinateSystem.CARTESIAN
         and fused_system_step_applicable(cp, integrator, dtype)
         and fits_one_block(cp)
     )
+
+
+def _snapshot_dtype(traj_dtype) -> torch.dtype:
+    traj_dtype = traj_dtype or torch.float32
+    if traj_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(
+            f"traj_dtype must be float32 or bfloat16, got {traj_dtype}"
+        )
+    return traj_dtype
 
 
 def packed_system_rk4_ends_reference(
@@ -74,11 +95,15 @@ def packed_system_rk4_ends_reference(
 
 
 def packed_system_rk4_trajectory_reference(
-    y: torch.Tensor, cfg: _SystemKernelConfig, n_steps: int
+    y: torch.Tensor, cfg: _SystemKernelConfig, n_steps: int, traj_dtype=None
 ) -> torch.Tensor:
     """Plain version of the K4 trajectory: ``(B, H, W, n) -> (B,
-    n_steps, H, W, n)``."""
-    return fused_system_rk4_trajectory_reference(y, cfg, n_steps)
+    n_steps, H, W, n)``, each frame rounded to ``traj_dtype`` and cast
+    back to ``y``'s dtype."""
+    frames = fused_system_rk4_trajectory_reference(y, cfg, n_steps)
+    if _snapshot_dtype(traj_dtype) == torch.float32:
+        return frames
+    return frames.to(traj_dtype).to(y.dtype)
 
 
 def packed_system_rk4_ends(
@@ -97,18 +122,22 @@ def packed_system_rk4_ends(
 
 
 def packed_system_rk4_trajectory(
-    y: torch.Tensor, cfg: _SystemKernelConfig, n_steps: int
+    y: torch.Tensor, cfg: _SystemKernelConfig, n_steps: int, traj_dtype=None
 ) -> torch.Tensor:
     """K4 trajectory: every state of the batch advanced by ``n_steps``
     RK4 steps with every step stored, ``(B, H, W, n) -> (B, n_steps, H,
-    W, n)`` (one CTA per slice)."""
+    W, n)`` in float32 (one CTA per slice); with ``traj_dtype`` bfloat16
+    the kernel stores bfloat16 frames, returned cast back to float32."""
     cfg.check_state(y, batched=True)
+    snapshot_dtype = _snapshot_dtype(traj_dtype)
     if y.device.type == "cpu":
-        return packed_system_rk4_trajectory_reference(y, cfg, n_steps)
-    out = trajectory_buffer(y, cfg, n_steps)
+        return packed_system_rk4_trajectory_reference(
+            y, cfg, n_steps, snapshot_dtype
+        )
+    out = trajectory_buffer(y, cfg, n_steps, snapshot_dtype)
     launch(y, out, cfg, n_steps, write_trajectory=True)
     packed_system_rk4_trajectory.launches += 1
-    return out
+    return out.to(torch.float32)
 
 
 packed_system_rk4_ends.launches = 0
@@ -137,16 +166,22 @@ def build_packed_system_rk4_ends(
 
 
 def build_packed_system_rk4_trajectory(
-    cp: ConstrainedProblem, d_t: float, n_steps: int, batch: int
+    cp: ConstrainedProblem,
+    d_t: float,
+    n_steps: int,
+    batch: int,
+    traj_dtype=None,
 ):
     """Builds ``trajectory(y) -> ys`` computing all ``batch`` stacked
     sub-trajectories ``(B, H, W, n) -> (B, n_steps, H, W, n)`` in one
-    launch."""
+    launch, the frames rounded to ``traj_dtype`` (float32 when None or
+    float32; bfloat16) and returned in float32."""
     cfg = _SystemKernelConfig(cp, d_t)
+    snapshot_dtype = _snapshot_dtype(traj_dtype)
 
     def trajectory(y: torch.Tensor) -> torch.Tensor:
         return packed_system_rk4_trajectory(
-            _batch(y, cfg, batch), cfg, n_steps
+            _batch(y, cfg, batch), cfg, n_steps, snapshot_dtype
         )
 
     return trajectory

@@ -21,6 +21,13 @@ term before the sum), with cells outside the grid at zero and the
 Dirichlet override applied as face vectors, rows then columns. So K8 and
 K5 agree to float32 rounding, not bit for bit.
 
+Polar meshes: the JAX package has no tiled polar kernel. It runs its
+polar K5 up to its VMEM cap (51 x 201 x 2 for the polar wave example), so
+the port carries polar K5 past one CTA on K8 with K5's helpers: the
+per-row 1 / r metric terms and K5's order of operations (each axis's
+ghost added first). Polar K8 is bit for bit with polar K5 where the
+Dirichlet faces coincide.
+
 ``storage_dtype=torch.bfloat16`` keeps the frames, and so the state
 carried from step to step, in bfloat16 (rounded once a step, to nearest
 even, as the JAX kernel's tiles are on store) while all arithmetic stays
@@ -35,17 +42,20 @@ per step).
 
 The tile plan is the port's own (:func:`make_system_tile_plan`): 2D tiles
 taken by grid size, halo and ``n`` from a table of the tilings measured
-fastest on the card, with no cap on the grid's height or width and no
-sublane alignment. For RK4 (halo 4) it picks 12 x 32 cells of shared
-memory (4 x 24 advanced) at 101² x 2 (130 blocks) and at 101 x 51 x 3
-(78 blocks), and 32 x 96 (24 x 88 advanced) at 641² x 2 (216 blocks);
-for Cahn-Hilliard (halo 1) 8 x 32 (6 x 30 advanced) at 101² x 2 (68
-blocks).
+fastest on the card (polar grids too: the polar wave example's 51 x 201
+measured fastest on the same tiles), with no cap on the grid's height or
+width and no sublane alignment. For RK4 (halo 4) it picks 12 x 32 cells
+of shared memory (4 x 24 advanced) at 101² x 2 (130 blocks), at 101 x 51
+x 3 (78 blocks) and at the polar 51 x 201 x 2 (117 blocks), and 32 x 96
+(24 x 88 advanced) at 641² x 2 (216 blocks); for Cahn-Hilliard (halo 1)
+8 x 32 (6 x 30 advanced) at 101² x 2 (68 blocks).
 
 Applicability (:func:`tiled_system_applicable`): a grid with a tile plan
 whose Dirichlet constraints lie on its faces, for any of the four
 families; the JAX package sends shallow water past VMEM to its generic
 path on a TPU v5e timing, the port sends it to K8 (ROADMAP.md, Queue 3).
+The coordinate system is gated by
+:func:`pararealml_tpu_torch.ops.fused_system.fused_system_step_applicable`.
 """
 
 from __future__ import annotations
@@ -82,7 +92,10 @@ CAHN_HILLIARD_HALO = 1
 # grid side measured (square grids), the rows and columns of the fastest
 # of 50-60 tilings there (tools/k8_tile_sweep.py, on an NVIDIA H100 80GB
 # HBM3 at 700 W). A grid takes the entry whose side is nearest to its
-# own (the square root of its cells) on a log scale.
+# own (the square root of its cells) on a log scale. Polar grids take the
+# same rows: the sweep's polar wave case at the example's 51 x 201 (side
+# 101) ran fastest of 55 tilings on the 101 row's 12 x 32 (6.614 us a
+# step; 16 x 32 6.641).
 _MEASURED_TILES = {
     (RK4_HALO, 2): (
         (101, 12, 32),
@@ -250,12 +263,15 @@ def _tiled_step_reference(
     faces: Tuple[torch.Tensor, ...],
 ) -> torch.Tensor:
     """One K8 step over ``(..., H, W, n)`` float32 states: the tiled
-    helpers' Laplacian and the Dirichlet face vectors, rows then
-    columns (``make_dirichlet`` of the JAX kernel). Out-of-grid
-    neighbours read as zero."""
+    helpers' Laplacian (on a polar mesh K5's helpers with 1 / r) and the
+    Dirichlet face vectors, rows then columns (``make_dirichlet`` of the
+    JAX kernel). Out-of-grid neighbours read as zero."""
     height, width = cfg.height, cfg.width
-    drm, drv, grm, grv, dcm, dcv, gcm, gcv = faces
-    helpers = _Helpers(cfg, (grm, grv, gcm, gcv), sum_then_ghost=True)
+    drm, drv, grm, grv, dcm, dcv, gcm, gcv = faces[:8]
+    if cfg.polar:
+        helpers = _Helpers(cfg, (grm, grv, gcm, gcv), inv_r=faces[8])
+    else:
+        helpers = _Helpers(cfg, (grm, grv, gcm, gcv), sum_then_ghost=True)
 
     def dirichlet(comp, plane):
         plane = torch.cat(
@@ -329,10 +345,10 @@ def tiled_system_rk4_trajectory_reference(
 def _configure(library: ctypes.CDLL):
     c_int, c_void_p = ctypes.c_int, ctypes.c_void_p
     library.tiled_system_rk4.argtypes = (
-        [c_int, c_void_p, c_void_p]
+        [c_int, c_int, c_void_p, c_void_p]
         + [c_int] * 8
         + [ctypes.c_size_t]
-        + [c_void_p] * 8
+        + [c_void_p] * 9
         + [ctypes.POINTER(ctypes.c_float), c_void_p]
     )
     library.tiled_system_rk4.restype = c_int
@@ -397,6 +413,7 @@ def tiled_system_rk4_trajectory(
         stream = torch.cuda.current_stream(y.device).cuda_stream
         error = library.tiled_system_rk4(
             cfg.equation,
+            int(cfg.polar),
             batch.data_ptr(),
             out.data_ptr(),
             batch.shape[0],
@@ -408,7 +425,8 @@ def tiled_system_rk4_trajectory(
             plan.cols,
             plan.halo,
             plan.shared_bytes,
-            *(c.data_ptr() for c in constants),
+            *(c.data_ptr() for c in constants[:8]),
+            constants[8].data_ptr() if cfg.polar else None,
             cfg.coefficient_array(),
             stream,
         )
@@ -439,7 +457,8 @@ def build_tiled_system_rk4_trajectory(
     system steps through K8: ``(..., H, W, n) -> (..., n_steps, H, W, n)``
     in ``storage_dtype``, one launch sequence over every leading index.
     Matches :func:`pararealml_tpu_torch.ops.fused_system.
-    build_fused_system_rk4_trajectory`'s K5 to float32 rounding.
+    build_fused_system_rk4_trajectory`'s K5 to float32 rounding (on a
+    polar mesh bit for bit).
 
     ``storage_dtype`` selects the precision of the stored trajectory and
     of the state carried from step to step (``torch.float32`` by default;

@@ -274,6 +274,31 @@ def system_problem(
     return module["ConstrainedProblem"](equation(module), mesh, bcs)
 
 
+def polar_problem(module, family, faces="neumann"):
+    """A problem of one of the system kernels' families on the JAX tests'
+    polar mesh (tests/test_fused_system.py ``_polar_cp``: r in [2.5, 7.5]
+    at 0.25, theta in [0, 2 pi] at pi / 20, 21 x 41). ``faces``:
+    ``"neumann"`` is Neumann 0.05 on every face, ``"dirichlet"``
+    Dirichlet 0.1 on the r faces and Neumann 0.05 on the theta faces."""
+    equation, n = FAMILIES_2D[family]
+    mesh = module["Mesh"](
+        [(2.5, 7.5), (0.0, 2 * np.pi)],
+        [0.25, np.pi / 20.0],
+        module["CoordinateSystem"].POLAR,
+    )
+    neumann = module["NeumannBoundaryCondition"](
+        lambda x, t: np.full((len(x), n), 0.05), is_static=True
+    )
+    if faces == "dirichlet":
+        dirichlet = module["DirichletBoundaryCondition"](
+            lambda x, t: np.full((len(x), n), 0.1), is_static=True
+        )
+        bcs = [(dirichlet, dirichlet), (neumann, neumann)]
+    else:
+        bcs = [(neumann, neumann)] * 2
+    return module["ConstrainedProblem"](equation(module), mesh, bcs)
+
+
 def states_2d(shape, n, batch=None, seed=0):
     """Smooth O(1) float32 states of a 2D grid from a seed: per state and
     component, an offset and one low Fourier mode (noise would make the
@@ -768,3 +793,68 @@ def test_cuda_tiled_system_raises_instead_of_falling_back(cuda_device):
         tiled_system.tiled_system_rk4_trajectory(
             torch.zeros((17, 33, 4), device=cuda_device)[..., ::2], cfg, 2
         )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", sorted(FAMILIES_2D))
+def test_cuda_polar_system_kernels_match_plain_versions(family, cuda_device):
+    """Polar K5 (trajectory, B = 4 end, step over 200 steps) and polar K8
+    (a batch of two, float32 and bfloat16 storage, on its plan's tiles and
+    on small ones) against their plain versions on the JAX tests' 21 x 41
+    polar mesh, with Dirichlet r faces, and polar K8 against polar K5:
+    the same operations in the same order, so the same frames."""
+    cp = polar_problem(vars(torch_pkg), family, "dirichlet")
+    shape = cp.mesh.vertices_shape
+    cfg = fused_system._SystemKernelConfig(cp, 1e-3)
+    y = torch.as_tensor(states_2d(shape, cfg.n), device=cuda_device)
+    ys = torch.as_tensor(
+        states_2d(shape, cfg.n, batch=4, seed=1), device=cuda_device
+    )
+    for wrapper, args in (
+        (fused_system.fused_system_rk4_trajectory, (y, cfg, 200)),
+        (fused_system.fused_system_rk4_end, (ys, cfg, 200)),
+        (fused_system.fused_system_rk4_step, (ys, cfg)),
+    ):
+        plain = getattr(fused_system, f"{wrapper.__name__}_reference")
+        _assert_matches(wrapper(*args), plain(*args))
+    tcfg = tiled_system._TiledSystemConfig(cp, 1e-3)
+    pair = ys[:2].contiguous()
+    small = tcfg.plan._replace(
+        rows=2 * tcfg.halo + 3, cols=2 * tcfg.halo + 5
+    )
+    for storage_dtype in (torch.float32, torch.bfloat16):
+        expected = tiled_system.tiled_system_rk4_trajectory_reference(
+            pair, tcfg, 12, storage_dtype
+        )
+        for plan in (None, small):
+            _assert_matches(
+                tiled_system.tiled_system_rk4_trajectory(
+                    pair, tcfg, 12, storage_dtype, plan=plan
+                ),
+                expected,
+            )
+    k5 = fused_system.fused_system_rk4_trajectory(pair, cfg, 12)
+    k8 = tiled_system.tiled_system_rk4_trajectory(pair, tcfg, 12)
+    _assert_matches(k8, k5)
+
+
+@pytest.mark.cuda
+def test_cuda_k4_trajectory_rounds_frames_to_bfloat16(cuda_device):
+    """K4's trajectory with bfloat16 frames against its plain version: each
+    frame the float32 frame rounded once, returned in float32."""
+    cp = system_problem(vars(torch_pkg), "burgers", "dirichlet", (21, 23))
+    cfg = fused_system._SystemKernelConfig(cp, 1e-3)
+    ys = torch.as_tensor(
+        states_2d((21, 23), 2, batch=4, seed=2), device=cuda_device
+    )
+    rounded = packed_system.packed_system_rk4_trajectory(
+        ys, cfg, 200, torch.bfloat16
+    )
+    _assert_matches(
+        rounded,
+        packed_system.packed_system_rk4_trajectory_reference(
+            ys, cfg, 200, torch.bfloat16
+        ),
+    )
+    exact = packed_system.packed_system_rk4_trajectory(ys, cfg, 200)
+    assert torch.equal(rounded, exact.to(torch.bfloat16).float())

@@ -143,17 +143,39 @@ OPERATORS = {
 }
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_operator_references():
+    """Every entry of ``OPERATORS`` through the JAX package's
+    differentiator on one seeded field, under one ``jax.jit`` compilation
+    (eager JAX would compile each of their many small operations on its
+    own), shared by the parametrised cases below: name -> array."""
+    import jax
+
+    jax_cp = _vector_field_problem(vars(jax_pkg))
+    bcs = jax_cp.static_boundary_vertex_constraints.d_y
+    names = sorted(OPERATORS)
+
+    @jax.jit
+    def evaluate(y):
+        return tuple(
+            OPERATORS[name](
+                jax_fdm.ThreePointCentralDifferenceMethod(),
+                y,
+                jax_cp.mesh,
+                bcs,
+            )
+            for name in names
+        )
+
+    y = np.random.default_rng(1).standard_normal((9, 9, 2))
+    return dict(zip(names, (np.asarray(value) for value in evaluate(y))))
+
+
 @pytest.mark.parametrize("operator", sorted(OPERATORS))
 def test_cartesian_differential_operators_match_jax(operator):
-    jax_cp = _vector_field_problem(vars(jax_pkg))
     torch_cp = _vector_field_problem(vars(torch_pkg))
     y = np.random.default_rng(1).standard_normal((9, 9, 2))
-    expected = OPERATORS[operator](
-        jax_fdm.ThreePointCentralDifferenceMethod(),
-        y,
-        jax_cp.mesh,
-        jax_cp.static_boundary_vertex_constraints.d_y,
-    )
+    expected = _jax_operator_references()[operator]
     torch_y = torch.as_tensor(y)
     differentiator = torch_fdm.ThreePointCentralDifferenceMethod()
     bcs = torch_cp.static_boundary_vertex_constraints.d_y

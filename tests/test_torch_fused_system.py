@@ -201,18 +201,25 @@ def test_applicability_matches_jax_on_burgers(kind, x64_off):
 
 
 def test_families_not_ported_yet_take_the_generic_path(x64_off):
-    """A deliberate difference: the JAX kernels cover Navier-Stokes and
-    polar meshes too; the port's gates send them to the generic path until
-    they are ported (ROADMAP.md, Queue 2)."""
+    """A deliberate difference: the JAX kernels cover Navier-Stokes too;
+    the port's gates send it to the generic path until it is ported
+    (ROADMAP.md, Queue 2). Polar meshes take K5 in both packages, and the
+    batched K4 in neither (the JAX package's packed kernels are
+    Cartesian)."""
     jax_problems = _other_families(jax_pkg)
     torch_problems = _other_families(torch_pkg)
     for name, torch_cp in torch_problems.items():
         assert jax_fused.fused_system_step_applicable(
             jax_problems[name], JaxRK4()
         )
-        assert not torch_fused.fused_system_step_applicable(torch_cp, RK4())
+        assert torch_fused.fused_system_step_applicable(
+            torch_cp, RK4()
+        ) == (name == "polar_wave")
         assert not torch_packed.packed_system_applicable(
             torch_cp, RK4(), 4
+        )
+        assert not jax_packed.packed_system_applicable(
+            jax_problems[name], JaxRK4(), 4
         )
 
 

@@ -11,6 +11,10 @@
   generic path to 1e-10 with the same iteration count, and in float32
   through the batched kernels' plain versions against the JAX package's
   float32 run.
+- A fine operator's ``kernel_traj_dtype=bfloat16`` rounding the frames
+  of the batched final expansion (K4) in both packages (8 slices on the
+  9 x 9 Burgers problem; the JAX package's packed kernels in interpret
+  mode).
 - The default device (the CUDA card), and the port solving both slices
   in a process where JAX, flax, scikit-learn and msgpack cannot be
   imported."""
@@ -256,6 +260,90 @@ def test_burgers_ml_parareal_float32_route_matches_jax(monkeypatch):
         jax.config.update("jax_enable_x64", True)
     scale = float(np.abs(expected).max())
     assert float(np.abs(actual - expected).max()) <= 1e-4 * scale
+
+
+def test_kernel_traj_dtype_rounds_the_k4_frames_under_parareal(monkeypatch):
+    """A fine operator's ``kernel_traj_dtype=bfloat16`` reaches the batched
+    trajectory (K4) of Parareal's final expansion in both packages: each
+    frame is rounded to bfloat16 over the float32 state the steps carry,
+    then shifted onto its slice's corrected end border. 8 slices of 4 fine
+    steps on the 9 x 9 Burgers problem, float32, the coarse operators on
+    the generic path; the JAX package runs its packed kernels in interpret
+    mode on one of the suite's eight devices (the port runs on one). The
+    two agree to bfloat16 rounding (2^-8 of the largest value: a frame
+    can round to either neighbour where the float32 states differ in
+    their last bit), and the port's frames moved from its unrounded run.
+    Before, the port dropped the knob and returned the unrounded frames,
+    3e-3 of max|y| away."""
+    import jax.numpy as jnp
+
+    traj_dtypes = []
+    wrapper = packed_system.packed_system_rk4_trajectory
+
+    def spy(y, cfg, n_steps, traj_dtype=None):
+        traj_dtypes.append(traj_dtype)
+        return wrapper(y, cfg, n_steps, traj_dtype)
+
+    monkeypatch.setattr(packed_system, "packed_system_rk4_trajectory", spy)
+    ivp = burgers_problem(vars(torch_pkg), extent=2.0, t_end=0.08)
+
+    def torch_solve(traj_dtype):
+        def fdm(d_t, **kwargs):
+            return FDMOperator(
+                RK4(),
+                ThreePointCentralDifferenceMethod(),
+                d_t,
+                device="cpu",
+                dtype=torch.float32,
+                **kwargs,
+            )
+
+        return (
+            PararealOperator(
+                fdm(2.5e-3, kernel_traj_dtype=traj_dtype),
+                fdm(1e-2, fused_kernels=False),
+                1e-4,
+                num_time_slices=8,
+            )
+            .solve(ivp)
+            .discrete_y()
+        )
+
+    def jax_solve(traj_dtype):
+        def fdm(d_t, **kwargs):
+            return JaxFDMOperator(JaxRK4(), JaxThreePoint(), d_t, **kwargs)
+
+        return (
+            JaxPararealOperator(
+                fdm(2.5e-3, kernel_traj_dtype=traj_dtype),
+                fdm(1e-2, fused_kernels=False),
+                1e-4,
+                num_time_slices=8,
+                # one device, as the port: its 8 slices batch through the
+                # packed kernels
+                devices=jax.devices()[:1],
+            )
+            .solve(burgers_problem(vars(jax_pkg), extent=2.0, t_end=0.08))
+            .discrete_y()
+        )
+
+    rounded, exact = torch_solve(torch.bfloat16), torch_solve(None)
+    assert traj_dtypes == [torch.bfloat16, torch.float32]
+    jax.config.update("jax_enable_x64", False)
+    try:
+        expected = jax_solve(jnp.bfloat16)
+    finally:
+        jax.config.update("jax_enable_x64", True)
+    assert rounded.shape == expected.shape == (32, 9, 9, 2)
+    scale = float(np.abs(expected).max())
+    difference = float(np.abs(rounded - expected).max())
+    assert difference <= 2.0**-8 * scale
+    # here no frame's float32 value straddles a bfloat16 rounding
+    # boundary, so the two round alike and agree to float32 rounding,
+    # while the rounding itself moved the frames by 3e-3 of max|y|
+    assert difference <= 1e-5 * scale
+    moved = float(np.abs(rounded - exact).max())
+    assert 1e-3 * scale < moved <= 2.0**-8 * scale
 
 
 # the 3D slice: Burgers (Re = 50) on a 7^3 grid, 4 slices of 0.2 over

@@ -87,11 +87,18 @@ def x64_off():
 def small_caps(monkeypatch):
     """Shrinks the port's one-CTA gate to 16 x 16 grids and the resident
     plan to four blocks of 16 KB, so that small grids take the large-grid
-    routes: 33 x 33 still plans as resident, 81 x 81 only as tiled."""
+    routes: 33 x 33 still plans as resident, 81 x 81 only as tiled; and
+    the JAX package's VMEM cap, past which alone the storage, frame and
+    temporal-block knobs take effect (as there), to 16 x 16 grids too."""
     monkeypatch.setattr(
         torch_fused,
         "MAX_SHARED_MEMORY_BYTES",
         torch_fused.shared_memory_bytes(16, 16),
+    )
+    monkeypatch.setattr(
+        torch_fused,
+        "REFERENCE_MAX_VMEM_CELLS",
+        torch_fused.padded_cells(16, 16),
     )
     monkeypatch.setattr(torch_resident, "_MAX_BLOCKS", 4)
     monkeypatch.setattr(torch_resident, "_MAX_SHARED_MEMORY_BYTES", 16 * 1024)

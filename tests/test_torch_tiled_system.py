@@ -2,8 +2,9 @@
 CUDA kernel K8) held against the JAX package: against its Pallas kernel in
 interpret mode in float32, and against its generic path in float64 for
 the four families; the port's own tile plan, the build function's errors,
-the dispatch rule against the JAX package's gates, and the
-``FDMOperator`` dispatch to K8 past one CTA. The CUDA kernel itself is
+the dispatch rule against the JAX package's gates, the ``FDMOperator``
+dispatch to K8 past one CTA, and ``kernel_storage_dtype`` taking effect
+only past the JAX package's VMEM cap, as there. The CUDA kernel itself is
 held against its plain version in tests/test_torch_cuda.py.
 
 Tolerances: float32 results agree to 1e-5 relative to the largest value
@@ -380,11 +381,17 @@ def test_dispatch_rule_matches_jax(x64_off):
 
 
 def test_fdm_operator_dispatches_past_one_cta_to_k8(monkeypatch):
-    """With the one-CTA limit patched down, a 17 x 33 Burgers problem's
-    trajectory and step go through the K8 wrapper (its plain version
-    here), in the stored dtype, and agree with the generic path to float32
-    rounding; its ends take the generic carry-only loop."""
+    """With the one-CTA limit and the JAX package's VMEM cap (past which
+    alone ``kernel_storage_dtype`` takes effect, as there) patched down, a
+    17 x 33 Burgers problem's trajectory and step go through the K8
+    wrapper (its plain version here), in the stored dtype, and agree with
+    the generic path to float32 rounding; its ends take the generic
+    carry-only loop."""
     monkeypatch.setattr(torch_fused, "MAX_SHARED_MEMORY_BYTES", 1024)
+    # 24 x 128 padded cells of two components: past a cap of 1,024
+    monkeypatch.setattr(
+        torch_fused, "REFERENCE_VMEM_BUDGET_CELLS", 1024 * (7 * 2 + 4)
+    )
     calls = []
     wrapper = torch_tiled.tiled_system_rk4_trajectory
 
@@ -429,3 +436,54 @@ def test_fdm_operator_dispatches_past_one_cta_to_k8(monkeypatch):
         ends(torch.stack([y, y]), 0.0)[1].numpy(), generic[-1].numpy()
     )
     assert not calls
+
+
+def _wave_example(module):
+    """examples/wave_2d_fdm.py's problem (101², Dirichlet 0 on every face,
+    a Gaussian of amplitude 3 in y0) and its float32 initial state."""
+    zero = module.DirichletBoundaryCondition(
+        lambda x, t: np.zeros((len(x), 2)), is_static=True
+    )
+    cp = module.ConstrainedProblem(
+        module.WaveEquation(2),
+        module.Mesh([(-5.0, 5.0), (-5.0, 5.0)], [0.1, 0.1]),
+        [(zero, zero)] * 2,
+    )
+    ic = module.GaussianInitialCondition(
+        cp, [(np.array([0.0, 2.5]), 0.1 * np.eye(2))] * 2, [3.0, 0.0]
+    )
+    return cp, np.asarray(ic.discrete_y_0(True), np.float32)
+
+
+def test_storage_dtype_takes_effect_only_past_the_jax_vmem_cap(x64_off):
+    """``kernel_storage_dtype=bfloat16`` on the wave example's 101²
+    problem, which lies within the JAX package's VMEM cap: its K5 ignores
+    the knob, and so does the port's K8 there. Both packages return
+    float32, equal to float32 rounding (1e-5 of the largest value) over 3
+    steps of 0.01 (before, the port returned bfloat16, 2.9e-2 away).
+    Past the cap the knob takes effect in both
+    (``test_fdm_operator_dispatches_past_one_cta_to_k8``)."""
+    import jax.numpy as jnp
+
+    jax_cp, y = _wave_example(jax_pkg)
+    torch_cp, _ = _wave_example(torch_pkg)
+    assert not torch_fused.fits_one_block(torch_cp)
+    assert torch_fused.fits_reference_vmem(torch_cp)
+    interval = (0.0, 0.03)
+    jax_fn, _ = JaxFDMOperator(
+        JaxRK4(), JaxThreePoint(), 0.01, kernel_storage_dtype=jnp.bfloat16
+    ).trajectory_function(jax_cp, interval)
+    expected = jax_fn(jnp.asarray(y), 0.0)
+    torch_fn, _ = FDMOperator(
+        RK4(),
+        ThreePointCentralDifferenceMethod(),
+        0.01,
+        kernel_storage_dtype=torch.bfloat16,
+        device="cpu",
+        dtype=torch.float32,
+    ).trajectory_function(torch_cp, interval)
+    assert torch_fn.fused
+    actual = torch_fn(torch.as_tensor(y), 0.0)
+    assert expected.dtype == jnp.float32
+    assert actual.dtype == torch.float32
+    assert _relative_error(actual, expected) <= F32_TOL
