@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port's main paths on one NVIDIA GPU.
 
-Drives ``pararealml_tpu_torch`` — never JAX — through its six ported
+Drives ``pararealml_tpu_torch`` — never JAX — through its seven ported
 paths at full size, each through the entry points a user calls.
 
 The diffusion_2d Parareal flagship (21 x 21 grid, Dirichlet 1.5 on the x
@@ -172,6 +172,30 @@ spherical problem), on the card by default:
     float32 frames;
 24. profiles each run as in phase 4 (the spherical one over its first 20
     steps).
+
+The Navier-Stokes path (``examples/navier_stokes_fdm.py`` unchanged: Re
+5000 on 101 x 81, Dirichlet vorticity and stream function on every face,
+d_t 0.05 to T = 100), on the card by default:
+
+25. holds the Navier-Stokes kernel (trajectory, B = 4 end, step) against
+    its plain version on the JAX tests' 17 x 17 problem (one block, 20
+    steps) and over the example's first 50 steps, the first step's
+    700-sweep solve included, at every cluster size whose slabs fit a
+    block (2, 4 and 8), with the Jacobi sweeps each counted;
+26. runs the path with every counter at 0: the example's
+    ``FDMOperator.solve`` (2,000 steps, one launch, no generic step
+    built) and an 8-slice Parareal over its first 3.2 time units (coarse
+    d_t 4 x the fine, fine ends through the batched end kernel); it
+    checks the first 100 frames against the generic path in float32 on
+    the card (``NS_HEAD_TOL``), prints the last frame's difference from
+    the generic path run over the whole horizon (not held: float32
+    rounding in two orders over 2,000 solves), and Parareal's iterations
+    and difference from the fine solve;
+27. times the solve, Parareal, the generic path over 20 steps (scaled,
+    and labelled so) and each kernel function at its path's shapes
+    beside its plain version (once) and its bound from the sweeps it
+    counted;
+28. profiles the solve and Parareal as in phase 4.
 
 Run it from the repository root with no arguments: ``python3
 chip_smoke.py``. It needs one CUDA card and ``nvcc`` and exits non-zero,
@@ -423,6 +447,49 @@ POLAR_KERNELS = (
     (TILED_SYSTEM_KERNEL, "tiled_system", TILED_SYSTEM_SOURCE,
      "pararealml_tpu/ops/fused_system.py:822"),
 )
+
+# the Navier-Stokes path: examples/navier_stokes_fdm.py unchanged (Re 5000
+# on [-2.5, 2.5] x [0, 4] at 0.05: 101 x 81 x 4; Dirichlet w and psi on
+# every face; d_t 0.05 to T = 100: 2,000 steps; the stream function's
+# Jacobi solve to 1e-3), one launch of the Navier-Stokes kernel in a
+# thread block cluster
+NS_T_END = 100.0
+NS_D_T = 0.05
+# the kernel against its plain version on the JAX tests' 17 x 17 problem
+# (Re 500, one block) and over the example's first steps (the first step's
+# long solve included) at every cluster size whose slabs fit a block
+NS_SMALL_STEPS = 20
+NS_PREFIX_STEPS = 50
+# the solve's first frames against the generic path in float32 on the card
+NS_HEAD_STEPS = 100
+NS_HEAD_TOL = 1e-4
+# Parareal over a shortened horizon of the example: 8 slices of 0.4
+# (8 fine steps, 2 coarse steps of 4 x the fine d_t)
+NS_PARAREAL_T_END = 3.2
+NS_PARAREAL_SLICES = 8
+NS_PARAREAL_COARSE_D_T = 0.2
+NS_PARAREAL_TOLERANCE = 1e-3
+# the generic path timed over this many steps from frame NS_HEAD_STEPS,
+# and the trajectory kernel beside its plain version over this many (the
+# plain version takes 20 ms a step: the solve itself is timed whole)
+NS_GENERIC_TIMED_STEPS = 20
+NS_TIMED_STEPS = 200
+NS_SOURCE = "pararealml_tpu_torch/csrc/fused_navier_stokes.cu"
+NS_KERNELS = (
+    ("fused_navier_stokes_rk4_trajectory",
+     "pararealml_tpu/ops/fused_system.py:822"),
+    ("fused_navier_stokes_rk4_end", "pararealml_tpu/ops/fused_system.py:964"),
+    ("fused_navier_stokes_rk4_step",
+     "pararealml_tpu/ops/fused_system.py:1098"),
+)
+# float32 operations a cell, counted from the kernel's arithmetic as
+# FLOPS_PER_CELL_STEP below: a step's four vorticity right-hand sides (a
+# Laplacian and its coefficient 9, two gradient terms 4 each: 17), w's 13
+# stage updates and the two velocities (5): 4 x 17 + 13 + 5 = 86; a Jacobi
+# sweep's Laplacian (8), -w, the difference, the division and the sum
+# (4), and the norm's difference, square and sum (3): 15
+NS_FLOPS_PER_CELL_STEP = 86
+NS_FLOPS_PER_CELL_SWEEP = 15
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, at the 700 W
 # power limit): HBM bytes per second and float32 operations per second
@@ -3413,6 +3480,428 @@ def polar_phases(
     return entries
 
 
+def navier_stokes_bound(cells, batch, n_steps, sweeps, trajectory):
+    """The bound of a Navier-Stokes kernel run: each state and the
+    Dirichlet grids (a float value and a byte mask a value) read once,
+    every frame or the end state written once, against the operations of
+    its steps and of the Jacobi sweeps it counted (``sweeps``, summed over
+    the batch)."""
+    values = 4 * cells
+    read = 4 * batch * values + 5 * values
+    written = 4 * batch * values * (n_steps if trajectory else 1)
+    flops = cells * (
+        NS_FLOPS_PER_CELL_STEP * batch * n_steps
+        + NS_FLOPS_PER_CELL_SWEEP * sweeps
+    )
+    return bound(read + written, flops)
+
+
+def navier_stokes_problem(prml, example=True):
+    """examples/navier_stokes_fdm.py's problem: Navier-Stokes at Re 5000
+    on [-2.5, 2.5] x [0, 4] at (0.05, 0.05) (101 x 81 x 4), from rest to
+    ``NS_T_END``; or, without ``example``, the constrained problem of
+    tests/test_fused_system.py's ``_navier_stokes_cp`` (Re 500 on [-1, 1]
+    x [0, 2] at 0.125: 17 x 17). Both have Dirichlet (w, psi) = (1, 0.1)
+    on the lower axis-0 face and (0, 0) on the others, the velocities
+    unconstrained."""
+    def dirichlet(w, psi):
+        return prml.DirichletBoundaryCondition(
+            prml.vectorize_bc_function(lambda x, t: [w, psi, None, None]),
+            is_static=True,
+        )
+
+    re, mesh = (
+        (5000.0, prml.Mesh([(-2.5, 2.5), (0.0, 4.0)], [0.05, 0.05]))
+        if example
+        else (500.0, prml.Mesh([(-1.0, 1.0), (0.0, 2.0)], [0.125, 0.125]))
+    )
+    cp = prml.ConstrainedProblem(
+        prml.NavierStokesEquation(re),
+        mesh,
+        [
+            (dirichlet(1.0, 0.1), dirichlet(0.0, 0.0)),
+            (dirichlet(0.0, 0.0), dirichlet(0.0, 0.0)),
+        ],
+    )
+    if not example:
+        return cp
+    ic = prml.ContinuousInitialCondition(
+        cp, lambda x: np.zeros((len(x), 4))
+    )
+    return prml.InitialValueProblem(cp, (0.0, NS_T_END), ic)
+
+
+def navier_stokes_phases(
+    torch, prml, device, card, cuda_ms, once_ms, device_busy_ms
+):
+    """Phases 25-28: the Navier-Stokes path (K5's Navier-Stokes family in
+    a thread block cluster, the generic anti-Laplacian as its oracle).
+    Returns its entries of the JSON line. ``cuda_ms``, ``once_ms`` and
+    ``device_busy_ms`` are the timing and profiling functions."""
+    from pararealml_tpu_torch.operators.fdm import (
+        RK4,
+        FDMOperator,
+        ThreePointCentralDifferenceMethod,
+    )
+    from pararealml_tpu_torch.operators.parareal import PararealOperator
+    from pararealml_tpu_torch.ops import fused_navier_stokes as ns
+
+    wrappers = {name: getattr(ns, name) for name, _ in NS_KERNELS}
+    plains = {name: getattr(ns, f"{name}_reference") for name, _ in NS_KERNELS}
+    errors = {name: 0.0 for name in wrappers}
+    sweep_totals = {}
+    started = time.perf_counter()
+
+    def check(name, what, args, cluster_size=None):
+        """Runs the kernel and its plain version on ``args``; returns
+        max|d|/max|y| and both sweep totals."""
+        kernel = wrappers[name](*args, cluster_size=cluster_size)
+        plain, plain_sweeps = plains[name](*args)
+        torch.cuda.synchronize()
+        assert kernel.shape == plain.shape, (name, what)
+        abs_err = float((kernel - plain).abs().max())
+        rel_err = abs_err / float(plain.abs().max())
+        errors[name] = max(errors[name], abs_err)
+        sweeps = (
+            int(wrappers[name].sweeps.sum()),
+            int(plain_sweeps.sum()),
+        )
+        if not rel_err <= KERNEL_REL_TOL:
+            raise AssertionError(
+                f"{name} disagrees with its plain version ({what}): "
+                f"{rel_err:.3e}"
+            )
+        return rel_err, sweeps
+
+    # -- phase 25: the kernel against its plain version --------------------
+    small = ns._NavierStokesConfig(
+        navier_stokes_problem(prml, example=False), NS_D_T
+    )
+    assert small.plan.cluster_size == 1
+    rng = np.random.default_rng(0)
+    y = torch.as_tensor(
+        rng.uniform(-0.5, 0.5, (17, 17, 4)), dtype=torch.float32,
+        device=device,
+    )
+    ys = torch.as_tensor(
+        rng.uniform(-0.5, 0.5, (4, 17, 17, 4)), dtype=torch.float32,
+        device=device,
+    )
+    for name, args in (
+        ("fused_navier_stokes_rk4_trajectory", (y, small, NS_SMALL_STEPS)),
+        ("fused_navier_stokes_rk4_end", (ys, small, NS_SMALL_STEPS)),
+        ("fused_navier_stokes_rk4_step", (ys, small)),
+    ):
+        rel, sweeps = check(name, "17 x 17", args, 1)
+        log(
+            f"kernels: navier-stokes 17 x 17 (Re 500), one block: {name} "
+            f"max|d|/max|y| = {rel:.3e}; Jacobi sweeps kernel {sweeps[0]}, "
+            f"plain {sweeps[1]}"
+        )
+        assert sweeps[0] == sweeps[1], (name, sweeps)
+
+    ivp = navier_stokes_problem(prml)
+    cp = ivp.constrained_problem
+    cfg = ns._NavierStokesConfig(cp, NS_D_T)
+    assert (cfg.height, cfg.width) == (101, 81)
+    y_0 = torch.as_tensor(
+        ivp.initial_condition.discrete_y_0(True), dtype=torch.float32,
+        device=device,
+    )
+    prefix, prefix_sweeps = ns.fused_navier_stokes_rk4_trajectory_reference(
+        y_0, cfg, NS_PREFIX_STEPS
+    )
+    # the end's batch: four states of the prefix, each its own solve
+    stride = NS_PREFIX_STEPS // 5
+    batch = prefix[stride - 1::stride][:4].contiguous()
+    sizes = [
+        size
+        for size in ns.CLUSTER_SIZES
+        if ns.cluster_plan_2d(101, 81, size).fits
+    ]
+    assert sizes[0] == cfg.plan.cluster_size
+    for size in sizes:
+        kernel = wrappers["fused_navier_stokes_rk4_trajectory"](
+            y_0, cfg, NS_PREFIX_STEPS, cluster_size=size
+        )
+        torch.cuda.synchronize()
+        abs_err = float((kernel - prefix).abs().max())
+        rel = abs_err / float(prefix.abs().max())
+        kernel_sweeps = int(ns.fused_navier_stokes_rk4_trajectory.sweeps)
+        errors["fused_navier_stokes_rk4_trajectory"] = max(
+            errors["fused_navier_stokes_rk4_trajectory"], abs_err
+        )
+        rel_end, end_sweeps = check(
+            "fused_navier_stokes_rk4_end", "101 x 81, B=4",
+            (batch, cfg, NS_PREFIX_STEPS), size,
+        )
+        rel_step, step_sweeps = check(
+            "fused_navier_stokes_rk4_step", "101 x 81, B=4", (batch, cfg),
+            size,
+        )
+        log(
+            f"kernels: navier-stokes 101 x 81 (the example), a cluster of "
+            f"{size} blocks ({ns.cluster_plan_2d(101, 81, size).slab} rows "
+            f"a block): trajectory over {NS_PREFIX_STEPS} steps from rest "
+            f"max|d|/max|y| = {rel:.3e}, Jacobi sweeps kernel "
+            f"{kernel_sweeps}, plain {int(prefix_sweeps)}; B=4 end over "
+            f"{NS_PREFIX_STEPS} steps {rel_end:.3e}, sweeps {end_sweeps[0]} "
+            f"and {end_sweeps[1]}; B=4 step {rel_step:.3e}, sweeps "
+            f"{step_sweeps[0]} and {step_sweeps[1]}"
+        )
+        assert rel <= KERNEL_REL_TOL, (size, rel)
+    sweep_totals["prefix"] = (kernel_sweeps, int(prefix_sweeps))
+    del prefix, kernel
+    log(f"phase navier-stokes kernels: ok "
+        f"({time.perf_counter() - started:.1f} s)")
+
+    # -- phase 26: the path at full width, counted -------------------------
+    def fdm(d_t, **kwargs):
+        # no device argument: the entry points run on the card
+        return FDMOperator(
+            RK4(), ThreePointCentralDifferenceMethod(), d_t, **kwargs
+        )
+
+    parareal_ivp = prml.InitialValueProblem(
+        cp, (0.0, NS_PARAREAL_T_END), ivp.initial_condition
+    )
+    parareal = PararealOperator(
+        fdm(NS_D_T),
+        fdm(NS_PARAREAL_COARSE_D_T),
+        NS_PARAREAL_TOLERANCE,
+        num_time_slices=NS_PARAREAL_SLICES,
+    )
+    generic_builds = []
+    build_step = FDMOperator._build_step_function
+
+    def counting_build(self, cp, allow_fused=True, dtype=None):
+        if not allow_fused:
+            generic_builds.append(cp)
+        return build_step(self, cp, allow_fused, dtype)
+
+    # the batch of each end kernel launch, seen where the wrappers launch
+    end_batches = []
+    run = ns._run
+
+    def recording_run(wrapper, y, *args):
+        if wrapper is wrappers["fused_navier_stokes_rk4_end"]:
+            end_batches.append(int(y.shape[0]) if y.ndim == 4 else 1)
+        return run(wrapper, y, *args)
+
+    for wrapper in wrappers.values():
+        wrapper.launches = 0
+    FDMOperator._build_step_function = counting_build
+    ns._run = recording_run
+    try:
+        solution = fdm(NS_D_T).solve(ivp).discrete_y()
+        solve_launches = {
+            name: w.launches for name, w in wrappers.items()
+        }
+        solve_sweeps = int(wrappers[NS_KERNELS[0][0]].sweeps)
+        solve_builds = len(generic_builds)
+        parareal_ys = parareal.solve(parareal_ivp).discrete_y()
+    finally:
+        FDMOperator._build_step_function = build_step
+        ns._run = run
+    launches = {name: w.launches for name, w in wrappers.items()}
+    log(
+        f"navier-stokes main-path launches: {launches} (the solve alone: "
+        f"{solve_launches}; the end kernel's batches {end_batches}; the "
+        f"solve built the generic step {solve_builds} times, Parareal "
+        f"{len(generic_builds) - solve_builds}); the solve's Jacobi sweeps "
+        f"{solve_sweeps}"
+    )
+    assert solve_builds == 0, "the example took the generic path"
+    assert solve_launches == dict(
+        {name: 0 for name in wrappers}, fused_navier_stokes_rk4_trajectory=1
+    ), solve_launches
+    assert launches["fused_navier_stokes_rk4_end"] >= 1
+    assert NS_PARAREAL_SLICES in end_batches, end_batches
+    steps = round(NS_T_END / NS_D_T)
+    assert solution.shape == (steps, 101, 81, 4), solution.shape
+    assert np.isfinite(solution).all()
+    frames = torch.as_tensor(solution[:NS_HEAD_STEPS], device=device)
+    generic_fn, _ = fdm(NS_D_T, fused_kernels=False).trajectory_function(
+        cp, (0.0, NS_HEAD_STEPS * NS_D_T)
+    )
+    assert not generic_fn.fused
+    generic = generic_fn(y_0, 0.0).double()
+    head_rel = float((frames - generic).abs().max()) / float(
+        generic.abs().max()
+    )
+    log(
+        f"phase navier-stokes path: the example through FDMOperator.solve "
+        f"({steps} steps, one kernel launch, {solve_sweeps} Jacobi sweeps): "
+        f"first {NS_HEAD_STEPS} frames against the generic path (float32, "
+        f"on the card) max|d|/max|y| = {head_rel:.3e} (limit "
+        f"{NS_HEAD_TOL:g}; max|y| {float(generic.abs().max()):.4f})"
+    )
+    assert head_rel <= NS_HEAD_TOL, head_rel
+    del frames, generic
+    # the last frame against the generic path over the whole horizon
+    # (recorded, not held: float32 rounding in two orders and the Jacobi
+    # stopping points they move, over 2,000 steps)
+    last_started = time.perf_counter()
+    generic_end = fdm(NS_D_T, fused_kernels=False).ends_function(
+        cp, ivp.t_interval
+    )
+    last_generic = generic_end(y_0, 0.0).double()
+    torch.cuda.synchronize()
+    last = torch.as_tensor(solution[-1], device=device)
+    last_rel = float((last - last_generic).abs().max()) / float(
+        last_generic.abs().max()
+    )
+    log(
+        f"phase navier-stokes path: frame {steps} against the generic path "
+        f"run over the whole horizon (float32, eager, "
+        f"{time.perf_counter() - last_started:.1f} s): max|d|/max|y| = "
+        f"{last_rel:.3e} (recorded, not held; max|y| "
+        f"{float(last_generic.abs().max()):.4f})"
+    )
+    fine_steps = round(NS_PARAREAL_T_END / NS_D_T)
+    parareal_diff = float(np.abs(parareal_ys - solution[:fine_steps]).max())
+    log(
+        f"phase navier-stokes parareal: {NS_PARAREAL_SLICES} slices over "
+        f"T = {NS_PARAREAL_T_END} (fine d_t {NS_D_T}, coarse "
+        f"{NS_PARAREAL_COARSE_D_T}), {parareal.last_iterations} "
+        f"iterations, max diff vs the fine solve {parareal_diff:.3e} "
+        f"(tolerance {NS_PARAREAL_TOLERANCE:g})"
+    )
+    assert parareal_ys.shape == (fine_steps, 101, 81, 4)
+    assert np.isfinite(parareal_ys).all()
+    log(f"phase navier-stokes path: ok "
+        f"({time.perf_counter() - started:.1f} s)")
+
+    # -- phase 27: times ---------------------------------------------------
+    solve_fn, _ = fdm(NS_D_T).trajectory_function(cp, ivp.t_interval)
+    parareal_fn, _ = parareal.trajectory_function(
+        cp, parareal_ivp.t_interval
+    )
+    runs = {
+        "navier-stokes solve": lambda: solve_fn(y_0),
+        "navier-stokes parareal": lambda: parareal_fn(y_0),
+    }
+    run_ms = {
+        label: cuda_ms(torch, run, reps=3) for label, run in runs.items()
+    }
+    cells = cfg.height * cfg.width
+    solve_bound = navier_stokes_bound(cells, 1, steps, solve_sweeps, True)
+    mid = torch.as_tensor(
+        solution[NS_HEAD_STEPS - 1], dtype=torch.float32, device=device
+    )
+    generic_steps_fn, _ = fdm(
+        NS_D_T, fused_kernels=False
+    ).trajectory_function(cp, (0.0, NS_GENERIC_TIMED_STEPS * NS_D_T))
+    generic_ms = cuda_ms(torch, lambda: generic_steps_fn(mid, 0.0), reps=3)
+    scaled_ms = generic_ms * steps / NS_GENERIC_TIMED_STEPS
+    solve_ms = run_ms["navier-stokes solve"]
+    log(
+        f"time: navier-stokes 101 x 81 x 4 solve, one cluster of "
+        f"{cfg.plan.cluster_size} blocks, {steps} steps: {solve_ms:.3f} ms "
+        f"({1e3 * solve_ms / steps:.3f} us a step, "
+        f"{1e3 * solve_ms / (solve_sweeps + 4 * steps):.3f} us a sweep or "
+        f"stage), bound {solve_bound[0] * 1e3:.3f} us ({solve_bound[1]}, "
+        f"from {solve_sweeps} counted sweeps); generic path "
+        f"{NS_GENERIC_TIMED_STEPS} steps from frame {NS_HEAD_STEPS} "
+        f"{generic_ms:.3f} ms, scaled to {steps} steps {scaled_ms:.3f} ms "
+        f"(scaled, not run): {scaled_ms / solve_ms:.3f}x [{card}]"
+    )
+    log(
+        f"time: navier-stokes parareal, {NS_PARAREAL_SLICES} slices over T "
+        f"= {NS_PARAREAL_T_END}: {run_ms['navier-stokes parareal']:.3f} ms, "
+        f"{parareal.last_iterations} iterations [{card}]"
+    )
+    # each kernel function at its path's shapes beside its plain version
+    # (one run) and its bound from this run's counted sweeps
+    slice_steps = fine_steps // NS_PARAREAL_SLICES
+    slice_starts = torch.as_tensor(
+        np.concatenate(
+            [
+                ivp.initial_condition.discrete_y_0(True)[None],
+                solution[slice_steps - 1: fine_steps - 1: slice_steps],
+            ]
+        ),
+        dtype=torch.float32,
+        device=device,
+    ).contiguous()
+    timings = [
+        ("fused_navier_stokes_rk4_trajectory",
+         f"101 x 81 x 4, {NS_TIMED_STEPS} steps from frame {NS_HEAD_STEPS}",
+         (mid, cfg, NS_TIMED_STEPS), True, True),
+        ("fused_navier_stokes_rk4_end",
+         f"B={NS_PARAREAL_SLICES} x 101 x 81 x 4, {slice_steps} steps "
+         "(one iteration's fine ends)",
+         (slice_starts, cfg, slice_steps), False, True),
+        ("fused_navier_stokes_rk4_step",
+         f"101 x 81 x 4, 1 step from frame {NS_HEAD_STEPS}",
+         (mid, cfg), True, False),
+    ]
+    entries = []
+    for (name, what, args, trajectory, on_path), (_, replaces) in zip(
+        timings, NS_KERNELS
+    ):
+        kernel_ms = cuda_ms(torch, lambda: wrappers[name](*args), reps=3)
+        kernel_sweeps = int(wrappers[name].sweeps.sum())
+        outputs = []
+        plain_ms = once_ms(torch, lambda: outputs.append(plains[name](*args)))
+        plain, plain_sweeps = outputs[0]
+        kernel = wrappers[name](*args)
+        torch.cuda.synchronize()
+        abs_err = float((kernel - plain).abs().max())
+        rel_err = abs_err / float(plain.abs().max())
+        errors[name] = max(errors[name], abs_err)
+        assert rel_err <= KERNEL_REL_TOL, (name, rel_err)
+        del outputs, plain, kernel
+        state_batch = args[0].shape[0] if args[0].ndim == 4 else 1
+        n_steps = args[2] if len(args) > 2 else 1
+        bound_ms, bound_by = navier_stokes_bound(
+            cells, state_batch, n_steps, kernel_sweeps, trajectory
+        )
+        log(
+            f"time: {name} ({what}): kernel {kernel_ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms (one run), bound {bound_ms * 1e3:.3f} us "
+            f"({bound_by}, from {kernel_sweeps} counted sweeps; the plain "
+            f"version counted {int(plain_sweeps.sum())}); against the plain "
+            f"version there max|d|/max|y| = {rel_err:.3e} [{card}]"
+        )
+        entries.append(
+            {
+                "name": name,
+                "route": "cuda",
+                "source": NS_SOURCE,
+                "replaces": replaces,
+                "on_path": on_path,
+                "launches": launches[name] if on_path else 0,
+                "max_abs_err": errors[name],
+                "ms": kernel_ms,
+                "plain_ms": plain_ms,
+                "bound_ms": bound_ms,
+                "bound_us": bound_ms * 1e3,
+                "bound_by": bound_by,
+                "library_ms": None,
+                "sweeps": kernel_sweeps,
+                "plain_sweeps": int(plain_sweeps.sum()),
+                "timed": what,
+            }
+        )
+    torch.cuda.empty_cache()
+    log(f"phase navier-stokes times: ok "
+        f"({time.perf_counter() - started:.1f} s)")
+
+    # -- phase 28: device busy time and idle share (torch.profiler) --------
+    for label, run in runs.items():
+        busy_ms, top = device_busy_ms(torch, run, reps=1)
+        if busy_ms is None:
+            log(f"profile: {label}: not measured (no device events)")
+            continue
+        log(
+            f"profile: {label}: device busy {busy_ms:.3f} ms of "
+            f"{run_ms[label]:.3f} ms, idle share "
+            f"{1.0 - busy_ms / run_ms[label]:.3f}; top: {top} [{card}]"
+        )
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -3446,6 +3935,7 @@ def main() -> int:
     )
 
     from pararealml_tpu_torch.ops import (
+        fused_navier_stokes,
         fused_system,
         fused_system_3d,
         tiled_diffusion,
@@ -3460,6 +3950,7 @@ def main() -> int:
         "tiled_diffusion",
         "fused_system_3d",
         "tiled_system",
+        "fused_navier_stokes",
     )
     cuda_library.build_libraries(sources)
     fd.load_kernels()
@@ -3467,6 +3958,7 @@ def main() -> int:
     tiled_diffusion.load_kernels()
     fused_system_3d.load_kernels()
     tiled_system.load_kernels()
+    fused_navier_stokes.load_kernels()
     log(
         f"kernel libraries ready in {time.perf_counter() - start:.2f} s "
         f"(nvcc, in parallel: {cuda_library.build_seconds})"
@@ -3724,6 +4216,7 @@ def main() -> int:
         ("13-16", three_d_phases, (cuda_ms, once_ms, device_busy_ms)),
         ("17-20", system_2d_phases, (cuda_ms, once_ms, device_busy_ms)),
         ("21-24", polar_phases, (cuda_ms, once_ms, device_busy_ms)),
+        ("25-28", navier_stokes_phases, (cuda_ms, once_ms, device_busy_ms)),
     ):
         kernels += phases(torch, prml, device, card, *timing)
         log(f"phases {label} done at {time.perf_counter() - start:.1f} s")

@@ -14,8 +14,9 @@ ML operator with the closed-form state-operator regressors
 (``operators.ml.supervised``), flax-format checkpoints and seeding
 (``utils``), and the Burgers kernels; slices 6a-6c, the large-grid, 3D
 and 2D-system kernels; slice 6d, the polar, cylindrical and spherical
-metric terms of the FDM operator and the polar kernels. Plots are not
-ported yet (slice 8), so this root does not export them.
+metric terms of the FDM operator and the polar kernels; slice 6e, the
+anti-Laplacian and the Navier-Stokes kernel. Plots are not ported yet
+(slice 8), so this root does not export them.
 """
 
 from pararealml_tpu_torch.boundary_condition import (

@@ -10,27 +10,31 @@ chosen when it is built:
 - where the fused kernels apply (RK4, float32 states, static boundary
   conditions: 2D diffusion or convection-diffusion on a Cartesian mesh;
   2D wave, Burgers, shallow water or Cahn-Hilliard on a Cartesian or a
-  polar mesh; 3D diffusion, convection-diffusion, wave, Burgers or
+  polar mesh; 2D Navier-Stokes on a Cartesian mesh with the Jacobi
+  anti-Laplacian; 3D diffusion, convection-diffusion, wave, Burgers or
   Cahn-Hilliard on a Cartesian mesh), the hand-written
   CUDA kernels of :mod:`pararealml_tpu_torch.ops.fused_diffusion` (K1-K3
   on grids that fit one CTA's shared memory, the resident K7 and the
   tiled K6 trajectory kernels on larger diffusion grids),
   :mod:`pararealml_tpu_torch.ops.fused_system` (K5 on grids that fit one
   CTA, the tiled K8 trajectory and step past it),
+  :mod:`pararealml_tpu_torch.ops.fused_navier_stokes` (K5's
+  Navier-Stokes family, grids that fit one thread block cluster),
   :mod:`pararealml_tpu_torch.ops.fused_system_3d` (K9, volumes that fit
   one thread block cluster), or their plain PyTorch versions for CPU
   tensors;
 - otherwise a Python loop over the generic step, which evaluates the
   symbolic right-hand side with stencils on tensors, with the metric
-  terms of polar, cylindrical and spherical meshes.
+  terms of polar, cylindrical and spherical meshes, and solves
+  ``Y_LAPLACIAN`` left-hand sides with the differentiator's
+  anti-Laplacian (Jacobi or BiCGStab).
 
 Static boundary conditions become constant dense constraint tensors. All
 functions accept states with leading batch axes.
 
 Not ported yet: dynamic boundary conditions and the ``indexed_*``
-functions that serve them (ROADMAP.md, Queue 1, slice 1b), spatial
-domain decomposition (slice 7), and equations with ``Y_LAPLACIAN``
-left-hand sides, which need the anti-Laplacian (slice 6e).
+functions that serve them (ROADMAP.md, Queue 1, slice 1b) and spatial
+domain decomposition (slice 7).
 """
 
 from __future__ import annotations
@@ -57,6 +61,7 @@ from pararealml_tpu_torch.operators.fdm.fdm_symbol_mapper import (
 )
 from pararealml_tpu_torch.operators.fdm.numerical_differentiator import (
     NumericalDifferentiator,
+    slice_all_constraint_pairs,
     slice_constraint,
 )
 from pararealml_tpu_torch.operators.fdm.numerical_integrator import (
@@ -297,6 +302,27 @@ class FDMOperator(TorchOperator):
         ends.batched = False
         return ends
 
+    def _fused_anti_laplacian_compatible(self, cp) -> bool:
+        """The fused Navier-Stokes kernel runs the stream-function
+        anti-Laplacian as an in-kernel Jacobi loop; when the
+        differentiator is configured for another scheme, problems with a
+        ``Y_LAPLACIAN`` equation stay on the generic path so that the
+        requested solver is the one used."""
+        if self._differentiator.anti_laplacian_method == "jacobi":
+            return True
+        eq_sys = cp.differential_equation.symbolic_equation_system
+        return not eq_sys.equation_indices_by_type(LHS.Y_LAPLACIAN)
+
+    def _anti_laplacian(self) -> dict:
+        """The differentiator's anti-Laplacian settings, as the fused
+        system builders take them."""
+        return dict(
+            anti_laplacian_tol=self._differentiator._tol,
+            anti_laplacian_max_iterations=(
+                self._differentiator._max_iterations
+            ),
+        )
+
     def _build_fused_end_fn(
         self, cp, steps: int, batch: Optional[int], dtype: torch.dtype
     ) -> Optional[Callable]:
@@ -322,9 +348,11 @@ class FDMOperator(TorchOperator):
             return build_fused_diffusion_rk4_end(
                 cp, self._d_t, steps, batch=batch
             )
-        if fused_system_step_applicable(cp, self._integrator, dtype):
+        if fused_system_step_applicable(
+            cp, self._integrator, dtype
+        ) and self._fused_anti_laplacian_compatible(cp):
             return build_fused_system_rk4_end(
-                cp, self._d_t, steps, batch=batch
+                cp, self._d_t, steps, batch=batch, **self._anti_laplacian()
             )
         if fused_system_3d_step_applicable(cp, self._integrator, dtype):
             return build_fused_system_3d_rk4_end(
@@ -404,7 +432,9 @@ class FDMOperator(TorchOperator):
                 ),
                 temporal_block=temporal_block,
             )
-        if fused_system_step_applicable(cp, self._integrator, dtype):
+        if fused_system_step_applicable(
+            cp, self._integrator, dtype
+        ) and self._fused_anti_laplacian_compatible(cp):
             # kernel_traj_dtype and kernel_temporal_block do not reach
             # the system kernels, and kernel_storage_dtype only past the
             # JAX package's VMEM cap, as in the JAX package
@@ -413,6 +443,7 @@ class FDMOperator(TorchOperator):
                 self._d_t,
                 steps,
                 storage_dtype=self._kernel_storage_dtype,
+                **self._anti_laplacian(),
             )
         if fused_system_3d_step_applicable(cp, self._integrator, dtype):
             return build_fused_system_3d_rk4_trajectory(cp, self._d_t, steps)
@@ -522,8 +553,12 @@ class FDMOperator(TorchOperator):
             fused_step = None
             if fused_diffusion_step_applicable(cp, self._integrator, dtype):
                 fused_step = build_fused_diffusion_rk4_step(cp, self._d_t)
-            elif fused_system_step_applicable(cp, self._integrator, dtype):
-                fused_step = build_fused_system_rk4_step(cp, self._d_t)
+            elif fused_system_step_applicable(
+                cp, self._integrator, dtype
+            ) and self._fused_anti_laplacian_compatible(cp):
+                fused_step = build_fused_system_rk4_step(
+                    cp, self._d_t, **self._anti_laplacian()
+                )
             elif fused_system_3d_step_applicable(cp, self._integrator, dtype):
                 fused_step = build_fused_system_3d_rk4_step(cp, self._d_t)
             if fused_step is not None:
@@ -535,18 +570,15 @@ class FDMOperator(TorchOperator):
 
         diff_eq = cp.differential_equation
         eq_sys = diff_eq.symbolic_equation_system
-        if eq_sys.equation_indices_by_type(LHS.Y_LAPLACIAN):
-            raise NotImplementedError(
-                "equations with Y_LAPLACIAN left-hand sides need the "
-                "anti-Laplacian, which is not ported to PyTorch yet "
-                "(ROADMAP.md, Queue 1, slice 6e)"
-            )
         mapper = FDMSymbolMapper(cp, self._differentiator)
 
         d_y_over_d_t_indices = list(
             eq_sys.equation_indices_by_type(LHS.D_Y_OVER_D_T)
         )
         y_indices = list(eq_sys.equation_indices_by_type(LHS.Y))
+        y_laplacian_indices = list(
+            eq_sys.equation_indices_by_type(LHS.Y_LAPLACIAN)
+        )
         all_d_y_over_d_t = len(d_y_over_d_t_indices) == diff_eq.y_dimension
 
         if diff_eq.x_dimension:
@@ -558,6 +590,14 @@ class FDMOperator(TorchOperator):
 
         d_t = self._d_t
         integrator = self._integrator
+        differentiator = self._differentiator
+        if y_laplacian_indices:
+            laplacian_y_constraint = slice_constraint(
+                y_constraint, y_laplacian_indices
+            )
+            laplacian_d_y_constraints = slice_all_constraint_pairs(
+                d_y_constraints, y_laplacian_indices
+            )
 
         def step(y, i, t_i):
             def d_y_over_d_t(offset, y_arg):
@@ -584,6 +624,25 @@ class FDMOperator(TorchOperator):
                 y_next = y_next.clone()
                 y_next[..., y_indices] = apply_constraints_along_last_axis(
                     slice_constraint(y_constraint, y_indices), y_rhs
+                )
+
+            if y_laplacian_indices:
+                # the right-hand side from the step-initial state, solved
+                # from the current values, as the JAX package does (its
+                # constraints at offsets 0 and 1 are one static set here)
+                laplacian_rhs = mapper.map_concatenated(
+                    FDMSymbolMapArg(t_i, y, d_y_constraints),
+                    LHS.Y_LAPLACIAN,
+                )
+                y_next = y_next.clone()
+                y_next[..., y_laplacian_indices] = (
+                    differentiator.anti_laplacian(
+                        laplacian_rhs,
+                        cp.mesh,
+                        laplacian_y_constraint,
+                        laplacian_d_y_constraints,
+                        y_init=y[..., y_laplacian_indices],
+                    )
                 )
             return y_next
 

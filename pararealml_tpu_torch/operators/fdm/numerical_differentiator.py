@@ -18,14 +18,18 @@ concatenation, and Neumann ghost vertices are synthesized with masked
 selects from dense :class:`~pararealml_tpu_torch.constraint.Constraint`
 tensors.
 
-Not ported yet (ROADMAP.md, Queue 1, slices 6e and 6f): the five-point
-method and the Jacobi and BiCGStab anti-Laplacians (with their
-curvilinear sweeps).
+The anti-Laplacian inverts the scalar Laplacian with the JAX package's
+Jacobi sweeps (Cartesian, polar, cylindrical and spherical) or with a
+BiCGStab of the port's own that follows the recurrences and the stopping
+rule of ``jax.scipy.sparse.linalg.bicgstab``.
+
+Not ported yet (ROADMAP.md, Queue 1, slice 6f): the five-point method.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import math
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -36,6 +40,13 @@ from pararealml_tpu_torch.mesh import CoordinateSystem, Mesh
 # Per-axis sequence of optional lower/upper constraint pairs on the
 # derivative of y normal to the boundaries of that axis.
 DerivativeBoundaryConstraints = Sequence[Optional[BoundaryConstraintPair]]
+
+# Jacobi sweeps run between two reads of the stopping flag on the host. A
+# state whose update norm reached the tolerance is frozen for the rest of
+# the chunk, so the result is the JAX package's while loop's; the chunk
+# only bounds the sweeps computed and thrown away (at most 7 a solve) and
+# the host syncs (one per 8 sweeps).
+JACOBI_CHUNK = 8
 
 
 def _dim(x_axis: int, x_dimension: int) -> int:
@@ -118,11 +129,12 @@ class NumericalDifferentiator:
         anti_laplacian_method: str = "jacobi",
     ):
         """
-        :param tol: anti-Laplacian stopping tolerance (kept for
-            signature parity; the anti-Laplacian is not ported yet)
-        :param max_iterations: anti-Laplacian iteration cap (likewise)
+        :param tol: the anti-Laplacian's stopping tolerance on the 2-norm
+            of the Jacobi update (for BiCGStab, of the residual, which is
+            the same quantity)
+        :param max_iterations: the most Jacobi sweeps (BiCGStab
+            iterations) of one anti-Laplacian solve
         :param anti_laplacian_method: ``"jacobi"`` or ``"bicgstab"``
-            (likewise)
         """
         if tol < 0.0:
             raise ValueError("tolerance must be non-negative")
@@ -533,11 +545,100 @@ class NumericalDifferentiator:
             return laplacian - (y_theta - 2.0 * d(0, 1)) / r_sqr
         return laplacian
 
-    def anti_laplacian(self, laplacian, mesh, y_constraints, *args, **kw):
-        """Inverts the scalar Laplacian (not ported yet)."""
-        raise NotImplementedError(
-            "the anti-Laplacian (Jacobi and BiCGStab) is not ported to "
-            "PyTorch yet (ROADMAP.md, Queue 1, slice 6e)"
+    def anti_laplacian(
+        self,
+        laplacian: torch.Tensor,
+        mesh: Mesh,
+        y_constraints: Optional[Constraint],
+        derivative_boundary_constraints=None,
+        y_init: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """Inverts the scalar Laplacian with Jacobi sweeps (or BiCGStab).
+
+        Starts from zeros, or from ``y_init``, with the y constraints
+        applied, and sweeps until the 2-norm of the update is at most
+        ``tol`` or ``max_iterations`` sweeps have run; it always runs at
+        least one (the initial update norm is infinite), as the JAX
+        package's ``lax.while_loop`` does. Leading batch axes are solved
+        independently, each with its own norm and stopping point, as the
+        JAX package's loop under ``vmap`` (see :func:`jacobi`).
+        """
+        self._check_shape(laplacian, mesh, "Laplacian")
+        bcs = self._normalize_constraints(
+            derivative_boundary_constraints, mesh.dimensions
+        )
+
+        if y_init is None:
+            y = torch.zeros_like(laplacian)
+        else:
+            if y_init.shape != laplacian.shape:
+                raise ValueError(
+                    f"y_init shape {tuple(y_init.shape)} must match "
+                    f"Laplacian shape {tuple(laplacian.shape)}"
+                )
+            y = y_init
+        if y_constraints is not None:
+            y = y_constraints.apply(y)
+
+        # the grid and component axes; any before them are batch axes
+        first = laplacian.ndim - mesh.dimensions - 1
+        dims = tuple(range(first, laplacian.ndim))
+        if self._anti_laplacian_method == "bicgstab":
+            return self._anti_laplacian_bicgstab(
+                y, laplacian, mesh, bcs, y_constraints, dims
+            )
+
+        def sweep(v):
+            v_new = self._next_anti_laplacian_estimate(v, laplacian, mesh, bcs)
+            if y_constraints is not None:
+                v_new = y_constraints.apply(v_new)
+            return v_new
+
+        return jacobi(sweep, y, self._tol, self._max_iterations, dims)[0]
+
+    def _anti_laplacian_bicgstab(
+        self,
+        y_0: torch.Tensor,
+        laplacian: torch.Tensor,
+        mesh: Mesh,
+        bcs: Tuple[Optional[BoundaryConstraintPair], ...],
+        y_constraints: Optional[Constraint],
+        dims: Tuple[int, ...],
+    ) -> torch.Tensor:
+        """Solves the Jacobi fixed-point equation with BiCGStab.
+
+        The converged Jacobi state satisfies ``y = C(S(y))``, with ``S``
+        one sweep and ``C`` the y constraints. The sweep is affine in
+        ``y`` (``S(v) = B v + S(0)``), so that fixed point is the linear
+        system ``v - notmask * (S(v) - S(0)) = where(mask, values,
+        S(0))``: the diagonally preconditioned Poisson system with the
+        Dirichlet rows pinned. Its residual at a mask-respecting iterate
+        is the Jacobi update, and the solve stops when the residual's
+        2-norm reaches ``tol`` (an absolute tolerance), as the JAX
+        package's ``jax.scipy.sparse.linalg.bicgstab(..., tol=0,
+        atol=tol)`` does.
+        """
+
+        def sweep(v):
+            return self._next_anti_laplacian_estimate(v, laplacian, mesh, bcs)
+
+        offset = sweep(torch.zeros_like(laplacian))
+        if y_constraints is None:
+
+            def matvec(v):
+                return v - (sweep(v) - offset)
+
+            b = offset
+        else:
+            values, mask = y_constraints.tensors_like(laplacian)
+
+            def matvec(v):
+                return v - torch.where(mask, 0.0, sweep(v) - offset)
+
+            b = torch.where(mask, values, offset)
+
+        return bicgstab(
+            matvec, b, y_0, self._tol, self._max_iterations, dims
         )
 
     def _component_derivative(self, y, mesh, bcs, comp: int, axis: int):
@@ -557,7 +658,8 @@ class ThreePointCentralDifferenceMethod(NumericalDifferentiator):
     ghost vertices (second derivative), with optional constraint
     overrides on the boundary derivative values — the reference's
     discretization (numerical_differentiator.py:999-1242), expressed as
-    pure selects.
+    pure selects. Its Jacobi sweep inverts the same Laplacian, with the
+    same ghost vertices.
     """
 
     def _derivative(
@@ -614,6 +716,82 @@ class ThreePointCentralDifferenceMethod(NumericalDifferentiator):
         y_next = _shifted(y_ext, dim1, 2, n)
         return (y_next - 2.0 * y_curr + y_prev) / (d_x1 * d_x2)
 
+    def _next_anti_laplacian_estimate(
+        self,
+        y_hat: torch.Tensor,
+        laplacian: torch.Tensor,
+        mesh: Mesh,
+        constraints,
+    ) -> torch.Tensor:
+        """One Jacobi sweep of the three-point Laplacian (with its metric
+        terms in polar, cylindrical and spherical coordinates), in the
+        JAX package's order of operations."""
+        if min(y_hat.shape[-(mesh.dimensions + 1): -1]) <= 2:
+            raise ValueError(
+                "y must contain at least 3 points along all x axes"
+            )
+
+        cs = mesh.coordinate_system_type
+        d_x_sqr = [d**2 for d in mesh.d_x]
+        r = r_sqr = phi = sin_phi = r_sqr_sin_phi_sqr = None
+        if cs != CoordinateSystem.CARTESIAN:
+            r = self._grid(mesh, 0, y_hat)
+            r_sqr = r**2
+            if cs == CoordinateSystem.SPHERICAL:
+                phi = self._grid(mesh, 2, y_hat)
+                sin_phi = torch.sin(phi)
+                r_sqr_sin_phi_sqr = r_sqr * sin_phi**2
+
+        numerator = -laplacian
+        for axis, d_x in enumerate(mesh.d_x):
+            dim = _dim(axis, mesh.dimensions)
+            n = y_hat.shape[dim]
+            y_ext = self._extend_with_halos(y_hat, dim, d_x, constraints[axis])
+            y_prev = _shifted(y_ext, dim, 0, n)
+            y_next = _shifted(y_ext, dim, 2, n)
+            neighbor_sum = (y_prev + y_next) / d_x_sqr[axis]
+
+            if cs == CoordinateSystem.CARTESIAN:
+                numerator = numerator + neighbor_sum
+            elif cs == CoordinateSystem.SPHERICAL:
+                if axis == 0:
+                    numerator = numerator + (
+                        neighbor_sum + (y_next - y_prev) / (d_x * r)
+                    )
+                elif axis == 1:
+                    numerator = numerator + neighbor_sum / r_sqr_sin_phi_sqr
+                else:
+                    numerator = numerator + (
+                        neighbor_sum
+                        + torch.cos(phi)
+                        * (y_next - y_prev)
+                        / (2.0 * d_x * sin_phi)
+                    ) / r_sqr
+            else:  # polar / cylindrical
+                if axis == 0:
+                    numerator = numerator + (
+                        neighbor_sum + (y_next - y_prev) / (2.0 * d_x * r)
+                    )
+                elif axis == 1:
+                    numerator = numerator + neighbor_sum / r_sqr
+                else:
+                    numerator = numerator + neighbor_sum
+
+        if cs == CoordinateSystem.CARTESIAN:
+            denominator = sum(2.0 / d for d in d_x_sqr)
+        elif cs == CoordinateSystem.SPHERICAL:
+            denominator = (
+                2.0 / d_x_sqr[0]
+                + 2.0 / (d_x_sqr[1] * r_sqr_sin_phi_sqr)
+                + 2.0 / (d_x_sqr[2] * r_sqr)
+            )
+        else:
+            denominator = 2.0 / d_x_sqr[0] + 2.0 / (d_x_sqr[1] * r_sqr)
+            if cs == CoordinateSystem.CYLINDRICAL:
+                denominator = denominator + 2.0 / d_x_sqr[2]
+
+        return numerator / denominator
+
     @staticmethod
     def _extend_with_halos(
         y: torch.Tensor,
@@ -654,3 +832,107 @@ class FivePointCentralDifferenceMethod(NumericalDifferentiator):
             "the five-point central difference method is not ported to "
             "PyTorch yet (ROADMAP.md, Queue 1, slice 6f)"
         )
+
+
+def jacobi(
+    sweep: Callable[[torch.Tensor], torch.Tensor],
+    y: torch.Tensor,
+    tol: float,
+    max_iterations: int,
+    dims: Tuple[int, ...],
+    norm_dtype: Optional[torch.dtype] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Applies ``sweep`` until the 2-norm of a sweep's update (over
+    ``dims``, in ``norm_dtype`` or the state's) is at most ``tol`` or
+    ``max_iterations`` sweeps have run, at least once: the JAX package's
+    ``lax.while_loop`` of the anti-Laplacian. The axes before ``dims`` are
+    independent states, each with its own norm and stopping point (JAX's
+    loop under ``vmap``). The host reads the stopping flag once every
+    :data:`JACOBI_CHUNK` sweeps; in between, a state whose norm reached
+    ``tol`` is frozen (``torch.where``), so the result is the while
+    loop's. Returns the states and each state's number of sweeps."""
+    lead = tuple(y.shape[: dims[0]])
+    diff = torch.full(lead, math.inf, dtype=norm_dtype or y.dtype,
+                      device=y.device)
+    sweeps = torch.zeros(lead, dtype=torch.int64, device=y.device)
+    done = 0
+    while done < max_iterations:
+        chunk = min(JACOBI_CHUNK, max_iterations - done)
+        for _ in range(chunk):
+            active = diff > tol
+            y_new = sweep(y)
+            update_norm = torch.linalg.vector_norm(
+                y_new - y, dim=dims, dtype=norm_dtype
+            )
+            y = torch.where(_expand(active, dims), y_new, y)
+            diff = torch.where(active, update_norm, diff)
+            sweeps = sweeps + active.to(torch.int64)
+        done += chunk
+        if not bool((diff > tol).any()):
+            break
+    return y, sweeps
+
+
+def _expand(per_state: torch.Tensor, dims: Tuple[int, ...]) -> torch.Tensor:
+    """A per-state tensor (the batch axes only) with ones appended for
+    the ``dims`` it was reduced over, to broadcast against the states."""
+    return per_state.reshape(tuple(per_state.shape) + (1,) * len(dims))
+
+
+def bicgstab(
+    matvec: Callable[[torch.Tensor], torch.Tensor],
+    b: torch.Tensor,
+    x0: torch.Tensor,
+    atol: float,
+    maxiter: int,
+    dims: Tuple[int, ...],
+) -> torch.Tensor:
+    """BiCGStab for ``matvec(x) = b`` without a preconditioner, with the
+    recurrences, the early exit, the breakdown rules and the stopping rule
+    of ``jax.scipy.sparse.linalg.bicgstab(..., tol=0, atol=atol,
+    maxiter=maxiter)``: it iterates while the squared 2-norm of the
+    residual exceeds ``atol**2`` (in ``b``'s dtype), fewer than
+    ``maxiter`` iterations have run and no breakdown occurred. The axes
+    before ``dims`` are a batch of independent systems, each with its own
+    scalars and stopping point, as JAX's loop under ``vmap``; a finished
+    system keeps its state (``torch.where``). The host reads the stopping
+    flag once an iteration."""
+
+    def dot(u, v):
+        return (u * v).sum(dim=dims)
+
+    atol2 = torch.tensor(atol, dtype=b.dtype).square()
+    lead = tuple(b.shape[: dims[0]])
+    r = b - matvec(x0)
+    x, rhat, p, q = x0, r, r, r
+    alpha = omega = rho = torch.ones(lead, dtype=b.dtype, device=b.device)
+    k = torch.zeros(lead, dtype=torch.int64, device=b.device)
+    while True:
+        active = (dot(r, r) > atol2) & (k < maxiter) & (k >= 0)
+        if not bool(active.any()):
+            return x
+        rho_ = dot(rhat, r)
+        beta = rho_ / rho * alpha / omega
+        p_ = r + _expand(beta, dims) * (p - _expand(omega, dims) * q)
+        q_ = matvec(p_)
+        alpha_ = rho_ / dot(rhat, q_)
+        s = r - _expand(alpha_, dims) * q_
+        exit_early = _expand(dot(s, s) < atol2, dims)
+        t = matvec(s)
+        omega_ = dot(t, s) / dot(t, t)
+        alpha_p = _expand(alpha_, dims) * p_
+        x_ = torch.where(
+            exit_early, x + alpha_p, x + (alpha_p + _expand(omega_, dims) * s)
+        )
+        r_ = torch.where(exit_early, s, s - _expand(omega_, dims) * t)
+        k_ = torch.where((omega_ == 0) | (alpha_ == 0), -11, k + 1)
+        k_ = torch.where(rho_ == 0, -10, k_)
+        expanded = _expand(active, dims)
+        x = torch.where(expanded, x_, x)
+        r = torch.where(expanded, r_, r)
+        p = torch.where(expanded, p_, p)
+        q = torch.where(expanded, q_, q)
+        alpha = torch.where(active, alpha_, alpha)
+        omega = torch.where(active, omega_, omega)
+        rho = torch.where(active, rho_, rho)
+        k = torch.where(active, k_, k)

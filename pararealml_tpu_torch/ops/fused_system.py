@@ -2,13 +2,14 @@
 
 Port of the JAX package's ``ops/fused_system.py`` for the wave, viscous
 Burgers, shallow-water and Cahn-Hilliard systems on Cartesian and polar
-meshes. Its three Pallas TPU kernels — the trajectory, the end state
-(single or batched) and the single step — become launches of one
-hand-written CUDA kernel template for Hopper, ``csrc/fused_system.cu``
-(see its header for the design), which the batched kernels of
-``ops/packed_system.py`` (K4) launch too. One CTA keeps one state
-on-chip for all steps, so a solve reads the state once and writes either
-every step or the end state. The equation functors live in
+meshes and the vorticity-stream-function Navier-Stokes system on
+Cartesian meshes. For the first four, its three Pallas TPU kernels — the
+trajectory, the end state (single or batched) and the single step —
+become launches of one hand-written CUDA kernel template for Hopper,
+``csrc/fused_system.cu`` (see its header for the design), which the
+batched kernels of ``ops/packed_system.py`` (K4) launch too. One CTA
+keeps one state on-chip for all steps, so a solve reads the state once
+and writes either every step or the end state. The equation functors live in
 ``csrc/system_2d.cuh``, shared with the tiled kernel K8
 (``ops/tiled_system.py``), which takes the grids one CTA cannot hold.
 
@@ -41,8 +42,17 @@ take K8 where the Dirichlet constraints lie on the grid's faces (polar
 grids a polar K8 in K5's order of operations, the port's carrier of the
 JAX package's polar K5 past one CTA), and the end returns ``None`` (the
 generic carry-only loop, which the JAX package takes past VMEM only:
-ROADMAP.md, Queue 3). The JAX package's Navier-Stokes family is not
-ported yet (ROADMAP.md, Queue 2): it takes the generic path.
+ROADMAP.md, Queue 3).
+
+The Navier-Stokes family (:func:`fused_navier_stokes_step_applicable`)
+runs its own kernel, ``csrc/fused_navier_stokes.cu`` through
+:mod:`pararealml_tpu_torch.ops.fused_navier_stokes`: one thread block
+cluster per state with the stream function's Jacobi solve inside. Its
+plain step, :func:`_navier_stokes_step_reference`, is here beside the
+other families'. The JAX package admits it on Cartesian meshes within its
+VMEM cap; the port also needs the grid to fit the largest cluster (up to
+186 x 186 for a square grid), and takes the generic path past it
+(ROADMAP.md, Queue 3).
 
 ``kernel_storage_dtype`` takes effect where the JAX package's does: past
 its VMEM cap. Below it the JAX package runs K5, which ignores the knob,
@@ -61,10 +71,14 @@ from pararealml_tpu_torch.constrained_problem import ConstrainedProblem
 from pararealml_tpu_torch.differential_equation import (
     BurgersEquation,
     CahnHilliardEquation,
+    NavierStokesEquation,
     ShallowWaterEquation,
     WaveEquation,
 )
 from pararealml_tpu_torch.mesh import CoordinateSystem
+from pararealml_tpu_torch.operators.fdm.numerical_differentiator import (
+    jacobi,
+)
 from pararealml_tpu_torch.ops.fused_diffusion import padded_cells
 
 # the dynamic shared memory one CTA can opt into on Hopper (232,448 B)
@@ -77,12 +91,14 @@ MAX_SHARED_MEMORY_BYTES = 227 * 1024
 REFERENCE_VMEM_BUDGET_CELLS = 3_000_000
 
 # the kernel templates' equation functors, by equation type (the numbers
-# of EquationId in csrc/system_2d.cuh)
+# of EquationId in csrc/system_2d.cuh; Navier-Stokes, last, has a kernel of
+# its own, csrc/fused_navier_stokes.cu)
 _EQUATION_TYPES = (
     WaveEquation,
     BurgersEquation,
     ShallowWaterEquation,
     CahnHilliardEquation,
+    NavierStokesEquation,
 )
 _EQUATION_IDS = {equation: i for i, equation in enumerate(_EQUATION_TYPES)}
 
@@ -147,11 +163,23 @@ def _system_applicable(
     ):
         return False
     coordinate_system = cp.mesh.coordinate_system_type
+    if equation_type is NavierStokesEquation:
+        # the JAX package's gate (Cartesian, within its VMEM cap: its
+        # tiled kernel refuses the family) and one of the port's own: the
+        # grid fits the largest thread block cluster
+        from pararealml_tpu_torch.ops.fused_navier_stokes import (
+            make_cluster_plan_2d,
+        )
+
+        return (
+            coordinate_system == CoordinateSystem.CARTESIAN
+            and fits_reference_vmem(cp)
+            and make_cluster_plan_2d(*cp.mesh.vertices_shape) is not None
+        )
     if coordinate_system == CoordinateSystem.POLAR:
         # the JAX package's polar branch: away from the origin (1 / r is
         # infinite on an r = 0 row) and within its VMEM cap (no tiled
-        # polar kernel there); its Navier-Stokes exclusion holds through
-        # the equation types
+        # polar kernel there)
         if not (
             float(cp.mesh.x_intervals[0][0]) > 0.0
             and fits_reference_vmem(cp)
@@ -194,14 +222,22 @@ def fused_cahn_hilliard_step_applicable(cp, integrator, dtype=None) -> bool:
     return _system_applicable(cp, integrator, CahnHilliardEquation, dtype)
 
 
+def fused_navier_stokes_step_applicable(cp, integrator, dtype=None) -> bool:
+    """Whether the fused Navier-Stokes kernel reproduces the generic path
+    for this problem (and, when ``dtype`` is given, for states of that
+    dtype)."""
+    return _system_applicable(cp, integrator, NavierStokesEquation, dtype)
+
+
 def fused_system_step_applicable(
     cp: ConstrainedProblem,
     integrator,
     dtype: Optional[torch.dtype] = None,
 ) -> bool:
-    """Whether any fused system kernel (K5 on one CTA, K8 past it)
-    reproduces the generic path for this problem (and, when ``dtype`` is
-    given, for states of that dtype: the kernels are float32 only)."""
+    """Whether any fused system kernel (K5 on one CTA, K8 past it, the
+    Navier-Stokes cluster kernel) reproduces the generic path for this
+    problem (and, when ``dtype`` is given, for states of that dtype: the
+    kernels are float32 only)."""
     return any(
         _system_applicable(cp, integrator, equation_type, dtype)
         for equation_type in _EQUATION_TYPES
@@ -268,11 +304,18 @@ def _ghost_faces(cp: ConstrainedProblem, n: int) -> Dict[str, np.ndarray]:
 class _SystemKernelConfig:
     """Static configuration of the fused system kernels for one problem:
     grid geometry, the equation and its coefficients, the RK4 step's
-    float32 constants, and the constraint tensors and, on a polar mesh,
-    the per-row 1 / r (made for each device and dtype a state arrives in,
+    float32 constants, the Navier-Stokes stream function's Jacobi
+    settings, and the constraint tensors and, on a polar mesh, the
+    per-row 1 / r (made for each device and dtype a state arrives in,
     once)."""
 
-    def __init__(self, cp: ConstrainedProblem, d_t: float):
+    def __init__(
+        self,
+        cp: ConstrainedProblem,
+        d_t: float,
+        anti_laplacian_tol: float = 1e-3,
+        anti_laplacian_max_iterations: int = 100_000,
+    ):
         diff_eq = cp.differential_equation
         if type(diff_eq) not in _EQUATION_IDS:
             raise ValueError(
@@ -301,6 +344,8 @@ class _SystemKernelConfig:
             self.coefficient = float(diff_eq._c) ** 2
         elif self.equation_type is BurgersEquation:
             self.coefficient = 1.0 / float(diff_eq._re)
+        elif self.equation_type is NavierStokesEquation:
+            self.coefficient = 1.0 / float(diff_eq._re)
         elif self.equation_type is ShallowWaterEquation:
             self.coefficient = float(diff_eq._v)
             self.depth = float(diff_eq._h)
@@ -319,6 +364,12 @@ class _SystemKernelConfig:
         self.inv_two_dx1 = 1.0 / (2.0 * float(d_x1))
         self.two_dx0 = 2.0 * float(d_x0)
         self.two_dx1 = 2.0 * float(d_x1)
+        # Navier-Stokes: the Jacobi update psi + (lap(psi) - rhs) /
+        # denominator, whose fixed point solves lap(psi) = rhs, and its
+        # stopping rule
+        self.denominator = 2.0 / float(d_x0) ** 2 + 2.0 / float(d_x1) ** 2
+        self.tol = float(anti_laplacian_tol)
+        self.max_iterations = int(anti_laplacian_max_iterations)
         # the polar metric divides by the mesh's vertex radii, the
         # linspace(r_low, r_high, H) of the generic path, whose spacing
         # differs from d_x0 where d_x0 does not divide the interval
@@ -675,6 +726,81 @@ def _step_reference(
     return torch.stack(stage(combined, cfg.sixth_d_t), dim=-1)
 
 
+def _navier_stokes_step_reference(
+    state: torch.Tensor, cfg: _SystemKernelConfig, constants
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One Navier-Stokes step over ``(..., H, W, 4)`` states (w, psi, u,
+    v), the JAX package's Navier-Stokes branch of ``_make_step_factory``
+    term for term: RK4 on the vorticity, ``w' = nu lap(w) - u d0(w) - v
+    d1(w)``, with the velocities held through the stages (their Dirichlet
+    values from the second stage on); the velocities from the
+    step-initial stream function, ``u = d1(psi)``, ``v = -d0(psi)``; and
+    the stream function solved from ``lap(psi') = -w`` by Jacobi sweeps
+    ``psi + (lap(psi) + w) / denominator``, warm-started from ``psi``.
+
+    Each state sweeps until the 2-norm of its update is at most
+    ``cfg.tol`` or ``cfg.max_iterations`` sweeps have run, at least once.
+    One deliberate difference from the JAX kernel: the sum of squares is
+    accumulated in float64 (exact squares of float32 updates), so that
+    the CUDA kernel, which sums in another order, takes the same branch
+    (ROADMAP.md, Queue 3). Returns the next states and each state's
+    number of sweeps (int64, the leading shape)."""
+    dir_mask, dir_vals = constants[0], constants[1]
+    faces = constants[2:6]
+
+    def helpers():
+        # one set per plane evaluated: the helpers memoize shifts by plane
+        return _Helpers(cfg, faces)
+
+    def dirichlet(comp, plane):
+        return torch.where(dir_mask[comp], dir_vals[comp], plane)
+
+    w, psi, u, v = (state[..., comp] for comp in range(4))
+
+    def vorticity_rhs(w_, u_, v_):
+        h = helpers()
+        return (
+            cfg.coefficient * h.laplacian(0, w_)
+            - u_ * h.gradient_0(0, w_)
+            - v_ * h.gradient_1(0, w_)
+        )
+
+    u_d = dirichlet(2, u)
+    v_d = dirichlet(3, v)
+    k1 = vorticity_rhs(w, u, v)
+    k2 = vorticity_rhs(dirichlet(0, w + cfg.half_d_t * k1), u_d, v_d)
+    k3 = vorticity_rhs(dirichlet(0, w + cfg.half_d_t * k2), u_d, v_d)
+    k4 = vorticity_rhs(dirichlet(0, w + cfg.d_t * k3), u_d, v_d)
+    w_next = dirichlet(
+        0, w + cfg.sixth_d_t * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
+    )
+    h = helpers()
+    u_next = dirichlet(2, h.gradient_1(1, psi))
+    v_next = dirichlet(3, -h.gradient_0(1, psi))
+
+    rhs = -w
+    # a tensor, so that the division is exact on the card too (PyTorch's
+    # CUDA division by a host scalar multiplies by its reciprocal), as the
+    # kernel's and the JAX kernel's are
+    denominator = torch.tensor(
+        cfg.denominator, dtype=state.dtype, device=state.device
+    )
+
+    def sweep(psi_):
+        update = (helpers().laplacian(1, psi_) - rhs) / denominator
+        return dirichlet(1, psi_ + update)
+
+    psi, sweeps = jacobi(
+        sweep,
+        dirichlet(1, psi),
+        cfg.tol,
+        cfg.max_iterations,
+        (-2, -1),
+        torch.float64,
+    )
+    return torch.stack((w_next, psi, u_next, v_next), dim=-1), sweeps
+
+
 def _k5_step_reference(
     state: torch.Tensor, cfg: _SystemKernelConfig, constants
 ) -> torch.Tensor:
@@ -897,7 +1023,12 @@ def states(y: torch.Tensor, cfg: _SystemKernelConfig):
 
 
 def build_fused_system_rk4_trajectory(
-    cp: ConstrainedProblem, d_t: float, n_steps: int, storage_dtype=None
+    cp: ConstrainedProblem,
+    d_t: float,
+    n_steps: int,
+    storage_dtype=None,
+    anti_laplacian_tol: float = 1e-3,
+    anti_laplacian_max_iterations: int = 100_000,
 ):
     """Builds ``trajectory(y) -> ys`` computing ``n_steps`` fused RK4
     steps, ``(..., H, W, n) -> (..., n_steps, H, W, n)``: through the K5
@@ -912,7 +1043,25 @@ def build_fused_system_rk4_trajectory(
     in it, past the JAX package's VMEM cap only (:func:`fits_reference_vmem`;
     K8 there, as the JAX package's tiled kernel). Below the cap it is
     ignored, as the JAX package's whole-grid kernel ignores it: K5, or K8
-    past one CTA, stores float32."""
+    past one CTA, stores float32.
+
+    Navier-Stokes takes its cluster kernel
+    (:mod:`pararealml_tpu_torch.ops.fused_navier_stokes`), whose stream
+    function's Jacobi solve stops at ``anti_laplacian_tol`` or after
+    ``anti_laplacian_max_iterations`` sweeps; the other families ignore
+    both."""
+    if isinstance(cp.differential_equation, NavierStokesEquation):
+        from pararealml_tpu_torch.ops.fused_navier_stokes import (
+            build_fused_navier_stokes_rk4_trajectory,
+        )
+
+        return build_fused_navier_stokes_rk4_trajectory(
+            cp,
+            d_t,
+            n_steps,
+            anti_laplacian_tol,
+            anti_laplacian_max_iterations,
+        )
     within_reference_vmem = fits_reference_vmem(cp)
     if _is_polar(cp) and not within_reference_vmem:
         raise ValueError(
@@ -945,13 +1094,31 @@ def build_fused_system_rk4_end(
     d_t: float,
     n_steps: int,
     batch: Optional[int] = None,
+    anti_laplacian_tol: float = 1e-3,
+    anti_laplacian_max_iterations: int = 100_000,
 ):
     """Builds ``end(y) -> y_final`` advancing ``n_steps`` fused RK4 steps
     through the K5 end kernel and returning ONLY the final state, or
     ``None`` when the grid does not fit one CTA's shared memory.
 
     With ``batch=B``, ``end`` maps ``(B, H, W, n) -> (B, H, W, n)``, one
-    CTA per state; otherwise it maps one ``(H, W, n)`` state."""
+    CTA per state; otherwise it maps one ``(H, W, n)`` state.
+    Navier-Stokes takes its cluster kernel, one cluster per state (None
+    where the grid fits no cluster), with the two anti-Laplacian
+    settings of :func:`build_fused_system_rk4_trajectory`."""
+    if isinstance(cp.differential_equation, NavierStokesEquation):
+        from pararealml_tpu_torch.ops.fused_navier_stokes import (
+            build_fused_navier_stokes_rk4_end,
+        )
+
+        return build_fused_navier_stokes_rk4_end(
+            cp,
+            d_t,
+            n_steps,
+            batch,
+            anti_laplacian_tol,
+            anti_laplacian_max_iterations,
+        )
     if not fits_one_block(cp):
         return None
     cfg = _SystemKernelConfig(cp, d_t)
@@ -969,12 +1136,26 @@ def build_fused_system_rk4_end(
     return end
 
 
-def build_fused_system_rk4_step(cp: ConstrainedProblem, d_t: float):
+def build_fused_system_rk4_step(
+    cp: ConstrainedProblem,
+    d_t: float,
+    anti_laplacian_tol: float = 1e-3,
+    anti_laplacian_max_iterations: int = 100_000,
+):
     """Builds ``step(y) -> y_next`` computing one fused RK4 step, ``(...,
     H, W, n) -> (..., H, W, n)``: the K5 step kernel where the grid fits
     one CTA, else the one-step K8 trajectory (as the JAX package reaches
     its tiled kernel through the trajectory builder), polar grids
-    included."""
+    included; for Navier-Stokes the cluster kernel's step, with the two
+    anti-Laplacian settings of :func:`build_fused_system_rk4_trajectory`."""
+    if isinstance(cp.differential_equation, NavierStokesEquation):
+        from pararealml_tpu_torch.ops.fused_navier_stokes import (
+            build_fused_navier_stokes_rk4_step,
+        )
+
+        return build_fused_navier_stokes_rk4_step(
+            cp, d_t, anti_laplacian_tol, anti_laplacian_max_iterations
+        )
     if not fits_one_block(cp):
         trajectory = build_fused_system_rk4_trajectory(cp, d_t, 1)
 

@@ -30,8 +30,10 @@ Shapes are the JAX package's: ``(B, H, W, n) -> (B, H, W, n)`` and
 
 Applicability (:func:`packed_system_applicable`): K5's gate for one of
 its four families on a Cartesian mesh (the JAX package's packed kernels
-are Cartesian only; polar Parareal's fine ends take the batched K5 end),
-static boundary conditions, RK4, float32,
+cover neither Navier-Stokes, whose Parareal fine ends take the batched
+cluster kernel of ``ops/fused_navier_stokes.py``, nor polar meshes, whose
+fine ends take the batched K5 end), static boundary conditions, RK4,
+float32,
 a grid that fits one CTA's shared memory (past it the K5 gate admits the
 tiled kernel K8, which has no batched ends; the JAX package's packed
 kernels have a VMEM budget instead) and a batch of at least two slices.
@@ -47,6 +49,7 @@ from typing import Optional
 import torch
 
 from pararealml_tpu_torch.constrained_problem import ConstrainedProblem
+from pararealml_tpu_torch.differential_equation import NavierStokesEquation
 from pararealml_tpu_torch.mesh import CoordinateSystem
 from pararealml_tpu_torch.ops.fused_system import (
     _SystemKernelConfig,
@@ -72,6 +75,7 @@ def packed_system_applicable(
     return (
         batch >= 2
         and cp.mesh is not None
+        and type(cp.differential_equation) is not NavierStokesEquation
         and cp.mesh.coordinate_system_type == CoordinateSystem.CARTESIAN
         and fused_system_step_applicable(cp, integrator, dtype)
         and fits_one_block(cp)

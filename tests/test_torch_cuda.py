@@ -30,7 +30,8 @@ from pararealml_tpu_torch.operators.ml.supervised import (
     from_arrays,
 )
 from pararealml_tpu_torch.operators.parareal import PararealOperator
-from pararealml_tpu_torch.ops import fused_diffusion, fused_system
+from pararealml_tpu_torch.ops import fused_diffusion, fused_navier_stokes
+from pararealml_tpu_torch.ops import fused_system
 from pararealml_tpu_torch.ops import fused_system_3d, packed_system
 from pararealml_tpu_torch.ops import resident_diffusion, tiled_diffusion
 from pararealml_tpu_torch.ops import tiled_system
@@ -297,6 +298,37 @@ def polar_problem(module, family, faces="neumann"):
     else:
         bcs = [(neumann, neumann)] * 2
     return module["ConstrainedProblem"](equation(module), mesh, bcs)
+
+
+def navier_stokes_problem(module, example=False):
+    """The lid-driven Navier-Stokes problem of tests/test_fused_system.py
+    (``_navier_stokes_cp``: Re 500 on [-1, 1] x [0, 2] at 0.125, 17 x
+    17), or with ``example`` that of examples/navier_stokes_fdm.py (Re
+    5000 on [-2.5, 2.5] x [0, 4] at 0.05, 101 x 81): Dirichlet w = 1 and
+    psi = 0.1 on the lower axis-0 face, zero on the others, velocities
+    unconstrained."""
+    vectorize = module["vectorize_bc_function"]
+
+    def dirichlet(w, psi):
+        return module["DirichletBoundaryCondition"](
+            vectorize(lambda x, t: [w, psi, None, None]), is_static=True
+        )
+
+    if example:
+        re, mesh = 5000.0, module["Mesh"](
+            [(-2.5, 2.5), (0.0, 4.0)], [0.05, 0.05]
+        )
+    else:
+        re, mesh = 500.0, module["Mesh"](
+            [(-1.0, 1.0), (0.0, 2.0)], [0.125, 0.125]
+        )
+    bcs = [
+        (dirichlet(1.0, 0.1), dirichlet(0.0, 0.0)),
+        (dirichlet(0.0, 0.0), dirichlet(0.0, 0.0)),
+    ]
+    return module["ConstrainedProblem"](
+        module["NavierStokesEquation"](re), mesh, bcs
+    )
 
 
 def states_2d(shape, n, batch=None, seed=0):
@@ -858,3 +890,90 @@ def test_cuda_k4_trajectory_rounds_frames_to_bfloat16(cuda_device):
     )
     exact = packed_system.packed_system_rk4_trajectory(ys, cfg, 200)
     assert torch.equal(rounded, exact.to(torch.bfloat16).float())
+
+
+def _navier_stokes_states(shape, batch=None, seed=0):
+    """O(1) four-component float32 states from a seed."""
+    lead = () if batch is None else (batch,)
+    rng = np.random.default_rng(seed)
+    return rng.uniform(-0.5, 0.5, lead + tuple(shape) + (4,)).astype(
+        np.float32
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("example", [False, True])
+def test_cuda_navier_stokes_kernel_matches_plain_version(
+    example, cuda_device
+):
+    """The Navier-Stokes kernel (trajectory, B = 4 end, step) against its
+    plain version on the JAX tests' 17 x 17 problem and the example's
+    101 x 81 at every cluster size whose slabs fit a block (1 to 8 blocks
+    at 17 x 17, 2 to 8 at 101 x 81), over 30 steps that include the first
+    step's long solve; the same Jacobi sweeps in both."""
+    cp = navier_stokes_problem(vars(torch_pkg), example)
+    ns = fused_navier_stokes
+    cfg = ns._NavierStokesConfig(cp, 0.05)
+    shape = (cfg.height, cfg.width)
+    y = torch.as_tensor(_navier_stokes_states(shape), device=cuda_device)
+    ys = torch.as_tensor(
+        _navier_stokes_states(shape, batch=4, seed=1), device=cuda_device
+    )
+    steps = 30
+    plain = (
+        ns.fused_navier_stokes_rk4_trajectory_reference(y, cfg, steps),
+        ns.fused_navier_stokes_rk4_end_reference(ys, cfg, steps),
+        ns.fused_navier_stokes_rk4_step_reference(ys, cfg),
+    )
+    wrappers = (
+        ns.fused_navier_stokes_rk4_trajectory,
+        ns.fused_navier_stokes_rk4_end,
+        ns.fused_navier_stokes_rk4_step,
+    )
+    sizes = [
+        size
+        for size in ns.CLUSTER_SIZES
+        if ns.cluster_plan_2d(*shape, size).fits
+    ]
+    assert sizes == ([1, 2, 4, 8] if not example else [2, 4, 8])
+    for cluster_size in sizes:
+        for wrapper, args, (expected, sweeps) in zip(
+            wrappers, ((y, cfg, steps), (ys, cfg, steps), (ys, cfg)), plain
+        ):
+            launches = wrapper.launches
+            _assert_matches(
+                wrapper(*args, cluster_size=cluster_size), expected
+            )
+            assert wrapper.launches == launches + 1
+            assert torch.equal(wrapper.sweeps, sweeps)
+
+
+@pytest.mark.cuda
+def test_cuda_navier_stokes_kernel_raises_instead_of_falling_back(
+    cuda_device,
+):
+    """One block for the whole 101 x 81 grid (425,684 bytes of shared
+    memory) is a cluster the card cannot place: the kernel's host code
+    refuses it before any launch. The wrappers reject what the kernel
+    does not take."""
+    ns = fused_navier_stokes
+    cp = navier_stokes_problem(vars(torch_pkg), example=True)
+    cfg = ns._NavierStokesConfig(cp, 0.05)
+    assert cfg.plan.cluster_size == 2
+    y = torch.as_tensor(
+        _navier_stokes_states((101, 81)), device=cuda_device
+    )
+    launches = ns.fused_navier_stokes_rk4_end.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ns.fused_navier_stokes_rk4_end(y, cfg, 2, cluster_size=1)
+    assert ns.fused_navier_stokes_rk4_end.launches == launches
+    with pytest.raises(TypeError, match="float32"):
+        ns.fused_navier_stokes_rk4_end(y.double(), cfg, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        ns.fused_navier_stokes_rk4_end(
+            torch.zeros((101, 81, 8), device=cuda_device)[..., ::2], cfg, 2
+        )
+    # the plan's own cluster runs
+    end = ns.fused_navier_stokes_rk4_end(y, cfg, 2)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(end).all())

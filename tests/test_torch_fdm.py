@@ -48,7 +48,7 @@ def _assert_close(actual, expected, rtol=RTOL):
     np.testing.assert_allclose(actual, expected, rtol=rtol, atol=rtol * scale)
 
 
-CASES = sorted(set(equation_cases()) - {"navier_stokes"})
+CASES = sorted(equation_cases())
 # the port's FDM namespace with its operator on the CPU
 CPU_FDM = dict(
     vars(torch_fdm),
@@ -59,17 +59,12 @@ CPU_FDM = dict(
 @pytest.mark.parametrize("name", CASES)
 def test_generic_trajectory_matches_jax(name, torch_float64):
     """tests/parity_cases.py runs unchanged on both packages (the port's
-    operator asked for the CPU: its default device is the CUDA card)."""
+    operator asked for the CPU: its default device is the CUDA card),
+    Navier-Stokes with its stream-function anti-Laplacian at tol 1e-10."""
     case = equation_cases()[name]
     expected = solve_fdm_trajectory(vars(jax_pkg), vars(jax_fdm), case)
     actual = solve_fdm_trajectory(vars(torch_pkg), CPU_FDM, case)
     _assert_close(actual, expected)
-
-
-def test_navier_stokes_needs_the_anti_laplacian(torch_float64):
-    case = equation_cases()["navier_stokes"]
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        solve_fdm_trajectory(vars(torch_pkg), CPU_FDM, case)
 
 
 @pytest.mark.parametrize("problem", ["flagship", "convection"])

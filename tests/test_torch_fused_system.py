@@ -151,9 +151,10 @@ def test_plain_versions_agree_with_each_other():
 
 
 def _other_families(module):
-    """Problems of the JAX kernels' families and meshes that the port does
-    not cover yet: Navier-Stokes on a 9 x 9 Cartesian mesh and the wave
-    system on a 9 x 9 polar mesh away from the origin."""
+    """Problems of the JAX kernels' families and meshes beyond the port's
+    first Cartesian K5 families: Navier-Stokes on a 9 x 9 Cartesian mesh
+    and on a 9 x 9 polar mesh away from the origin, and the wave system on
+    that polar mesh."""
     bc = module.DirichletBoundaryCondition(
         lambda x, t: np.zeros((len(x), 4)), is_static=True
     )
@@ -162,19 +163,25 @@ def _other_families(module):
         module.Mesh([(0.0, 2.0)] * 2, [0.25] * 2),
         [(bc, bc)] * 2,
     )
+    polar_mesh = module.Mesh(
+        [(1.0, 3.0), (0.0, 2.0)],
+        [0.25] * 2,
+        module.CoordinateSystem.POLAR,
+    )
+    polar_navier_stokes = module.ConstrainedProblem(
+        module.NavierStokesEquation(500.0), polar_mesh, [(bc, bc)] * 2
+    )
     bc = module.NeumannBoundaryCondition(
         lambda x, t: np.zeros((len(x), 2)), is_static=True
     )
     polar = module.ConstrainedProblem(
-        module.WaveEquation(2, 0.5),
-        module.Mesh(
-            [(1.0, 3.0), (0.0, 2.0)],
-            [0.25] * 2,
-            module.CoordinateSystem.POLAR,
-        ),
-        [(bc, bc)] * 2,
+        module.WaveEquation(2, 0.5), polar_mesh, [(bc, bc)] * 2
     )
-    return {"navier_stokes": navier_stokes, "polar_wave": polar}
+    return {
+        "navier_stokes": navier_stokes,
+        "polar_navier_stokes": polar_navier_stokes,
+        "polar_wave": polar,
+    }
 
 
 @pytest.mark.parametrize("kind", ["bench", "mixed"])
@@ -201,26 +208,51 @@ def test_applicability_matches_jax_on_burgers(kind, x64_off):
 
 
 def test_families_not_ported_yet_take_the_generic_path(x64_off):
-    """A deliberate difference: the JAX kernels cover Navier-Stokes too;
-    the port's gates send it to the generic path until it is ported
-    (ROADMAP.md, Queue 2). Polar meshes take K5 in both packages, and the
-    batched K4 in neither (the JAX package's packed kernels are
-    Cartesian)."""
+    """The port's gates agree with the JAX package's on the families and
+    meshes its first kernels left to the generic path: Cartesian
+    Navier-Stokes and the polar wave take the fused kernels in both
+    packages, polar Navier-Stokes the generic path in both (the Jacobi
+    sweep inside the JAX kernel is the Cartesian one), and the batched K4
+    takes none of them in either (the JAX package's packed kernels are
+    Cartesian and have no Navier-Stokes family)."""
     jax_problems = _other_families(jax_pkg)
     torch_problems = _other_families(torch_pkg)
     for name, torch_cp in torch_problems.items():
-        assert jax_fused.fused_system_step_applicable(
-            jax_problems[name], JaxRK4()
+        admitted = name != "polar_navier_stokes"
+        assert (
+            jax_fused.fused_system_step_applicable(
+                jax_problems[name], JaxRK4()
+            )
+            == admitted
         )
-        assert torch_fused.fused_system_step_applicable(
-            torch_cp, RK4()
-        ) == (name == "polar_wave")
+        assert (
+            torch_fused.fused_system_step_applicable(torch_cp, RK4())
+            == admitted
+        )
         assert not torch_packed.packed_system_applicable(
             torch_cp, RK4(), 4
         )
         assert not jax_packed.packed_system_applicable(
             jax_problems[name], JaxRK4(), 4
         )
+
+
+def test_both_gates_admit_navier_stokes(x64_off):
+    """The Navier-Stokes family's own gate admits the Cartesian problem in
+    both packages, and only in float32 with RK4 in the port."""
+    jax_cp = _other_families(jax_pkg)["navier_stokes"]
+    torch_cp = _other_families(torch_pkg)["navier_stokes"]
+    assert jax_fused.fused_navier_stokes_step_applicable(jax_cp, JaxRK4())
+    assert torch_fused.fused_navier_stokes_step_applicable(
+        torch_cp, RK4(), torch.float32
+    )
+    assert not torch_fused.fused_navier_stokes_step_applicable(
+        torch_cp, RK4(), torch.float64
+    )
+    assert not torch_fused.fused_navier_stokes_step_applicable(
+        torch_cp, ForwardEulerMethod()
+    )
+    assert not torch_fused.fused_burgers_step_applicable(torch_cp, RK4())
 
 
 def test_applicability_requires_the_grid_to_fit_shared_memory():

@@ -1,0 +1,332 @@
+"""The Navier-Stokes family of the port's fused system kernels (the CPU
+side of ``csrc/fused_navier_stokes.cu``) and its path through the FDM
+operator and Parareal.
+
+The plain version runs in float32 against the JAX package's Pallas K5 in
+interpret mode on tests/test_fused_system.py's 17 x 17 problem over 5
+steps, to 1e-5 of the largest value (the two evaluate the same operations
+in the same order; the norm that stops the Jacobi loop is summed in
+another order and type, which could move a stopping point by one sweep),
+and in float64 against the JAX package's generic path at an
+anti-Laplacian tolerance of 1e-10, to 1e-10. The CUDA kernel itself is
+held against the plain version in tests/test_torch_cuda.py."""
+
+import functools
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import pararealml_tpu as jax_pkg
+import pararealml_tpu_torch as torch_pkg
+from pararealml_tpu.operators.fdm import FDMOperator as JaxFDMOperator
+from pararealml_tpu.operators.fdm import RK4 as JaxRK4
+from pararealml_tpu.operators.fdm import (
+    ThreePointCentralDifferenceMethod as JaxThreePoint,
+)
+from pararealml_tpu.ops import fused_system as jax_fused
+from pararealml_tpu_torch.operators.fdm import (
+    RK4,
+    FDMOperator,
+    ThreePointCentralDifferenceMethod,
+)
+from pararealml_tpu_torch.operators.parareal import PararealOperator
+from pararealml_tpu_torch.ops import fused_navier_stokes as ns
+from pararealml_tpu_torch.ops import fused_system as torch_fused
+from pararealml_tpu_torch.ops import packed_system as torch_packed
+from tests.test_torch_cuda import navier_stokes_problem
+
+torch.set_num_threads(1)
+
+TOL = 1e-5
+D_T = 0.05
+STEPS = 5
+
+
+@pytest.fixture
+def x64_off():
+    """The JAX package's fused kernels switch themselves off under x64,
+    which the suite enables; turn it off inside the test only."""
+    jax.config.update("jax_enable_x64", False)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_enable_x64", True)
+
+
+def _problems(example=False):
+    return tuple(
+        navier_stokes_problem(vars(module), example)
+        for module in (jax_pkg, torch_pkg)
+    )
+
+
+def _state(shape=(17, 17), batch=None, seed=0):
+    """O(1) four-component states from a seed (velocities included, so
+    that the advection terms act from the first stage)."""
+    lead = () if batch is None else (batch,)
+    rng = np.random.default_rng(seed)
+    return rng.uniform(-0.5, 0.5, lead + tuple(shape) + (4,)).astype(
+        np.float32
+    )
+
+
+def _assert_close(actual, expected, tol):
+    actual = np.asarray(actual, np.float64)
+    expected = np.asarray(expected, np.float64)
+    assert actual.shape == expected.shape
+    scale = float(np.abs(expected).max())
+    assert float(np.abs(actual - expected).max()) <= tol * scale
+
+
+def test_plain_version_matches_pallas_kernel(x64_off):
+    jax_cp, torch_cp = _problems()
+    y = _state()
+    expected = jax_fused.build_fused_system_rk4_trajectory(
+        jax_cp, D_T, STEPS, interpret=True
+    )(y)
+    cfg = ns._NavierStokesConfig(torch_cp, D_T)
+    frames, sweeps = ns.fused_navier_stokes_rk4_trajectory_reference(
+        torch.as_tensor(y), cfg, STEPS
+    )
+    _assert_close(frames.numpy(), np.asarray(expected), TOL)
+    assert int(sweeps) >= STEPS
+    # the end and the step are the same steps
+    end, end_sweeps = ns.fused_navier_stokes_rk4_end_reference(
+        torch.as_tensor(y), cfg, STEPS
+    )
+    np.testing.assert_array_equal(end.numpy(), frames[-1].numpy())
+    assert int(end_sweeps) == int(sweeps)
+    step, _ = ns.fused_navier_stokes_rk4_step_reference(
+        torch.as_tensor(y), cfg
+    )
+    np.testing.assert_array_equal(step.numpy(), frames[0].numpy())
+
+
+def test_plain_version_matches_jax_generic_path_in_float64():
+    jax_cp, torch_cp = _problems()
+    y = _state().astype(np.float64)
+    generic, _ = JaxFDMOperator(
+        JaxRK4(), JaxThreePoint(1e-10), D_T, fused_kernels=False
+    ).trajectory_function(jax_cp, (0.0, STEPS * D_T))
+    expected = np.asarray(generic(y, 0.0))
+    cfg = ns._NavierStokesConfig(torch_cp, D_T, anti_laplacian_tol=1e-10)
+    frames, _ = ns.fused_navier_stokes_rk4_trajectory_reference(
+        torch.as_tensor(y), cfg, STEPS
+    )
+    assert frames.dtype == torch.float64
+    scale = max(1.0, float(np.abs(expected).max()))
+    np.testing.assert_allclose(
+        frames.numpy(), expected, rtol=1e-10, atol=1e-10 * scale
+    )
+
+
+def test_fdm_operator_dispatches_navier_stokes(monkeypatch):
+    """In float32 with Jacobi the solve takes the Navier-Stokes kernel
+    (its plain version on the CPU); with BiCGStab or in float64 the
+    generic path (tests/operators/fdm/test_anti_laplacian_bicgstab.py's
+    ``test_navier_stokes_bicgstab_stays_off_fused_kernel``). The fused
+    float32 solve agrees with the generic one in float32."""
+    _, cp = _problems()
+
+    def fdm(method="jacobi", **kwargs):
+        return FDMOperator(
+            RK4(),
+            ThreePointCentralDifferenceMethod(
+                tol=1e-4, anti_laplacian_method=method
+            ),
+            D_T,
+            device="cpu",
+            **kwargs,
+        )
+
+    interval = (0.0, STEPS * D_T)
+    fused, _ = fdm(dtype=torch.float32).trajectory_function(cp, interval)
+    assert fused.fused
+    bicgstab = fdm("bicgstab", dtype=torch.float32)
+    assert not bicgstab._fused_anti_laplacian_compatible(cp)
+    assert not bicgstab.trajectory_function(cp, interval)[0].fused
+    assert bicgstab.ends_function(cp, interval, batch=2).fused is False
+    assert not fdm(dtype=torch.float64).trajectory_function(cp, interval)[
+        0
+    ].fused
+    # non-Y_LAPLACIAN problems stay fused under BiCGStab
+    burgers = torch_pkg.ConstrainedProblem(
+        torch_pkg.BurgersEquation(2, 100.0),
+        torch_pkg.Mesh([(0.0, 2.0)] * 2, [0.25] * 2),
+        [
+            (
+                torch_pkg.NeumannBoundaryCondition(
+                    lambda x, t: np.zeros((len(x), 2)), is_static=True
+                ),
+            )
+            * 2
+        ]
+        * 2,
+    )
+    assert bicgstab._fused_anti_laplacian_compatible(burgers)
+
+    calls = []
+    wrapper = ns.fused_navier_stokes_rk4_trajectory
+
+    def counting(y, cfg, n_steps, cluster_size=None):
+        calls.append((tuple(y.shape), n_steps, cfg.tol))
+        return wrapper(y, cfg, n_steps, cluster_size)
+
+    monkeypatch.setattr(ns, "fused_navier_stokes_rk4_trajectory", counting)
+    ic = torch_pkg.DiscreteInitialCondition(cp, _state(), True)
+    ivp = torch_pkg.InitialValueProblem(cp, interval, ic)
+    solution = fdm(dtype=torch.float32).solve(ivp).discrete_y()
+    assert calls == [((1, 17, 17, 4), STEPS, 1e-4)]
+    generic = fdm(dtype=torch.float32, fused_kernels=False).solve(ivp)
+    assert np.allclose(solution, generic.discrete_y(), atol=1e-3)
+    assert np.isfinite(solution).all()
+
+
+def test_cluster_cap_differs_from_the_jax_vmem_cap(x64_off):
+    """A deliberate difference (ROADMAP.md, Queue 3): the JAX package runs
+    its Navier-Stokes K5 wherever the grid fits its VMEM budget (93,750
+    padded cells for four components); the port needs it to fit a
+    cluster of at most 8 blocks (up to 186 x 186) and takes the
+    generic path past that. The example's 101 x 81 takes the kernel in
+    both; 201 x 201 (40,401 cells) only in the JAX package."""
+    for example in (False, True):
+        jax_cp, torch_cp = _problems(example)
+        assert jax_fused.fused_navier_stokes_step_applicable(jax_cp, JaxRK4())
+        assert torch_fused.fused_navier_stokes_step_applicable(
+            torch_cp, RK4()
+        )
+    jax_cp, torch_cp = (
+        module.ConstrainedProblem(
+            module.NavierStokesEquation(500.0),
+            module.Mesh([(0.0, 5.0)] * 2, [0.025] * 2),
+            [
+                (
+                    module.DirichletBoundaryCondition(
+                        lambda x, t: np.zeros((len(x), 4)), is_static=True
+                    ),
+                )
+                * 2
+            ]
+            * 2,
+        )
+        for module in (jax_pkg, torch_pkg)
+    )
+    assert torch_cp.mesh.vertices_shape == (201, 201)
+    assert jax_fused.fused_navier_stokes_step_applicable(jax_cp, JaxRK4())
+    assert torch_fused.fits_reference_vmem(torch_cp)
+    assert ns.make_cluster_plan_2d(201, 201) is None
+    assert not torch_fused.fused_navier_stokes_step_applicable(
+        torch_cp, RK4()
+    )
+    operator = FDMOperator(
+        RK4(), ThreePointCentralDifferenceMethod(), D_T, device="cpu",
+        dtype=torch.float32,
+    )
+    assert not operator.trajectory_function(torch_cp, (0.0, D_T))[0].fused
+    assert operator.ends_function(torch_cp, (0.0, D_T)).fused is False
+
+
+def test_cluster_plans():
+    """At 52 bytes a cell and 272 bytes of reduction scratch a block, the
+    smallest cluster whose largest slab fits 227 KB."""
+    assert ns.shared_memory_bytes_2d(51, 81) == 215_084
+    assert ns.make_cluster_plan_2d(17, 17).cluster_size == 1
+    plan = ns.make_cluster_plan_2d(101, 81)
+    assert (plan.cluster_size, plan.slab) == (2, 51)
+    assert ns.make_cluster_plan_2d(186, 186).cluster_size == 8
+    assert ns.make_cluster_plan_2d(187, 187) is None
+    assert ns.make_cluster_plan_2d(2, 50) is None
+    assert not ns.cluster_plan_2d(101, 81, 1).fits
+    with pytest.raises(ValueError, match="cluster_size"):
+        ns.cluster_plan_2d(101, 81, 3)
+    with pytest.raises(ValueError, match="cannot be split"):
+        ns.cluster_plan_2d(5, 81, 8)
+
+
+def test_wrappers_run_the_plain_version_for_cpu_tensors():
+    """On the CPU the wrappers run the plain versions, keep their sweeps
+    and launch nothing; they reject what the kernel does not take, and
+    the packed kernels K4 take no Navier-Stokes problem."""
+    _, cp = _problems()
+    cfg = ns._NavierStokesConfig(cp, D_T)
+    ys = torch.as_tensor(_state(batch=2))
+    wrappers = (
+        ns.fused_navier_stokes_rk4_trajectory,
+        ns.fused_navier_stokes_rk4_end,
+        ns.fused_navier_stokes_rk4_step,
+    )
+    launches = [wrapper.launches for wrapper in wrappers]
+    frames = wrappers[0](ys, cfg, 3)
+    expected, sweeps = ns.fused_navier_stokes_rk4_trajectory_reference(
+        ys, cfg, 3
+    )
+    np.testing.assert_array_equal(frames.numpy(), expected.numpy())
+    assert torch.equal(wrappers[0].sweeps, sweeps)
+    assert sweeps.shape == (2,)
+    np.testing.assert_array_equal(
+        wrappers[1](ys, cfg, 3).numpy(), frames[:, -1].numpy()
+    )
+    np.testing.assert_array_equal(
+        wrappers[2](ys[0], cfg).numpy(), frames[0, 0].numpy()
+    )
+    assert [wrapper.launches for wrapper in wrappers] == launches
+    with pytest.raises(TypeError, match="float32"):
+        wrappers[1](ys.double(), cfg, 1)
+    with pytest.raises(ValueError, match="shape"):
+        wrappers[1](ys[..., :2].contiguous(), cfg, 1)
+    assert not torch_packed.packed_system_applicable(cp, RK4(), 4)
+    polar = torch_pkg.ConstrainedProblem(
+        torch_pkg.NavierStokesEquation(),
+        torch_pkg.Mesh(
+            [(1.0, 2.0), (0.0, 1.0)],
+            [0.25] * 2,
+            torch_pkg.CoordinateSystem.POLAR,
+        ),
+        [
+            (
+                torch_pkg.DirichletBoundaryCondition(
+                    lambda x, t: np.zeros((len(x), 4)), is_static=True
+                ),
+            )
+            * 2
+        ]
+        * 2,
+    )
+    assert not torch_fused.fused_system_step_applicable(polar, RK4())
+    with pytest.raises(ValueError, match="Cartesian"):
+        ns._NavierStokesConfig(polar, D_T)
+    with pytest.raises(ValueError, match="non-negative"):
+        ns._NavierStokesConfig(cp, D_T, anti_laplacian_max_iterations=-1)
+
+
+def test_parareal_reaches_the_batched_end_function(monkeypatch):
+    """A 2-slice Parareal over the 17 x 17 problem takes every iteration's
+    fine ends through the batched end function (one state a cluster on
+    the card) and matches the fine solve."""
+    _, cp = _problems()
+    ic = torch_pkg.DiscreteInitialCondition(cp, _state(), True)
+    ivp = torch_pkg.InitialValueProblem(cp, (0.0, 0.5), ic)
+    calls = []
+    wrapper = ns.fused_navier_stokes_rk4_end
+
+    def counting(y, cfg, n_steps, cluster_size=None):
+        calls.append(tuple(y.shape))
+        return wrapper(y, cfg, n_steps, cluster_size)
+
+    monkeypatch.setattr(ns, "fused_navier_stokes_rk4_end", counting)
+    fdm = functools.partial(
+        FDMOperator,
+        RK4(),
+        ThreePointCentralDifferenceMethod(),
+        device="cpu",
+        dtype=torch.float32,
+    )
+    fine = fdm(D_T)
+    parareal = PararealOperator(fine, fdm(0.125), 1e-4, num_time_slices=2)
+    ys = parareal.solve(ivp).discrete_y()
+    assert (2, 17, 17, 4) in calls
+    expected = fine.solve(ivp).discrete_y()
+    assert ys.shape == expected.shape
+    assert float(np.abs(ys - expected).max()) <= 1e-4

@@ -547,8 +547,10 @@ def test_operators_default_to_the_cuda_card():
 def test_port_runs_without_jax():
     """The port imports no JAX, flax, scikit-learn, msgpack or the JAX
     package: with those imports made to fail, the package imports, solves
-    a 5-step diffusion problem, saves and loads a model, and runs the
-    Burgers slice's ML-coarse Parareal (9 x 9, two slices of 0.1)."""
+    a 5-step diffusion problem, saves and loads a model, runs the
+    Burgers slice's ML-coarse Parareal (9 x 9, two slices of 0.1) and
+    solves a 2-step Navier-Stokes problem (17 x 17) through the fused and
+    the generic path."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     script = textwrap.dedent(
         """
@@ -602,6 +604,21 @@ def test_port_runs_without_jax():
         ).solve(ivp).discrete_y()
         assert ys.shape == (80, 9, 9, 2), ys.shape
         assert np.isfinite(ys).all()
+
+        # Navier-Stokes: the fused float32 solve (its kernel's plain
+        # version on the CPU) and the generic float64 one, whose
+        # stream function takes the anti-Laplacian
+        from tests.test_torch_cuda import navier_stokes_problem
+        cp = navier_stokes_problem(vars(p))
+        ic = p.ContinuousInitialCondition(cp, lambda x: np.zeros((len(x), 4)))
+        ivp = p.InitialValueProblem(cp, (0.0, 0.1), ic)
+        for dtype in (torch.float32, torch.float64):
+            ys = FDMOperator(
+                RK4(), ThreePointCentralDifferenceMethod(), 0.05,
+                device="cpu", dtype=dtype,
+            ).solve(ivp).discrete_y()
+            assert ys.shape == (2, 17, 17, 4), ys.shape
+            assert np.isfinite(ys).all()
         assert not any(
             name.split(".")[0] in BLOCKED
             for name in sys.modules if sys.modules[name] is not None
