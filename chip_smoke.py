@@ -491,6 +491,28 @@ NS_KERNELS = (
 NS_FLOPS_PER_CELL_STEP = 86
 NS_FLOPS_PER_CELL_SWEEP = 15
 
+# the end modes past one CTA: an 8-slice Parareal over
+# examples/wave_2d_fdm.py's problem (101^2, past one CTA; fine d_t 0.01,
+# the example's own, coarse d_t 0.05), its fine ends through the batched
+# K8 end, its coarse ends through the single-state K8 end; and
+# bench.py:build_problem's diffusion (d = 0.05) at 201^2 with a Dirichlet
+# square of 2 over the middle ninth, past one CTA, through K7's end mode
+WAVE_PARAREAL_T_END = 20.0
+WAVE_PARAREAL_SLICES = 8
+WAVE_PARAREAL_COARSE_D_T = 0.05
+WAVE_PARAREAL_TOLERANCE = 1e-3
+END_K8_SHAPE = (101, 101)
+END_SMALL_STEPS = 21
+END_K7_N = 201
+END_K7_STEPS = 200
+END_K7_D_T = 1e-3
+END_K7_SQUARE = 2.0
+END_REPLACES = {
+    "tiled_system_rk4_end": "pararealml_tpu/ops/fused_system.py:964",
+    "tiled_system_rk4_end:polar": "pararealml_tpu/ops/fused_system.py:964",
+    "resident_diffusion_rk4_end": "pararealml_tpu/ops/fused_diffusion.py:538",
+}
+
 # the card's published peaks (NVIDIA H100 SXM data sheet, at the 700 W
 # power limit): HBM bytes per second and float32 operations per second
 # outside the tensor cores
@@ -538,6 +560,49 @@ FLOPS_PER_CELL_STEP.update(
         "polar-cahn-hilliard": 50,
     }
 )
+
+
+# K5's and K4's times before the K5 redesign, at the shapes this script
+# times them (PERF.md, section 6: this script's earlier runs on an NVIDIA
+# H100 80GB HBM3 at 700 W), printed beside this run's
+K5_BEFORE_REDESIGN_MS = {
+    ("packed_system_rk4_ends",
+     "B=100, 800 steps (one iteration's fine ends)"): 4.047,
+    ("packed_system_rk4_trajectory",
+     "B=100, 800 steps (the final expansion)"): 4.073,
+    ("fused_system_rk4_trajectory", "21x21x2, 2000 steps"): 10.073,
+    ("fused_system_rk4_end", "21x21x2, 800 steps"): 4.157,
+    ("fused_system_rk4_step", "21x21x2, 1 step"): 0.121,
+    ("burgers fine", "80000 steps"): 399.375,
+    ("packed_system_rk4_ends:cahn-hilliard",
+     "B=8 x 41^2 x 2 Cahn-Hilliard, 500 steps (one iteration's fine ends)"):
+        1.570,
+    ("packed_system_rk4_trajectory:cahn-hilliard",
+     "B=8 x 41^2 x 2 Cahn-Hilliard, 500 steps (the final expansion)"): 1.665,
+    ("fused_system_rk4_trajectory:cahn-hilliard",
+     "41^2 x 2 Cahn-Hilliard, 800 coarse steps (the coarse roll-out)"): 2.695,
+    ("fused_system_rk4_end:cahn-hilliard",
+     "41^2 x 2 Cahn-Hilliard, 100 coarse steps (one slice of a coarse "
+     "sweep)"): 0.430,
+    ("fused_system_rk4_trajectory:wave", "21 x 23 x 2 wave, 200 steps"): 0.633,
+    ("fused_system_rk4_trajectory:shallow-water",
+     "21 x 23 x 3 shallow-water, 200 steps"): 1.418,
+    ("cahn-hilliard 41^2 fine", "4000 steps"): 12.784,
+    ("fused_system_rk4_trajectory:polar",
+     "36 x 51 x 3 polar shallow water, 100 steps"): 1.682,
+    ("fused_system_rk4_end:polar",
+     "36 x 51 x 3 polar shallow water, 100 steps"): 1.603,
+    ("fused_system_rk4_step:polar",
+     "36 x 51 x 3 polar shallow water, 1 step"): 0.110,
+    ("shallow water polar 36 x 51 x 3", "4000 steps"): 60.153,
+}
+
+
+def before_redesign(key, what):
+    """``; before the K5 redesign X ms`` where section 6 of PERF.md has
+    the time of ``key`` at ``what``, else an empty string."""
+    ms = K5_BEFORE_REDESIGN_MS.get((key, what))
+    return "" if ms is None else f"; before the K5 redesign {ms:.3f} ms"
 
 
 def bound(bytes_moved: float, flops: float):
@@ -777,10 +842,12 @@ def burgers(prml, t_end=None, mixed=False):
     return prml.InitialValueProblem(cp, (0.0, t_end), ic)
 
 
-def burgers_phases(torch, prml, device, card, cuda_ms, device_busy_ms):
+def burgers_phases(
+    torch, prml, device, card, cuda_ms, once_ms, device_busy_ms
+):
     """Phases 5-8: the Burgers path. Returns the kernels' entries of the
-    JSON line. ``cuda_ms`` and ``device_busy_ms`` are the timing and
-    profiling functions."""
+    JSON line. ``cuda_ms``, ``once_ms`` and ``device_busy_ms`` are the
+    timing and profiling functions."""
     from pararealml_tpu_torch.operators.fdm import (
         RK4,
         FDMOperator,
@@ -971,7 +1038,8 @@ def burgers_phases(torch, prml, device, card, cuda_ms, device_busy_ms):
     log(
         f"time: burgers fine solve, K5 trajectory, {fine_steps} steps: "
         f"{run_ms['burgers fine']:.3f} ms, bound {fine_bound_ms * 1e3:.3f} "
-        f"us ({fine_bound_by}) [{card}]"
+        f"us ({fine_bound_by})"
+        f"{before_redesign('burgers fine', f'{fine_steps} steps')} [{card}]"
     )
     for label, parareal in parareals.items():
         program, _ = parareal.trajectory_function(cp, (0.0, BURGERS_T_END))
@@ -1022,14 +1090,12 @@ def burgers_phases(torch, prml, device, card, cuda_ms, device_busy_ms):
     for name, module, replaces, on_path in SYSTEM_KERNELS:
         what, args, (bound_ms, bound_by) = timings[name]
         kernel_ms = cuda_ms(torch, lambda: wrappers[name](*args))
-        heavy = len(args) == 3 and args[2] >= slice_steps
-        plain_ms = cuda_ms(
-            torch, lambda: plain[name](*args), reps=3 if heavy else 5
-        )
+        # the plain versions take seconds at the path's shapes: one run
+        plain_ms = once_ms(torch, lambda: plain[name](*args))
         log(
             f"time: {name} ({what}): kernel {kernel_ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms, bound {bound_ms * 1e3:.3f} us "
-            f"({bound_by}) [{card}]"
+            f"{plain_ms:.3f} ms (one run), bound {bound_ms * 1e3:.3f} us "
+            f"({bound_by}){before_redesign(name, what)} [{card}]"
         )
         entries.append(
             {
@@ -1049,6 +1115,40 @@ def burgers_phases(torch, prml, device, card, cuda_ms, device_busy_ms):
                 "timed": what,
             }
         )
+
+    # the example's data generation: EXAMPLE_SLICES batched K5 trajectory
+    # launches of EXAMPLE_RUNS perturbed states over one slice each, timed
+    # end to end (host loop and perturbations included) and one launch
+    # alone
+    def generate():
+        set_random_seed(SEEDS[0])
+        example_coarse.generate_data(
+            example_ivp,
+            fine,
+            EXAMPLE_RUNS,
+            lambda t, y: y * np.random.uniform(0.9, 1.1, size=y.shape),
+        )
+
+    generate_ms = cuda_ms(torch, generate, reps=3)
+    example_steps = round(EXAMPLE_T_END / EXAMPLE_SLICES / BURGERS_FINE_D_T)
+    runs_batch = torch.stack(
+        [y_grid * (0.9 + 0.02 * i) for i in range(EXAMPLE_RUNS)]
+    ).contiguous()
+    launch_ms = cuda_ms(
+        torch,
+        lambda: fs.fused_system_rk4_trajectory(runs_batch, cfg, example_steps),
+    )
+    launch_bound_ms, launch_bound_by = stencil_bound(
+        "burgers", EXAMPLE_RUNS, example_steps, cells, 2, True
+    )
+    log(
+        f"time: generate_data ({EXAMPLE_SLICES} batched K5 trajectory "
+        f"launches of B={EXAMPLE_RUNS} x {example_steps} steps): "
+        f"{generate_ms:.3f} ms end to end; one launch {launch_ms:.3f} ms "
+        f"(x {EXAMPLE_SLICES} = {EXAMPLE_SLICES * launch_ms:.3f} ms), bound "
+        f"{launch_bound_ms * 1e3:.3f} us ({launch_bound_by}) [{card}]"
+    )
+    del runs_batch
 
     # -- phase 8: device busy time and idle share (torch.profiler) -------
     for label, run in runs.items():
@@ -2728,7 +2828,13 @@ def system_2d_phases(
     parareal_ms = run_ms["cahn-hilliard 41^2 parareal"]
     log(
         f"time: cahn-hilliard 41^2 fine solve (K5 trajectory, "
-        f"{slice_steps * CH_PARAREAL_SLICES} steps): {fine_ms:.3f} ms; "
+        f"{slice_steps * CH_PARAREAL_SLICES} steps): {fine_ms:.3f} ms"
+        + before_redesign(
+            "cahn-hilliard 41^2 fine",
+            f"{slice_steps * CH_PARAREAL_SLICES} steps",
+        )
+        + "; "
+        f"Parareal, {CH_PARAREAL_SLICES} slices: {parareal_ms:.3f} ms, "
         f"Parareal, {CH_PARAREAL_SLICES} slices: {parareal_ms:.3f} ms, "
         f"speedup {fine_ms / parareal_ms:.3f}x, "
         f"{parareal.last_iterations} iterations [{card}]"
@@ -2810,7 +2916,8 @@ def system_2d_phases(
             f"time: {key} ({what}): kernel {kernel_ms:.3f} ms, plain "
             f"{plain_ms:.3f} ms (one run), bound {bound_ms * 1e3:.3f} us "
             f"({bound_by}); against the plain version there "
-            f"max|d|/max|y| = {rel_err:.3e} [{card}]"
+            f"max|d|/max|y| = {rel_err:.3e}{before_redesign(key, what)} "
+            f"[{card}]"
         )
         entries.append(
             {
@@ -3317,7 +3424,11 @@ def polar_phases(
             bound_ms, bound_by = stencil_bound(
                 family, 1, steps, kcfg.height * kcfg.width, kcfg.n, True
             )
-            what = "K5, one CTA"
+            clusters = fs.k5_cluster_size(kcfg)
+            what = (
+                "K5, one CTA" if clusters == 1
+                else f"K5, a cluster of {clusters} blocks"
+            )
         generic_fn, _ = fdm(d_t, fused_kernels=False).trajectory_function(
             cp, (0.0, SYSTEM_TIMED_STEPS * d_t)
         )
@@ -3330,7 +3441,8 @@ def polar_phases(
             f"path "
             f"{SYSTEM_TIMED_STEPS} steps {generic_ms:.3f} ms, scaled to "
             f"{steps} steps {scaled_ms:.3f} ms (scaled, not run): "
-            f"{scaled_ms / run_ms[label]:.3f}x [{card}]"
+            f"{scaled_ms / run_ms[label]:.3f}x"
+            f"{before_redesign(label, f'{steps} steps')} [{card}]"
         )
     spherical_fn, spherical_t = fdm(spherical_d_t).trajectory_function(
         spherical_ivp.constrained_problem, spherical_ivp.t_interval
@@ -3397,7 +3509,8 @@ def polar_phases(
             f"time: {key} ({what}): kernel {kernel_ms:.3f} ms, plain "
             f"{plain_ms:.3f} ms (one run), bound {bound_ms * 1e3:.3f} us "
             f"({bound_by}); against the plain version there "
-            f"max|d|/max|y| = {rel_err:.3e} [{card}]"
+            f"max|d|/max|y| = {rel_err:.3e}{before_redesign(key, what)} "
+            f"[{card}]"
         )
         source, replaces = sources[name]
         entries.append(
@@ -3902,6 +4015,437 @@ def navier_stokes_phases(
     return entries
 
 
+def interior_square(prml, cp, value):
+    """Adds a Dirichlet square of ``value`` over the middle ninth of a
+    one-component problem's grid to its static y constraints (the face
+    ones stay): constraints inside the grid, which K7 applies after every
+    stage and the tiled kernel K6 refuses."""
+    from pararealml_tpu_torch.constraint import Constraint
+
+    height, width = cp.mesh.vertices_shape
+    old = cp.static_y_vertex_constraints
+    mask = np.asarray(old.mask).reshape(height, width).copy()
+    values = np.where(mask, np.asarray(old.values).reshape(height, width), 0.0)
+    rows = slice(height // 3, 2 * height // 3)
+    cols = slice(width // 3, 2 * width // 3)
+    mask[rows, cols] = True
+    values[rows, cols] = value
+    cp._y_vertex_constraints = Constraint(
+        values.reshape(np.asarray(old.values).shape),
+        mask.reshape(np.asarray(old.mask).shape),
+    )
+    return cp
+
+
+def end_bound(family, cells, n, batch, n_steps, flops_per_cell_step=None):
+    """The bound of an end-mode run: each state and its constraint data
+    (a float value and a byte mask a value) read once and the end state
+    written once, against the family's operations per cell and step."""
+    values = cells * n
+    read = 4 * batch * values + 5 * values
+    written = 4 * batch * values
+    if flops_per_cell_step is None:
+        flops_per_cell_step = FLOPS_PER_CELL_STEP[family]
+    return bound(read + written, flops_per_cell_step * batch * n_steps * cells)
+
+
+def load_tool(name):
+    """The module ``tools/<name>.py`` of this checkout."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name,
+        os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "tools", f"{name}.py"
+        ),
+    )
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def end_mode_phases(
+    torch, prml, device, card, cuda_ms, once_ms, device_busy_ms
+):
+    """Phases 29-32: the end states past one CTA (K8's and K7's end
+    modes, K7 with Dirichlet constraints inside the grid) and the K5 step
+    split. Returns their entries of the JSON line. ``cuda_ms``,
+    ``once_ms`` and ``device_busy_ms`` are the timing and profiling
+    functions."""
+    from pararealml_tpu_torch.operators.fdm import (
+        RK4,
+        FDMOperator,
+        ThreePointCentralDifferenceMethod,
+    )
+    from pararealml_tpu_torch.operators.parareal import PararealOperator
+    from pararealml_tpu_torch.ops import resident_diffusion as rd
+    from pararealml_tpu_torch.ops import tiled_diffusion as td
+    from pararealml_tpu_torch.ops import tiled_system as ts
+
+    started = time.perf_counter()
+    k8_end, k7_end = ts.tiled_system_rk4_end, rd.resident_diffusion_rk4_end
+    counted = {
+        "tiled_system_rk4_end": k8_end,
+        "tiled_system_rk4_trajectory": ts.tiled_system_rk4_trajectory,
+        "resident_diffusion_rk4_end": k7_end,
+        "resident_diffusion_rk4_trajectory": (
+            rd.resident_diffusion_rk4_trajectory
+        ),
+    }
+    errors = {}
+
+    def check(key, what, kernel, plain, tolerance=KERNEL_REL_TOL):
+        torch.cuda.synchronize()
+        assert kernel.shape == plain.shape, (key, what)
+        assert kernel.dtype == plain.dtype, (key, what)
+        abs_err = float((kernel.float() - plain.float()).abs().max())
+        rel_err = abs_err / float(plain.float().abs().max())
+        errors[key] = max(errors.get(key, 0.0), abs_err)
+        log(f"kernels: {key} ({what}): max|d|/max|y| = {rel_err:.3e}")
+        if not rel_err <= tolerance:
+            raise AssertionError(
+                f"{key} disagrees with its plain version ({what}): "
+                f"{rel_err:.3e}"
+            )
+        return rel_err
+
+    def fdm(d_t, **kwargs):
+        return FDMOperator(
+            RK4(), ThreePointCentralDifferenceMethod(), d_t, **kwargs
+        )
+
+    # -- phase 29: the end modes against their plain versions ------------
+    for family in ("wave", "burgers", "shallow-water", "cahn-hilliard"):
+        cp = system_problem_2d(prml, family, "dirichlet", END_K8_SHAPE)
+        cfg = ts._TiledSystemConfig(cp, 1e-3)
+        ys = smooth_states_2d(torch, device, END_K8_SHAPE, cfg.n, batch=3)
+        plain = ts.tiled_system_rk4_end_reference(ys, cfg, END_SMALL_STEPS)
+        batched = k8_end(ys, cfg, END_SMALL_STEPS)
+        check("tiled_system_rk4_end", f"{family} 101^2, B=3", batched, plain)
+        check(
+            "tiled_system_rk4_end",
+            f"{family} 101^2, single",
+            k8_end(ys[1], cfg, END_SMALL_STEPS),
+            plain[1],
+        )
+        # the end mode is the trajectory without its frames
+        frames = ts.tiled_system_rk4_trajectory(ys, cfg, END_SMALL_STEPS)
+        assert torch.equal(batched, frames[:, -1]), family
+    polar_ivp, polar_d_t = wave_polar_example(prml)
+    polar_cp = polar_ivp.constrained_problem
+    polar_cfg = ts._TiledSystemConfig(polar_cp, polar_d_t)
+    polar_shape = polar_cp.mesh.vertices_shape
+    ys = smooth_states_2d(torch, device, polar_shape, 2, batch=2)
+    plain = ts.tiled_system_rk4_end_reference(ys, polar_cfg, END_SMALL_STEPS)
+    check(
+        "tiled_system_rk4_end:polar",
+        "polar wave 51 x 201, B=2",
+        k8_end(ys, polar_cfg, END_SMALL_STEPS),
+        plain,
+    )
+    check(
+        "tiled_system_rk4_end:polar",
+        "polar wave 51 x 201, single",
+        k8_end(ys[0], polar_cfg, END_SMALL_STEPS),
+        plain[0],
+    )
+    try:
+        k8_end(ys, polar_cfg, 2, plan=polar_cfg.plan._replace(halo=0))
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("K8's end mode took a plan without a halo")
+
+    diffusion_ivp = bench_diffusion(
+        prml, END_K7_N, END_K7_STEPS, END_K7_D_T
+    )
+    interior_cp = interior_square(
+        prml, diffusion_ivp.constrained_problem, END_K7_SQUARE
+    )
+    faces_cp = bench_diffusion(
+        prml, END_K7_N, END_K7_STEPS, END_K7_D_T
+    ).constrained_problem
+    y_k7 = torch.as_tensor(
+        diffusion_ivp.initial_condition.discrete_y_0(True)[..., 0],
+        dtype=torch.float32,
+        device=device,
+    ).contiguous()
+    ys_k7 = torch.stack([y_k7, 0.5 * y_k7 + 0.75]).contiguous()
+    for label, cp in (("faces", faces_cp), ("interior square", interior_cp)):
+        cfg = td._HornerConfig(cp, END_K7_D_T, resident=True)
+        assert cfg.interior_dirichlet == (cp is interior_cp)
+        plain = rd.resident_diffusion_rk4_end_reference(
+            ys_k7, cfg, END_SMALL_STEPS
+        )
+        end = k7_end(ys_k7, cfg, END_SMALL_STEPS)
+        check("resident_diffusion_rk4_end", f"201^2 {label}, B=2", end, plain)
+        frames = rd.resident_diffusion_rk4_trajectory(
+            y_k7, cfg, END_SMALL_STEPS
+        )
+        assert torch.equal(end[0], frames[-1]), label
+        check(
+            "resident_diffusion_rk4_trajectory:interior",
+            f"201^2 {label}",
+            frames,
+            rd.resident_diffusion_rk4_trajectory_reference(
+                y_k7, cfg, END_SMALL_STEPS
+            ),
+        )
+    log(f"phase end-mode kernels: ok ({time.perf_counter() - started:.1f} s)")
+
+    # -- phase 30: the main paths, counted --------------------------------
+    wave_ivp, wave_d_t = wave_example(prml)
+    wave_cp = wave_ivp.constrained_problem
+    wave_parareal_ivp = prml.InitialValueProblem(
+        wave_cp, (0.0, WAVE_PARAREAL_T_END), wave_ivp.initial_condition
+    )
+    parareal = PararealOperator(
+        fdm(wave_d_t),
+        fdm(WAVE_PARAREAL_COARSE_D_T),
+        WAVE_PARAREAL_TOLERANCE,
+        num_time_slices=WAVE_PARAREAL_SLICES,
+    )
+    diffusion = fdm(END_K7_D_T)
+    k7_interval = (0.0, END_K7_STEPS * END_K7_D_T)
+    # an initial condition made on the problem with the square applies it
+    k7_ivp = prml.InitialValueProblem(
+        interior_cp,
+        k7_interval,
+        prml.DiscreteInitialCondition(
+            interior_cp,
+            diffusion_ivp.initial_condition.discrete_y_0(True),
+            True,
+        ),
+    )
+    for wrapper in counted.values():
+        wrapper.launches = 0
+    parareal_ys = parareal.solve(wave_parareal_ivp).discrete_y()
+    iterations = parareal.last_iterations
+    k7_ends = diffusion.ends_function(interior_cp, k7_interval)
+    k7_y0 = torch.as_tensor(
+        k7_ivp.initial_condition.discrete_y_0(True),
+        dtype=torch.float32,
+        device=device,
+    )
+    k7_end_state = k7_ends(k7_y0, 0.0)
+    k7_solution = diffusion.solve(k7_ivp).discrete_y()
+    launches = {name: w.launches for name, w in counted.items()}
+    log(
+        f"end-mode main-path launches: {launches}; wave parareal "
+        f"{iterations} iterations [{card}]"
+    )
+    assert k7_ends.fused and k7_ends.vmappable is False
+    # every iteration's fine ends (B = 8) and at least one coarse end
+    assert launches["tiled_system_rk4_end"] > iterations
+    assert launches["tiled_system_rk4_trajectory"] >= 1
+    assert launches["resident_diffusion_rk4_end"] == 1
+    assert launches["resident_diffusion_rk4_trajectory"] == 1
+    wave_fine = fdm(wave_d_t).solve(wave_parareal_ivp).discrete_y()
+    assert parareal_ys.shape == wave_fine.shape
+    assert np.isfinite(parareal_ys).all()
+    parareal_diff = float(np.abs(parareal_ys - wave_fine).max())
+    log(
+        f"phase end-mode parareal: wave 101^2, {WAVE_PARAREAL_SLICES} "
+        f"slices over T = {WAVE_PARAREAL_T_END:g}, {iterations} iterations, "
+        f"max diff vs fine {parareal_diff:.3e} (gate "
+        f"{2 * WAVE_PARAREAL_TOLERANCE:g})"
+    )
+    assert parareal_diff <= 2 * WAVE_PARAREAL_TOLERANCE
+    # the K7 end: the trajectory's last frame, the square held; the
+    # trajectory's first frames against the generic path
+    k7_end_np = k7_end_state.double().cpu().numpy()
+    assert np.array_equal(k7_end_np, k7_solution[-1])
+    middle = slice(END_K7_N // 3, 2 * END_K7_N // 3)
+    square = k7_end_np[middle, middle]
+    assert np.all(square == END_K7_SQUARE)
+    generic_fn, _ = fdm(END_K7_D_T, fused_kernels=False).trajectory_function(
+        interior_cp, (0.0, SYSTEM_HEAD_STEPS * END_K7_D_T)
+    )
+    generic = generic_fn(k7_y0, 0.0).double().cpu().numpy()
+    assert np.allclose(
+        k7_solution[:SYSTEM_HEAD_STEPS], generic, atol=1e-4, rtol=1e-4
+    )
+    log(
+        f"phase end-mode diffusion: 201^2 with a Dirichlet square inside, "
+        f"{END_K7_STEPS} steps: K7 end equals K7's last frame, square "
+        f"held at {END_K7_SQUARE:g}, first {SYSTEM_HEAD_STEPS} frames within "
+        f"atol = rtol = 1e-4 of the generic path "
+        f"({time.perf_counter() - started:.1f} s)"
+    )
+    del parareal_ys, wave_fine, k7_solution
+
+    # -- phase 31: times ---------------------------------------------------
+    runs, run_ms = {}, {}
+    slice_steps = round(WAVE_PARAREAL_T_END / WAVE_PARAREAL_SLICES / wave_d_t)
+    program, _ = parareal.trajectory_function(
+        wave_cp, (0.0, WAVE_PARAREAL_T_END)
+    )
+    wave_y0 = torch.as_tensor(
+        wave_ivp.initial_condition.discrete_y_0(True),
+        dtype=torch.float32,
+        device=device,
+    )
+    fine_fn, _ = fdm(wave_d_t).trajectory_function(
+        wave_cp, (0.0, WAVE_PARAREAL_T_END)
+    )
+    runs["wave 101^2 parareal"] = lambda: program(wave_y0)
+    runs["wave 101^2 fine"] = lambda: fine_fn(wave_y0, 0.0)
+    for label in runs:
+        run_ms[label] = cuda_ms(torch, runs[label], reps=3)
+    log(
+        f"time: wave 101^2 parareal, {WAVE_PARAREAL_SLICES} slices: "
+        f"{run_ms['wave 101^2 parareal']:.3f} ms, {parareal.last_iterations} "
+        f"iterations; its fine solve (K8 trajectory, "
+        f"{slice_steps * WAVE_PARAREAL_SLICES} steps) "
+        f"{run_ms['wave 101^2 fine']:.3f} ms [{card}]"
+    )
+    # one iteration's fine ends: the batched K8 end against the generic
+    # carry-only loop, on the same borders
+    wave_cfg = ts._TiledSystemConfig(wave_cp, wave_d_t)
+    borders = torch.stack(
+        [wave_y0 * (1.0 - 0.05 * i) for i in range(WAVE_PARAREAL_SLICES)]
+    ).contiguous()
+    fine_ends = fdm(wave_d_t).ends_function(
+        wave_cp, (0.0, slice_steps * wave_d_t), batch=WAVE_PARAREAL_SLICES
+    )
+    generic_ends = fdm(wave_d_t, fused_kernels=False).ends_function(
+        wave_cp, (0.0, slice_steps * wave_d_t)
+    )
+    assert fine_ends.fused and not generic_ends.fused
+    fused_ms = cuda_ms(torch, lambda: fine_ends(borders, 0.0))
+    generic_out = []
+    generic_ms = once_ms(
+        torch, lambda: generic_out.append(generic_ends(borders, 0.0))
+    )
+    ends_diff = float(
+        (fine_ends(borders, 0.0) - generic_out[0]).abs().max()
+        / generic_out[0].abs().max()
+    )
+    del generic_out
+    log(
+        f"time: wave 101^2 parareal fine ends (B={WAVE_PARAREAL_SLICES}, "
+        f"{slice_steps} steps: one iteration): batched K8 end "
+        f"{fused_ms:.3f} ms, generic carry-only loop {generic_ms:.3f} ms "
+        f"(one run), {generic_ms / fused_ms:.1f}x; max|d|/max|y| "
+        f"{ends_diff:.3e} [{card}]"
+    )
+    assert ends_diff <= 1e-4
+    k7_generic_ends = fdm(END_K7_D_T, fused_kernels=False).ends_function(
+        interior_cp, k7_interval
+    )
+    k7_ends_ms = cuda_ms(torch, lambda: k7_ends(k7_y0, 0.0))
+    generic_out = []
+    k7_generic_ms = once_ms(
+        torch, lambda: generic_out.append(k7_generic_ends(k7_y0, 0.0))
+    )
+    k7_diff = float(
+        (k7_ends(k7_y0, 0.0) - generic_out[0]).abs().max()
+        / generic_out[0].abs().max()
+    )
+    del generic_out
+    log(
+        f"time: diffusion 201^2 with a Dirichlet square, ends_function over "
+        f"{END_K7_STEPS} steps: K7 end {k7_ends_ms:.3f} ms, generic "
+        f"carry-only loop {k7_generic_ms:.3f} ms (one run), "
+        f"{k7_generic_ms / k7_ends_ms:.1f}x; max|d|/max|y| {k7_diff:.3e} "
+        f"[{card}]"
+    )
+    assert k7_diff <= 1e-4
+
+    interior_cfg = td._HornerConfig(interior_cp, END_K7_D_T, resident=True)
+    cells_k7 = END_K7_N * END_K7_N
+    wave_cells = wave_cfg.height * wave_cfg.width
+    timings = (
+        ("tiled_system_rk4_end", "tiled_system_rk4_end",
+         f"B={WAVE_PARAREAL_SLICES} x 101^2 x 2 wave, {slice_steps} steps "
+         "(one iteration's fine ends)",
+         (borders, wave_cfg, slice_steps), ts.tiled_system_rk4_end_reference,
+         end_bound("wave", wave_cells, 2, WAVE_PARAREAL_SLICES, slice_steps),
+         ts.tiled_system_rk4_end),
+        ("tiled_system_rk4_end:polar", "tiled_system_rk4_end",
+         f"51 x 201 x 2 polar wave, {POLAR_TIMED_STEPS} steps",
+         (ys[0], polar_cfg, POLAR_TIMED_STEPS),
+         ts.tiled_system_rk4_end_reference,
+         end_bound("polar-wave", polar_shape[0] * polar_shape[1], 2, 1,
+                   POLAR_TIMED_STEPS),
+         ts.tiled_system_rk4_end),
+        ("resident_diffusion_rk4_end", "resident_diffusion_rk4_end",
+         f"201^2 with a Dirichlet square, {END_K7_STEPS} steps",
+         (y_k7, interior_cfg, END_K7_STEPS),
+         rd.resident_diffusion_rk4_end_reference,
+         end_bound("diffusion", cells_k7, 1, 1, END_K7_STEPS,
+                   interior_cfg.flops_per_cell_step),
+         rd.resident_diffusion_rk4_end),
+    )
+    entries = []
+    for key, name, what, args, plain, (bound_ms, bound_by), wrapper in (
+        timings
+    ):
+        kernel_ms = cuda_ms(torch, lambda: wrapper(*args))
+        outputs = []
+        plain_ms = once_ms(torch, lambda: outputs.append(plain(*args)))
+        rel_err = check(key, f"{what}, timed", wrapper(*args), outputs[0])
+        del outputs
+        log(
+            f"time: {key} ({what}): kernel {kernel_ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms (one run), bound {bound_ms * 1e3:.3f} us "
+            f"({bound_by}); against the plain version there max|d|/max|y| "
+            f"= {rel_err:.3e} [{card}]"
+        )
+        entries.append(
+            {
+                "name": key,
+                "route": "cuda",
+                "source": (
+                    TILED_SYSTEM_SOURCE if name.startswith("tiled")
+                    else LARGE_SOURCE
+                ),
+                "replaces": END_REPLACES[key],
+                "on_path": key != "tiled_system_rk4_end:polar",
+                "launches": (
+                    launches[name] if key != "tiled_system_rk4_end:polar"
+                    else 0
+                ),
+                "max_abs_err": errors.get(key, 0.0),
+                "ms": kernel_ms,
+                "plain_ms": plain_ms,
+                "bound_ms": bound_ms,
+                "bound_us": bound_ms * 1e3,
+                "bound_by": bound_by,
+                "library_ms": None,
+                "timed": what,
+            }
+        )
+    log(f"phase end-mode times: ok ({time.perf_counter() - started:.1f} s)")
+
+    # -- phase 32: the K5 step split and the profiles ---------------------
+    for result in load_tool("k5_step_split").run(device, card, log):
+        barrier = sum(
+            row["cycles"] for row in result["segments"]
+            if row["segment"].startswith("barrier")
+        )
+        stages = sum(
+            row["cycles"] for row in result["segments"]
+            if row["segment"].startswith("stage")
+        )
+        log(
+            f"k5 split: {result['case']}: a step {stages:.0f} cycles in the "
+            f"stages and {barrier:.0f} at the barriers (the mean warp) "
+            f"[{card}]"
+        )
+    for label, run in runs.items():
+        busy_ms, top = device_busy_ms(torch, run, reps=1)
+        if busy_ms is None:
+            log(f"profile: {label}: not measured (no device events)")
+            continue
+        log(
+            f"profile: {label}: device busy {busy_ms:.3f} ms of "
+            f"{run_ms[label]:.3f} ms, idle share "
+            f"{1.0 - busy_ms / run_ms[label]:.3f}; top: {top} [{card}]"
+        )
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -4211,12 +4755,13 @@ def main() -> int:
 
     log(f"phases 1-4 done at {time.perf_counter() - start:.1f} s")
     for label, phases, timing in (
-        ("5-8", burgers_phases, (cuda_ms, device_busy_ms)),
+        ("5-8", burgers_phases, (cuda_ms, once_ms, device_busy_ms)),
         ("9-12", large_grid_phases, (cuda_ms, once_ms, device_busy_ms)),
         ("13-16", three_d_phases, (cuda_ms, once_ms, device_busy_ms)),
         ("17-20", system_2d_phases, (cuda_ms, once_ms, device_busy_ms)),
         ("21-24", polar_phases, (cuda_ms, once_ms, device_busy_ms)),
         ("25-28", navier_stokes_phases, (cuda_ms, once_ms, device_busy_ms)),
+        ("29-32", end_mode_phases, (cuda_ms, once_ms, device_busy_ms)),
     ):
         kernels += phases(torch, prml, device, card, *timing)
         log(f"phases {label} done at {time.perf_counter() - start:.1f} s")

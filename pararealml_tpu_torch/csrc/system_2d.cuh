@@ -124,6 +124,7 @@ struct Neighbours {
 struct WholeGrid {
   static constexpr bool kSumThenGhost = false;
   static constexpr bool kPolar = false;
+  static constexpr bool kKnownFaces = false;
   static __device__ __forceinline__ Neighbours fetch(const Planes& v,
                                                      int comp,
                                                      const Cell& x,
@@ -145,6 +146,7 @@ struct WholeGrid {
 struct Tile {
   static constexpr bool kSumThenGhost = true;
   static constexpr bool kPolar = false;
+  static constexpr bool kKnownFaces = false;
   static __device__ __forceinline__ Neighbours fetch(const Planes& v,
                                                      int comp,
                                                      const Cell& x,
@@ -170,6 +172,73 @@ struct PolarTile : Tile {
   static constexpr bool kSumThenGhost = false;
   static constexpr bool kPolar = true;
 };
+
+// A cell of Grid whose faces are known at compile time (K5 groups its
+// cells so that every warp takes one of these): TOP, BOTTOM, FIRST and
+// LAST say whether it lies on the grid's first or last row or column.
+// fetch reads no neighbour across a face it lies on and tests no other,
+// and the helpers test only those faces. For such a cell it computes what
+// Grid computes, operation for operation.
+template <class Grid, bool TOP, bool BOTTOM, bool FIRST, bool LAST>
+struct KnownFaces : Grid {
+  static constexpr bool kKnownFaces = true;
+  static constexpr bool kTop = TOP;
+  static constexpr bool kBottom = BOTTOM;
+  static constexpr bool kFirst = FIRST;
+  static constexpr bool kLast = LAST;
+  static __device__ __forceinline__ Neighbours fetch(const Planes& v,
+                                                     int comp,
+                                                     const Cell& x,
+                                                     const Params&) {
+    const float* plane = v.data + comp * v.stride;
+    Neighbours n;
+    n.centre = plane[x.idx];
+    n.above = TOP ? 0.0f : plane[x.idx - v.row];
+    n.below = BOTTOM ? 0.0f : plane[x.idx + v.row];
+    n.left = FIRST ? 0.0f : plane[x.idx - 1];
+    n.right = LAST ? 0.0f : plane[x.idx + 1];
+    return n;
+  }
+};
+
+// Whether a cell lies on the grid's first row (top), last row (bottom),
+// first column (first) or last column (last): from its coordinates, or
+// from Grid where Grid knows them.
+template <class Grid>
+__device__ __forceinline__ bool on_top(const Cell& x, const Params&) {
+  if constexpr (Grid::kKnownFaces) {
+    return Grid::kTop;
+  } else {
+    return x.i == 0;
+  }
+}
+
+template <class Grid>
+__device__ __forceinline__ bool on_bottom(const Cell& x, const Params& p) {
+  if constexpr (Grid::kKnownFaces) {
+    return Grid::kBottom;
+  } else {
+    return x.i == p.height - 1;
+  }
+}
+
+template <class Grid>
+__device__ __forceinline__ bool on_first(const Cell& x, const Params&) {
+  if constexpr (Grid::kKnownFaces) {
+    return Grid::kFirst;
+  } else {
+    return x.j == 0;
+  }
+}
+
+template <class Grid>
+__device__ __forceinline__ bool on_last(const Cell& x, const Params& p) {
+  if constexpr (Grid::kKnownFaces) {
+    return Grid::kLast;
+  } else {
+    return x.j == p.width - 1;
+  }
+}
 
 // The Neumann ghost terms of component `comp` at a boundary cell, each the
 // masked ghost value (the inward neighbour -/+ 2 dx times the constrained
@@ -198,14 +267,15 @@ __device__ __forceinline__ float ghost_col(const Neighbours& v, int comp,
 
 // gradient_0: the central row derivative, replaced on a boundary row by
 // the constrained normal derivative where the face has one.
+template <class Grid = WholeGrid>
 __device__ __forceinline__ float gradient_0(const Neighbours& v, int comp,
                                             const Cell& x, const Params& p,
                                             const Faces& f) {
   float gradient = (v.below - v.above) * p.inv_two_dx0;
-  if (x.i == 0) {
+  if (on_top<Grid>(x, p)) {
     const int face = comp * p.width + x.j;
     if (f.grm[face]) gradient = f.grv[face];
-  } else if (x.i == p.height - 1) {
+  } else if (on_bottom<Grid>(x, p)) {
     const int face = (f.n + comp) * p.width + x.j;
     if (f.grm[face]) gradient = f.grv[face];
   }
@@ -219,10 +289,10 @@ __device__ __forceinline__ float gradient_1(const Neighbours& v, int comp,
                                             const Cell& x, const Params& p,
                                             const Faces& f) {
   float gradient = (v.right - v.left) * p.inv_two_dx1;
-  if (x.j == 0) {
+  if (on_first<Grid>(x, p)) {
     const int face = comp * p.height + x.i;
     if (f.gcm[face]) gradient = f.gcv[face];
-  } else if (x.j == p.width - 1) {
+  } else if (on_last<Grid>(x, p)) {
     const int face = (f.n + comp) * p.height + x.i;
     if (f.gcm[face]) gradient = f.gcv[face];
   }
@@ -240,10 +310,10 @@ __device__ __forceinline__ float laplacian(const Neighbours& v, int comp,
   const float two_centre = 2.0f * v.centre;
   float d2_0 = ((v.above - two_centre) + v.below) * p.inv_dx0_sqr;
   float d2_1 = ((v.left - two_centre) + v.right) * p.inv_dx1_sqr;
-  const bool top = x.i == 0;
-  const bool bottom = x.i == p.height - 1;
-  const bool first = x.j == 0;
-  const bool last = x.j == p.width - 1;
+  const bool top = on_top<Grid>(x, p);
+  const bool bottom = on_bottom<Grid>(x, p);
+  const bool first = on_first<Grid>(x, p);
+  const bool last = on_last<Grid>(x, p);
   if constexpr (Grid::kSumThenGhost) {
     float lap = d2_0 + d2_1;
     if (top) lap = lap + ghost_row(v, comp, x, p, f, false);
@@ -258,7 +328,7 @@ __device__ __forceinline__ float laplacian(const Neighbours& v, int comp,
   if (last) d2_1 = d2_1 + ghost_col(v, comp, x, p, f, true);
   if constexpr (Grid::kPolar) {
     const float inv_r = f.inv_r[x.i];
-    return d2_0 + (d2_1 * inv_r + gradient_0(v, comp, x, p, f)) * inv_r;
+    return d2_0 + (d2_1 * inv_r + gradient_0<Grid>(v, comp, x, p, f)) * inv_r;
   }
   return d2_0 + d2_1;
 }
@@ -296,7 +366,7 @@ struct Burgers2D {
       const Neighbours n = Grid::fetch(v, comp, x, p);
       out[comp] =
           p.coefficient * laplacian<Grid>(n, comp, x, p, f) -
-          y_0 * gradient_0(n, comp, x, p, f) -
+          y_0 * gradient_0<Grid>(n, comp, x, p, f) -
           y_1 * gradient_1<Grid>(n, comp, x, p, f);
     }
   }
@@ -320,11 +390,11 @@ struct ShallowWater2D {
     const float eta = n_eta.centre;
     const float u = n_u.centre;
     const float w = n_w.centre;
-    const float d_eta_0 = gradient_0(n_eta, 0, x, p, f);
+    const float d_eta_0 = gradient_0<Grid>(n_eta, 0, x, p, f);
     const float d_eta_1 = gradient_1<Grid>(n_eta, 0, x, p, f);
-    const float d_u_0 = gradient_0(n_u, 1, x, p, f);
+    const float d_u_0 = gradient_0<Grid>(n_u, 1, x, p, f);
     const float d_u_1 = gradient_1<Grid>(n_u, 1, x, p, f);
-    const float d_w_0 = gradient_0(n_w, 2, x, p, f);
+    const float d_w_0 = gradient_0<Grid>(n_w, 2, x, p, f);
     const float d_w_1 = gradient_1<Grid>(n_w, 2, x, p, f);
     float div = d_u_0 + d_w_1;
     // the polar divergence's u / r

@@ -5,7 +5,12 @@
 //   K6 ops/tiled_diffusion.py build_tiled_diffusion_rk4_trajectory
 //      (state in device memory, row tiles streamed through one core), and
 //   K7 ops/resident_diffusion.py build_resident_diffusion_rk4_trajectory
-//      (state resident in one core's VMEM).
+//      (state resident in one core's VMEM),
+// and, through K7's end mode (no frames, the end state written once),
+// the JAX package's K2 end (ops/fused_diffusion.py
+// build_fused_diffusion_rk4_end) on grids past one CTA; K7 also takes the
+// dense Dirichlet grid where constraints lie inside the grid, which the
+// JAX package's K1/K2 cover below its VMEM cap.
 // Both compute what those kernels' one_step / rk4_step compute, term for
 // term and in the same order, through one __device__ stage function:
 // t <- D(y + (d_t / k) rhs(t)) for k = 4, 3, 2, 1, with the stage and
@@ -86,6 +91,11 @@ struct Problem {
   // ghost_col (2H); rows are the lower then the upper face of axis 0
   const uint8_t* masks;
   const float* values;
+  // K7 only: the dense Dirichlet grid ((H, W) byte mask and values, the
+  // face constraints included) where constraints lie inside the grid,
+  // else null
+  const uint8_t* interior_mask;
+  const float* interior_vals;
 };
 
 // One Horner stage at grid cell (gi, gj): D(y + c_s rhs(t)) from the
@@ -193,8 +203,11 @@ __device__ __forceinline__ float interior_stage(const Problem& p, int s,
 // written to `tb`, valid from margin + 4, and `ta` is scratch.
 // Out-of-grid cells are written as zero. Ends with a block barrier.
 // Cells off the faces, nearly all of them, take interior_stage; the face
-// tests of horner_stage are paid only on the faces.
-template <bool HAS_CONVECTION>
+// tests of horner_stage are paid only on the faces. With INTERIOR the
+// dense Dirichlet grid then overrides every constrained cell (the face
+// stamps agree with it where both apply), which is where the whole-grid
+// kernel K1 applies its grid, after each stage's update.
+template <bool HAS_CONVECTION, bool INTERIOR>
 __device__ __forceinline__ void rk4_step_in_tile(const Problem& p,
                                                  const float* y, float* ta,
                                                  float* tb, int rows,
@@ -216,6 +229,7 @@ __device__ __forceinline__ void rk4_step_in_tile(const Problem& p,
         const int gj = gj0 + lj;
         const int idx = li * cols + lj;
         float value = 0.0f;
+        bool in_grid = true;
         if (row_inside && static_cast<unsigned>(gj - 1) < inner_cols) {
           value = interior_stage<HAS_CONVECTION>(
               p, s, y[idx], in[idx], in[idx - cols], in[idx + cols],
@@ -224,6 +238,16 @@ __device__ __forceinline__ void rk4_step_in_tile(const Problem& p,
           value = horner_stage<HAS_CONVECTION>(
               p, s, gi, gj, y[idx], in[idx], in[idx - cols], in[idx + cols],
               in[idx - 1], in[idx + 1]);
+        } else {
+          in_grid = false;
+        }
+        if constexpr (INTERIOR) {
+          if (in_grid) {
+            const size_t cell = static_cast<size_t>(gi) * p.width + gj;
+            if (__ldg(p.interior_mask + cell)) {
+              value = __ldg(p.interior_vals + cell);
+            }
+          }
         }
         out[idx] = value;
       }
@@ -283,8 +307,8 @@ __global__ void __launch_bounds__(512, 2)
   __syncthreads();
 
   for (int step = 0; step < t.k_steps; ++step) {
-    rk4_step_in_tile<HAS_CONVECTION>(p, y, ta, tb, rows, cols, gi0, gj0,
-                                     kStepHalo * step);
+    rk4_step_in_tile<HAS_CONVECTION, false>(p, y, ta, tb, rows, cols, gi0,
+                                            gj0, kStepHalo * step);
     // the step's result is in tb; the old y becomes scratch
     float* previous = y;
     y = tb;
@@ -324,15 +348,18 @@ struct ResidentLaunch {
 
 // K7: block b keeps tile (b / n_tiles_w, b % n_tiles_w) of the state in
 // shared memory for all n_steps, with a halo of 4 * steps_per_barrier
-// cells. It writes frame k of `traj` after step k; after every
+// cells. WRITE_TRAJECTORY: it writes frame k of `out` ((n_steps, H, W))
+// after step k; otherwise (the end mode) it writes its tile of `out`
+// ((H, W) float32) once, after the last step. After every
 // steps_per_barrier steps it exchanges halos with its neighbours through
 // `exchange` ((2, H, W) floats) around one grid-wide barrier. Between
 // barriers the halo is recomputed, shrinking by 4 cells a step, as in the
-// tiled kernel.
-template <bool HAS_CONVECTION>
+// tiled kernel. INTERIOR: the dense Dirichlet grid applies after every
+// stage (rk4_step_in_tile).
+template <bool HAS_CONVECTION, bool INTERIOR, bool WRITE_TRAJECTORY>
 __global__ void __launch_bounds__(1024, 1)
     resident_diffusion_kernel(Problem p, ResidentLaunch t,
-                              const float* __restrict__ y0, void* traj,
+                              const float* __restrict__ y0, void* out,
                               float* exchange) {
   extern __shared__ __align__(16) float shared[];
   cg::grid_group grid = cg::this_grid();
@@ -366,16 +393,18 @@ __global__ void __launch_bounds__(1024, 1)
   for (int group = 0; k < t.n_steps; ++group) {
     float* published = exchange + static_cast<size_t>(group & 1) * cells;
     for (int g = 0; g < t.steps_per_barrier && k < t.n_steps; ++g, ++k) {
-      rk4_step_in_tile<HAS_CONVECTION>(p, y, ta, tb, rows, cols, gi0, gj0,
-                                       kStepHalo * g);
+      rk4_step_in_tile<HAS_CONVECTION, INTERIOR>(p, y, ta, tb, rows, cols,
+                                                 gi0, gj0, kStepHalo * g);
       float* previous = y;
       y = tb;
       tb = ta;
       ta = previous;
       // the tile proper of the new state is complete: store the frame
-      // and, before a barrier, publish the cells within `halo` of the
-      // tile's edge
-      const size_t frame = static_cast<size_t>(k) * cells;
+      // (the end mode: the last step's state) and, before a barrier,
+      // publish the cells within `halo` of the tile's edge
+      const size_t frame =
+          WRITE_TRAJECTORY ? static_cast<size_t>(k) * cells : 0;
+      const bool store = WRITE_TRAJECTORY || k + 1 == t.n_steps;
       const bool publish =
           g + 1 == t.steps_per_barrier && k + 1 < t.n_steps;
       for (int li = halo + threadIdx.y; li < halo + t.tile_h;
@@ -389,7 +418,7 @@ __global__ void __launch_bounds__(1024, 1)
           if (gj >= p.width) break;
           const float value = y[li * cols + lj];
           const size_t cell = static_cast<size_t>(gi) * p.width + gj;
-          store_state(traj, t.traj_bfloat16, frame + cell, value);
+          if (store) store_state(out, t.traj_bfloat16, frame + cell, value);
           if (publish && (edge_row || lj < 2 * halo || lj >= t.tile_w)) {
             __stcg(published + cell, value);
           }
@@ -444,7 +473,19 @@ Problem make_problem(int height, int width, int fold_cols, int square_bits,
   p.two_dx1 = coefficients[7 * kStages + 1];
   p.masks = masks;
   p.values = values;
+  p.interior_mask = nullptr;
+  p.interior_vals = nullptr;
   return p;
+}
+
+template <bool HAS_CONVECTION, bool INTERIOR>
+const void* resident_kernel(int write_trajectory) {
+  return write_trajectory
+             ? reinterpret_cast<const void*>(
+                   resident_diffusion_kernel<HAS_CONVECTION, INTERIOR, true>)
+             : reinterpret_cast<const void*>(
+                   resident_diffusion_kernel<HAS_CONVECTION, INTERIOR,
+                                             false>);
 }
 
 cudaError_t allow_shared_memory(const void* kernel, size_t bytes) {
@@ -543,18 +584,28 @@ int tiled_diffusion_rk4(const float* y0, void* traj, void* state_a,
 
 // K7: one cooperative launch on `stream` of n_tiles_h x n_tiles_w blocks
 // that pass one grid-wide barrier every steps_per_barrier steps. y0 is
-// (H, W) float32; traj is (n_steps, H, W) float32 or bfloat16; exchange is
-// (2, H, W) float32 scratch. Returns
+// (H, W) float32; with write_trajectory, out is (n_steps, H, W) float32
+// or bfloat16 (traj_bfloat16), else (the end mode) the (H, W) float32 end
+// state; exchange is (2, H, W) float32 scratch. interior_mask and
+// interior_vals are the dense (H, W) Dirichlet grid where constraints lie
+// inside the grid, else both null. Returns
 // cudaErrorCooperativeLaunchTooLarge, without launching, when the card
 // cannot hold all blocks at once, else the cudaError_t of the launch.
-int resident_diffusion_rk4(const float* y0, void* traj, float* exchange,
+int resident_diffusion_rk4(const float* y0, void* out, float* exchange,
                            int height, int width, int n_steps,
-                           int traj_bfloat16, int n_tiles_h, int n_tiles_w,
-                           int tile_h, int tile_w, int steps_per_barrier,
+                           int write_trajectory, int traj_bfloat16,
+                           int n_tiles_h, int n_tiles_w, int tile_h,
+                           int tile_w, int steps_per_barrier,
                            int has_convection, int fold_cols,
                            int square_bits,
                            const float* coefficients, const uint8_t* masks,
-                           const float* values, void* stream) {
+                           const float* values,
+                           const uint8_t* interior_mask,
+                           const float* interior_vals, void* stream) {
+  if ((interior_mask == nullptr) != (interior_vals == nullptr) ||
+      (traj_bfloat16 && !write_trajectory)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (height < 3 || width < 3 || n_steps <= 0 || tile_h <= 0 ||
       tile_w <= 0 || n_tiles_h <= 0 || n_tiles_w <= 0 ||
       steps_per_barrier <= 0 ||
@@ -564,10 +615,15 @@ int resident_diffusion_rk4(const float* y0, void* traj, float* exchange,
   }
   Problem p = make_problem(height, width, fold_cols, square_bits,
                            coefficients, masks, values);
+  p.interior_mask = interior_mask;
+  p.interior_vals = interior_vals;
+  const bool interior = interior_mask != nullptr;
   const void* kernel =
       has_convection
-          ? reinterpret_cast<const void*>(resident_diffusion_kernel<true>)
-          : reinterpret_cast<const void*>(resident_diffusion_kernel<false>);
+          ? (interior ? resident_kernel<true, true>(write_trajectory)
+                      : resident_kernel<true, false>(write_trajectory))
+          : (interior ? resident_kernel<false, true>(write_trajectory)
+                      : resident_kernel<false, false>(write_trajectory));
   const int halo = kStepHalo * steps_per_barrier;
   const size_t shared_bytes = 3 * sizeof(float) *
                               static_cast<size_t>(tile_h + 2 * halo) *
@@ -610,7 +666,7 @@ int resident_diffusion_rk4(const float* y0, void* traj, float* exchange,
   t.n_steps = n_steps;
   t.traj_bfloat16 = traj_bfloat16;
   t.steps_per_barrier = steps_per_barrier;
-  void* args[] = {&p, &t, &y0, &traj, &exchange};
+  void* args[] = {&p, &t, &y0, &out, &exchange};
   error = cudaLaunchCooperativeKernel(kernel, dim3(n_blocks), threads, args,
                                       shared_bytes,
                                       static_cast<cudaStream_t>(stream));

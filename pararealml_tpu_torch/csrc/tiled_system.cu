@@ -330,6 +330,77 @@ const void* select_kernel(int polar) {
                      tiled_system_kernel<Equation, Tile>);
 }
 
+// The kernel of `equation` on a Cartesian or polar tile, with its
+// component count and the halo it needs; false for an unknown equation.
+bool select_equation(int equation, int polar, const void** kernel, int* components,
+            int* needed_halo) {
+  *needed_halo = kRK4Halo;
+  switch (equation) {
+    case kWave2D:
+      *kernel = select_kernel<Wave2D>(polar);
+      *components = Wave2D::kComponents;
+      return true;
+    case kBurgers2D:
+      *kernel = select_kernel<Burgers2D>(polar);
+      *components = Burgers2D::kComponents;
+      return true;
+    case kShallowWater2D:
+      *kernel = select_kernel<ShallowWater2D>(polar);
+      *components = ShallowWater2D::kComponents;
+      return true;
+    case kCahnHilliard2D:
+      *kernel = select_kernel<CahnHilliard2D>(polar);
+      *components = CahnHilliard2D::kComponents;
+      *needed_halo = kCahnHilliardHalo;
+      return true;
+    default:
+      return false;
+  }
+}
+
+// Checks the launch's arguments, opts the kernel into `shared_bytes` and
+// fills the step-independent part of its arguments. Returns the
+// cudaError_t (0 on success).
+int prepare(int equation, int polar, int batch, int height, int width,
+            int n_steps, int rows, int cols, int halo, size_t shared_bytes,
+            const uint8_t* dir_row_mask, const float* dir_row_vals,
+            const uint8_t* ghost_row_mask, const float* ghost_row_vals,
+            const uint8_t* dir_col_mask, const float* dir_col_vals,
+            const uint8_t* ghost_col_mask, const float* ghost_col_vals,
+            const float* inv_r, const float* coefficients,
+            const void** kernel, TiledArgs* a, dim3* blocks,
+            dim3* threads) {
+  int components = 0;
+  int needed_halo = 0;
+  if (!select_equation(equation, polar, kernel, &components, &needed_halo)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int tile_h = rows - 2 * halo;
+  const int tile_w = cols - 2 * halo;
+  if (batch <= 0 || n_steps <= 0 || height < 3 || width < 3 ||
+      halo < needed_halo || tile_h <= 0 || tile_w <= 0 ||
+      (polar && inv_r == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (shared_bytes > 48 * 1024) {
+    cudaError_t error = cudaFuncSetAttribute(
+        *kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(shared_bytes));
+    if (error != cudaSuccess) return static_cast<int>(error);
+  }
+  a->p = make_params(height, width, coefficients);
+  a->ghost = {ghost_row_mask, ghost_row_vals, ghost_col_mask, ghost_col_vals,
+              components, inv_r};
+  a->dir = {dir_row_mask, dir_row_vals, dir_col_mask, dir_col_vals};
+  a->rows = rows;
+  a->cols = cols;
+  a->halo = halo;
+  *blocks = dim3((width + tile_w - 1) / tile_w,
+                 (height + tile_h - 1) / tile_h, batch);
+  *threads = dim3(32, rows < 16 ? rows : 16);
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -366,60 +437,19 @@ int tiled_system_rk4(int equation, int polar, const float* y0, void* traj,
                      const float* ghost_col_vals, const float* inv_r,
                      const float* coefficients, void* stream) {
   const void* kernel = nullptr;
-  int components = 0;
-  int needed_halo = kRK4Halo;
-  switch (equation) {
-    case kWave2D:
-      kernel = select_kernel<Wave2D>(polar);
-      components = Wave2D::kComponents;
-      break;
-    case kBurgers2D:
-      kernel = select_kernel<Burgers2D>(polar);
-      components = Burgers2D::kComponents;
-      break;
-    case kShallowWater2D:
-      kernel = select_kernel<ShallowWater2D>(polar);
-      components = ShallowWater2D::kComponents;
-      break;
-    case kCahnHilliard2D:
-      kernel = select_kernel<CahnHilliard2D>(polar);
-      components = CahnHilliard2D::kComponents;
-      needed_halo = kCahnHilliardHalo;
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int tile_h = rows - 2 * halo;
-  const int tile_w = cols - 2 * halo;
-  if (batch <= 0 || n_steps <= 0 || height < 3 || width < 3 ||
-      halo < needed_halo || tile_h <= 0 || tile_w <= 0 ||
-      (polar && inv_r == nullptr)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (shared_bytes > 48 * 1024) {
-    cudaError_t error = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(shared_bytes));
-    if (error != cudaSuccess) return static_cast<int>(error);
-  }
-
   TiledArgs a;
-  a.p = make_params(height, width, coefficients);
-  a.ghost = {ghost_row_mask, ghost_row_vals, ghost_col_mask, ghost_col_vals,
-             components, inv_r};
-  a.dir = {dir_row_mask, dir_row_vals, dir_col_mask, dir_col_vals};
-  a.rows = rows;
-  a.cols = cols;
-  a.halo = halo;
+  dim3 blocks, threads;
+  int error = prepare(equation, polar, batch, height, width, n_steps, rows,
+                      cols, halo, shared_bytes, dir_row_mask, dir_row_vals,
+                      ghost_row_mask, ghost_row_vals, dir_col_mask,
+                      dir_col_vals, ghost_col_mask, ghost_col_vals, inv_r,
+                      coefficients, &kernel, &a, &blocks, &threads);
+  if (error != 0) return error;
   a.n_steps = n_steps;
   a.state_bfloat16 = storage_bfloat16;
   a.traj = traj;
-
-  const dim3 blocks((width + tile_w - 1) / tile_w,
-                    (height + tile_h - 1) / tile_h, batch);
-  const dim3 threads(32, rows < 16 ? rows : 16);
   const size_t frame_values =
-      static_cast<size_t>(height) * width * components;
+      static_cast<size_t>(height) * width * a.ghost.n;
   const size_t item = storage_bfloat16 ? 2 : 4;
   for (int step = 0; step < n_steps; ++step) {
     a.step = step;
@@ -436,10 +466,62 @@ int tiled_system_rk4(int equation, int polar, const float* y0, void* traj,
       a.source_stride = static_cast<size_t>(n_steps) * frame_values;
     }
     void* args[] = {&a};
-    cudaError_t error =
+    cudaError_t launch_error =
         cudaLaunchKernel(kernel, blocks, threads, args, shared_bytes,
                          static_cast<cudaStream_t>(stream));
-    if (error != cudaSuccess) return static_cast<int>(error);
+    if (launch_error != cudaSuccess) return static_cast<int>(launch_error);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The end mode: the same n_steps launches, each step reading one float32
+// (batch, H, W, n) buffer and writing the other, so that no frame is
+// stored and the last step writes `out`; `scratch` is the other buffer
+// (unused for one step). Neither may alias y0. The other arguments are
+// tiled_system_rk4's.
+int tiled_system_rk4_end(int equation, int polar, const float* y0,
+                         float* out, float* scratch, int batch, int height,
+                         int width, int n_steps, int rows, int cols,
+                         int halo, size_t shared_bytes,
+                         const uint8_t* dir_row_mask,
+                         const float* dir_row_vals,
+                         const uint8_t* ghost_row_mask,
+                         const float* ghost_row_vals,
+                         const uint8_t* dir_col_mask,
+                         const float* dir_col_vals,
+                         const uint8_t* ghost_col_mask,
+                         const float* ghost_col_vals, const float* inv_r,
+                         const float* coefficients, void* stream) {
+  const void* kernel = nullptr;
+  TiledArgs a;
+  dim3 blocks, threads;
+  int error = prepare(equation, polar, batch, height, width, n_steps, rows,
+                      cols, halo, shared_bytes, dir_row_mask, dir_row_vals,
+                      ghost_row_mask, ghost_row_vals, dir_col_mask,
+                      dir_col_vals, ghost_col_mask, ghost_col_vals, inv_r,
+                      coefficients, &kernel, &a, &blocks, &threads);
+  if (error != 0) return error;
+  if (out == nullptr || (n_steps > 1 && scratch == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // each launch writes one state of a one-step "trajectory"
+  a.n_steps = 1;
+  a.step = 0;
+  a.state_bfloat16 = 0;
+  a.source_kind = kSourceFloat;
+  a.source_stride = static_cast<size_t>(height) * width * a.ghost.n;
+  const float* source = y0;
+  for (int step = 0; step < n_steps; ++step) {
+    // the parity that ends on `out`
+    float* target = (n_steps - 1 - step) % 2 == 0 ? out : scratch;
+    a.source = source;
+    a.traj = target;
+    void* args[] = {&a};
+    cudaError_t launch_error =
+        cudaLaunchKernel(kernel, blocks, threads, args, shared_bytes,
+                         static_cast<cudaStream_t>(stream));
+    if (launch_error != cudaSuccess) return static_cast<int>(launch_error);
+    source = target;
   }
   return static_cast<int>(cudaGetLastError());
 }

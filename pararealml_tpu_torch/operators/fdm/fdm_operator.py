@@ -17,7 +17,7 @@ chosen when it is built:
   on grids that fit one CTA's shared memory, the resident K7 and the
   tiled K6 trajectory kernels on larger diffusion grids),
   :mod:`pararealml_tpu_torch.ops.fused_system` (K5 on grids that fit one
-  CTA, the tiled K8 trajectory and step past it),
+  CTA, the tiled K8 trajectory, step and end mode past it),
   :mod:`pararealml_tpu_torch.ops.fused_navier_stokes` (K5's
   Navier-Stokes family, grids that fit one thread block cluster),
   :mod:`pararealml_tpu_torch.ops.fused_system_3d` (K9, volumes that fit
@@ -252,18 +252,16 @@ class FDMOperator(TorchOperator):
         — the counterpart of :meth:`trajectory_function` for consumers
         that need only the final state (Parareal's iterations).
 
-        When the fused end kernel applies (and ``allow_fused``), the
-        state stays on-chip for the whole solve; ``batch=B`` builds the
-        batched variant mapping ``(B, ...) -> (B, ...)`` with one CTA per
-        state (tagged ``batched``), otherwise it maps one state. On the
-        generic path the solve is a carry-only loop that never stacks
-        per-step states, and the function takes any leading batch axes
-        (tagged ``vmappable``; ``batch`` is ignored). The generic path
-        also serves grids past the one-CTA gate, which the JAX package
-        leaves to its own generic path only past its VMEM caps (504 x 512
-        padded cells for diffusion, ``_fits_vmem`` for 2D systems; below
-        them it runs its end kernels: ROADMAP.md, Queue 3). Returns None
-        for dynamic boundary conditions.
+        When a fused end kernel applies (and ``allow_fused``), it runs
+        the solve without storing frames: K2, the K5 end or the K9 end
+        (the state on-chip for the whole solve), and past one CTA the end
+        modes of K7 (diffusion) and K8 (2D systems); ``batch=B`` builds
+        the batched variant mapping ``(B, ...) -> (B, ...)`` (tagged
+        ``batched``), otherwise it maps one state. On the generic path
+        the solve is a carry-only loop that never stacks per-step states,
+        and the function takes any leading batch axes (tagged
+        ``vmappable``; ``batch`` is ignored). Returns None for dynamic
+        boundary conditions.
         """
         if (
             cp.differential_equation.x_dimension
@@ -326,11 +324,11 @@ class FDMOperator(TorchOperator):
     def _build_fused_end_fn(
         self, cp, steps: int, batch: Optional[int], dtype: torch.dtype
     ) -> Optional[Callable]:
-        """The fused end kernel for this problem (K2 for the diffusion
-        family, the K5 end for 2D systems, Cartesian or polar, the K9 end
-        in 3D), or None when none applies (among others, a grid past one
-        CTA: its ends take the generic carry-only loop, which the JAX
-        package takes past its VMEM caps only)."""
+        """The fused end kernel for this problem (K2, or K7's end mode
+        past one CTA, for the diffusion family; the K5 end, or K8's end
+        mode past one CTA, for 2D systems, Cartesian or polar; the K9 end
+        in 3D), or None when none applies (its ends then take the generic
+        carry-only loop)."""
         from pararealml_tpu_torch.ops.fused_diffusion import (
             build_fused_diffusion_rk4_end,
             fused_diffusion_step_applicable,

@@ -9,8 +9,10 @@ iteration's fine solves are one batched call:
 
 - on linear problems (the default), affine-propagator matmuls;
 - otherwise the batched kernels over the slices (K4, one CTA per slice)
-  where they apply (Burgers), or the batched fused end kernel (K2, the
-  diffusion family);
+  where they apply (2D systems whose grid fits one CTA), or the batched
+  fused end kernel (K2 or K7's end mode for the diffusion family, K8's
+  end mode for 2D systems past one CTA, the K5 end on polar grids, the
+  K9 end in 3D, the Navier-Stokes end);
 - or the generic step loop over the batch.
 
 The coarse sweeps run as a log-depth doubling scan when the coarse

@@ -24,14 +24,17 @@ single-component 2D Cartesian ``DiffusionEquation`` or
 ``ConvectionDiffusionEquation`` problem with static boundary conditions,
 solved with RK4, in float32. A grid whose kernel working set fits the
 227 KB of shared memory one CTA can hold (about 100 x 100) takes K1-K3.
-A larger one takes the Horner-form trajectory kernels, as in the JAX
-package's dispatch: the resident kernel
+A larger one takes the Horner-form kernels: the resident kernel
 (:mod:`pararealml_tpu_torch.ops.resident_diffusion`, K7) where its plan
-exists and the Dirichlet constraints lie on the faces, else the tiled
-kernel (:mod:`pararealml_tpu_torch.ops.tiled_diffusion`, K6). End states
-on such a grid stay on the generic carry-only loop. The JAX package does
-the same only past its VMEM cap of 504 x 512 padded cells; below it, it
-runs its end kernel K2 (ROADMAP.md, Queue 3).
+exists, Dirichlet constraints inside the grid included, for the
+trajectory and, through its end mode, the end state; else the tiled
+kernel (:mod:`pararealml_tpu_torch.ops.tiled_diffusion`, K6) for the
+trajectory where the Dirichlet constraints lie on the faces, and the
+generic carry-only loop for the end state, as the JAX package's ends
+past its VMEM cap of 504 x 512 padded cells. Below that cap the JAX
+package runs K1/K2, so K7 carries them past one CTA; past it, K7's end
+mode and its interior constraints are the port's own (ROADMAP.md,
+Queue 3).
 
 ``kernel_storage_dtype``, ``kernel_traj_dtype`` and
 ``kernel_temporal_block`` take effect where the JAX package's do: past
@@ -118,13 +121,19 @@ def fused_diffusion_step_applicable(
     if fits_one_block(height, width):
         return True
 
+    from pararealml_tpu_torch.ops.resident_diffusion import (
+        make_resident_plan,
+    )
     from pararealml_tpu_torch.ops.tiled_diffusion import (
         dirichlet_is_face_only,
         make_tile_plan,
     )
 
-    return make_tile_plan(height, width) is not None and (
-        dirichlet_is_face_only(cp)
+    # the resident kernel takes interior Dirichlet constraints, the tiled
+    # one does not
+    return make_resident_plan(height, width) is not None or (
+        make_tile_plan(height, width) is not None
+        and dirichlet_is_face_only(cp)
     )
 
 
@@ -587,8 +596,8 @@ def build_fused_diffusion_rk4_trajectory(
 
     A grid that fits one CTA's shared memory runs K1, one CTA per
     leading index. A larger grid runs the resident kernel (K7) where its
-    plan exists and the Dirichlet constraints lie on the faces, else the
-    tiled kernel (K6), one launch sequence per leading index.
+    plan exists (Dirichlet constraints inside the grid included), else
+    the tiled kernel (K6), one launch sequence per leading index.
 
     ``storage_dtype`` selects the precision of the stored trajectory and,
     on the tiled path, of the carried state; ``traj_dtype`` and
@@ -607,12 +616,9 @@ def build_fused_diffusion_rk4_trajectory(
         )
         from pararealml_tpu_torch.ops.tiled_diffusion import (
             build_tiled_diffusion_rk4_trajectory,
-            dirichlet_is_face_only,
         )
 
-        if make_resident_plan(
-            height, width
-        ) is not None and dirichlet_is_face_only(cp):
+        if make_resident_plan(height, width) is not None:
             return build_resident_diffusion_rk4_trajectory(
                 cp,
                 d_t,
@@ -647,16 +653,27 @@ def build_fused_diffusion_rk4_end(
     batch: Optional[int] = None,
 ):
     """Builds ``end(y) -> y_final`` advancing ``n_steps`` fused RK4 steps
-    through K2 and returning ONLY the final state, or ``None`` when the
-    grid does not fit the kernel's shared memory.
+    and returning ONLY the final state: through K2 where the grid fits one
+    CTA's shared memory, else through the resident kernel's end mode
+    (K7, ``build_resident_diffusion_rk4_end``) where its plan exists, else
+    ``None`` (callers take the generic carry-only loop, as the JAX package
+    does past its VMEM cap).
 
     With ``batch=B``, ``end`` maps ``(B, H, W, 1) -> (B, H, W, 1)``, one
-    CTA per slice; otherwise it maps one ``(H, W, 1)`` state."""
-    if not fits_one_block(*cp.mesh.vertices_shape):
-        # larger grids have no end kernel here: callers take the generic
-        # carry-only loop, as the JAX package does past its VMEM cap only
-        # (below it, it runs K2; ROADMAP.md, Queue 3)
-        return None
+    CTA (K7: one launch) per slice; otherwise it maps one ``(H, W, 1)``
+    state."""
+    height, width = cp.mesh.vertices_shape
+    if not fits_one_block(height, width):
+        from pararealml_tpu_torch.ops.resident_diffusion import (
+            build_resident_diffusion_rk4_end,
+            make_resident_plan,
+        )
+
+        if make_resident_plan(height, width) is None:
+            return None
+        return build_resident_diffusion_rk4_end(
+            cp, d_t, n_steps, diffusion_coefficient, batch
+        )
     cfg = _KernelConfig(cp, d_t, diffusion_coefficient)
     expected_lead = () if batch is None else (batch,)
 

@@ -7,9 +7,11 @@ Cartesian meshes. For the first four, its three Pallas TPU kernels — the
 trajectory, the end state (single or batched) and the single step —
 become launches of one hand-written CUDA kernel template for Hopper,
 ``csrc/fused_system.cu`` (see its header for the design), which the
-batched kernels of ``ops/packed_system.py`` (K4) launch too. One CTA
-keeps one state on-chip for all steps, so a solve reads the state once
-and writes either every step or the end state. The equation functors live in
+batched kernels of ``ops/packed_system.py`` (K4) launch too. One CTA, or
+a thread block cluster of up to 8 (:func:`k5_cluster_size`), keeps one
+state on-chip for all steps, each thread owning fixed cells with their
+state in registers, so a solve reads the state once and writes either
+every step or the end state. The equation functors live in
 ``csrc/system_2d.cuh``, shared with the tiled kernel K8
 (``ops/tiled_system.py``), which takes the grids one CTA cannot hold.
 
@@ -37,12 +39,10 @@ away from the origin (``r_low > 0``) and within the JAX package's VMEM cap
 (:func:`fits_reference_vmem`); past that cap it takes the generic path,
 as there. Where the grid's working set fits the 227 KB of shared memory
 one CTA can hold (about 74² for two components, 60² for three), the
-trajectory, end and step take K5; past that, the trajectory and the step
-take K8 where the Dirichlet constraints lie on the grid's faces (polar
+trajectory, end and step take K5; past that, they take K8 (the end its
+end mode) where the Dirichlet constraints lie on the grid's faces (polar
 grids a polar K8 in K5's order of operations, the port's carrier of the
-JAX package's polar K5 past one CTA), and the end returns ``None`` (the
-generic carry-only loop, which the JAX package takes past VMEM only:
-ROADMAP.md, Queue 3).
+JAX package's polar K5 past one CTA).
 
 The Navier-Stokes family (:func:`fused_navier_stokes_step_applicable`)
 runs its own kernel, ``csrc/fused_navier_stokes.cu`` through
@@ -106,12 +106,12 @@ _EQUATION_IDS = {equation: i for i, equation in enumerate(_EQUATION_TYPES)}
 def shared_memory_bytes(
     height: int, width: int, n_components: int, polar: bool = False
 ) -> int:
-    """The K5 kernel's shared-memory working set for an H x W grid of
+    """The working set of K5's first design for an H x W grid of
     n-component states: five sets of n float planes (state, two stage
     buffers, the RK4 accumulator and the Dirichlet values), the float
     Neumann face vectors, on a polar grid the H floats of 1 / r, and the
-    byte masks, in the order the CUDA kernel carves them; the launch
-    passes it to the kernel."""
+    byte masks. It fixes K5's range (:func:`fits_one_block`), which the
+    redesign (two sets of planes, the rest in registers) kept."""
     values = height * width * n_components
     faces = 2 * n_components * (height + width)
     rows = height if polar else 0
@@ -858,8 +858,7 @@ def _configure(library: ctypes.CDLL):
     c_int, c_void_p = ctypes.c_int, ctypes.c_void_p
     library.fused_system_rk4.argtypes = (
         [c_int, c_int, c_void_p, c_void_p]
-        + [c_int] * 6
-        + [ctypes.c_size_t]
+        + [c_int] * 7
         + [c_void_p] * 7
         + [ctypes.POINTER(ctypes.c_float), c_void_p]
     )
@@ -879,33 +878,86 @@ def load_kernels() -> ctypes.CDLL:
     return library
 
 
+# the most cells a K5 block holds (two a thread of 1,024), and the most
+# that one block a state runs fastest with (one cell a thread, 128
+# registers each); past it the largest cluster ran fastest (chip_smoke.py's
+# K5 timings, NVIDIA H100 80GB HBM3 at 700 W: 36 x 51 x 3 polar shallow
+# water 7.1 us a step on 8 blocks, 8.3 on 4, 9.6 on 2; 41 x 41 x 2
+# Cahn-Hilliard 2.34 on 4 against 2.44 on one; 21 x 23 x 3 shallow water
+# 6.1 on one against 7.9 on 2)
+_MAX_BLOCK_CELLS = 2048
+_ONE_BLOCK_CELLS = 512
+# the card's multiprocessors: a batch of states whose blocks exceed them
+# runs in more than one wave
+_MULTIPROCESSORS = 132
+def _block_cells(height: int, width: int, cluster_size: int) -> Optional[int]:
+    """The cells of the largest block of a K5 cluster of ``cluster_size``
+    blocks splitting an H x W grid's rows, or None where a block of the
+    split would hold no row."""
+    slab = -(-height // cluster_size)
+    if (cluster_size - 1) * slab >= height:
+        return None
+    return slab * width
+
+
+def k5_cluster_size(
+    cfg: _SystemKernelConfig, batch: int = 1, one_block: bool = False
+) -> int:
+    """The blocks of the thread block cluster K5 splits each state of a
+    batch over: one where a block holds the grid in at most 512 cells,
+    else the most (up to 8) that split its rows, but no more than keep
+    the batch's blocks within the card's 132 multiprocessors; with
+    ``one_block`` (K4's batches, which measured fastest on one block a
+    state) the fewest. Never fewer than the fewest whose blocks hold at
+    most 2,048 cells, the kernel's limit."""
+    sizes = []
+    for cluster_size in (1, 2, 4, 8):
+        cells = _block_cells(cfg.height, cfg.width, cluster_size)
+        if cells is not None and cells <= _MAX_BLOCK_CELLS:
+            sizes.append(cluster_size)
+    if not sizes:
+        raise ValueError(
+            f"a {cfg.height} x {cfg.width} grid is past the kernel's range"
+        )
+    if one_block or cfg.height * cfg.width <= _ONE_BLOCK_CELLS:
+        return sizes[0]
+    chosen = sizes[-1]
+    while chosen > sizes[0] and batch * chosen > _MULTIPROCESSORS:
+        chosen = sizes[sizes.index(chosen) - 1]
+    return chosen
+
+
 def launch(
     y: torch.Tensor,
     out: torch.Tensor,
     cfg: _SystemKernelConfig,
     n_steps: int,
     write_trajectory: bool,
+    cluster_size: Optional[int] = None,
 ):
     """Launches the kernel on ``y``'s device and its current stream for a
-    contiguous ``(B, H, W, n)`` float32 CUDA state (one CTA per state)
-    and raises if the grid does not fit one CTA or the launch is refused.
-    A trajectory's frames are stored in ``out``'s dtype, float32 or
+    contiguous ``(B, H, W, n)`` float32 CUDA state (one CTA per state, or
+    with ``cluster_size`` 2, 4 or 8 one thread block cluster splitting
+    each state's rows; :func:`k5_cluster_size`'s when None) and raises if
+    the grid is past the kernel's range or the launch is refused. A
+    trajectory's frames are stored in ``out``'s dtype, float32 or
     bfloat16. The wrappers here and in ``ops/packed_system.py`` call it
     and count their launches."""
-    shared_bytes = shared_memory_bytes(
-        cfg.height, cfg.width, cfg.n, cfg.polar
-    )
-    if shared_bytes > MAX_SHARED_MEMORY_BYTES:
+    if (
+        shared_memory_bytes(cfg.height, cfg.width, cfg.n, cfg.polar)
+        > MAX_SHARED_MEMORY_BYTES
+    ):
         raise ValueError(
             f"a {cfg.height} x {cfg.width} grid of {cfg.n}-component "
-            f"states needs {shared_bytes} bytes of shared memory, more "
-            "than one CTA holds"
+            "states is past the one-CTA kernel's range"
         )
     frame_bfloat16 = out.dtype == torch.bfloat16
     if out.dtype not in (torch.float32, torch.bfloat16) or (
         frame_bfloat16 and not write_trajectory
     ):
         raise TypeError(f"unsupported output dtype {out.dtype}")
+    if cluster_size is None:
+        cluster_size = k5_cluster_size(cfg, y.shape[0])
     library = load_kernels()
     constants = cfg.constants(y.device)
     if any(t.device != y.device for t in (out,) + constants):
@@ -928,7 +980,7 @@ def launch(
             n_steps,
             int(write_trajectory),
             int(frame_bfloat16),
-            shared_bytes,
+            cluster_size,
             *(c.data_ptr() for c in constants[:6]),
             inv_r,
             coefficients,
@@ -1098,11 +1150,17 @@ def build_fused_system_rk4_end(
     anti_laplacian_max_iterations: int = 100_000,
 ):
     """Builds ``end(y) -> y_final`` advancing ``n_steps`` fused RK4 steps
-    through the K5 end kernel and returning ONLY the final state, or
-    ``None`` when the grid does not fit one CTA's shared memory.
+    and returning ONLY the final state: through the K5 end kernel where
+    the grid fits one CTA's shared memory, else through K8's end mode
+    (``build_tiled_system_rk4_end`` of
+    :mod:`pararealml_tpu_torch.ops.tiled_system`, polar grids included)
+    where K8 covers the problem, else ``None`` (interior Dirichlet
+    constraints past one CTA; a polar grid past the JAX package's VMEM
+    cap).
 
     With ``batch=B``, ``end`` maps ``(B, H, W, n) -> (B, H, W, n)``, one
-    CTA per state; otherwise it maps one ``(H, W, n)`` state.
+    CTA per state on K5, every state in one launch a step on K8;
+    otherwise it maps one ``(H, W, n)`` state.
     Navier-Stokes takes its cluster kernel, one cluster per state (None
     where the grid fits no cluster), with the two anti-Laplacian
     settings of :func:`build_fused_system_rk4_trajectory`."""
@@ -1120,7 +1178,16 @@ def build_fused_system_rk4_end(
             anti_laplacian_max_iterations,
         )
     if not fits_one_block(cp):
-        return None
+        from pararealml_tpu_torch.ops.tiled_system import (
+            build_tiled_system_rk4_end,
+            tiled_system_applicable,
+        )
+
+        if (_is_polar(cp) and not fits_reference_vmem(cp)) or (
+            not tiled_system_applicable(cp)
+        ):
+            return None
+        return build_tiled_system_rk4_end(cp, d_t, n_steps, batch)
     cfg = _SystemKernelConfig(cp, d_t)
     expected_lead = () if batch is None else (batch,)
 

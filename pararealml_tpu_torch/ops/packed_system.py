@@ -34,9 +34,11 @@ cover neither Navier-Stokes, whose Parareal fine ends take the batched
 cluster kernel of ``ops/fused_navier_stokes.py``, nor polar meshes, whose
 fine ends take the batched K5 end), static boundary conditions, RK4,
 float32,
-a grid that fits one CTA's shared memory (past it the K5 gate admits the
-tiled kernel K8, which has no batched ends; the JAX package's packed
-kernels have a VMEM budget instead) and a batch of at least two slices.
+a grid that fits one CTA's shared memory (past it Parareal's fine ends
+take K8's batched end mode and its expansion the batched K8 trajectory;
+the JAX package's packed kernels have a VMEM budget instead) and a batch
+of at least two slices. K4 runs one CTA per slice (never a cluster: its
+batches measured fastest so).
 The JAX package's packed diffusion family is not ported (ROADMAP.md,
 Queue 2); the port serves it with the batched K2 launch of
 ``ops/fused_diffusion.py``.
@@ -57,6 +59,7 @@ from pararealml_tpu_torch.ops.fused_system import (
     fused_system_rk4_trajectory_reference,
     fits_one_block,
     fused_system_step_applicable,
+    k5_cluster_size,
     launch,
     states,
     trajectory_buffer,
@@ -120,7 +123,14 @@ def packed_system_rk4_ends(
     if y.device.type == "cpu":
         return packed_system_rk4_ends_reference(y, cfg, n_steps)
     out = torch.empty_like(y)
-    launch(y, out, cfg, n_steps, write_trajectory=False)
+    launch(
+        y,
+        out,
+        cfg,
+        n_steps,
+        write_trajectory=False,
+        cluster_size=k5_cluster_size(cfg, one_block=True),
+    )
     packed_system_rk4_ends.launches += 1
     return out
 
@@ -139,7 +149,14 @@ def packed_system_rk4_trajectory(
             y, cfg, n_steps, snapshot_dtype
         )
     out = trajectory_buffer(y, cfg, n_steps, snapshot_dtype)
-    launch(y, out, cfg, n_steps, write_trajectory=True)
+    launch(
+        y,
+        out,
+        cfg,
+        n_steps,
+        write_trajectory=True,
+        cluster_size=k5_cluster_size(cfg, one_block=True),
+    )
     packed_system_rk4_trajectory.launches += 1
     return out.to(torch.float32)
 

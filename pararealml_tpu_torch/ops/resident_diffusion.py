@@ -21,10 +21,23 @@ the stored frames, to nearest even; the resident state stays float32, so
 the bfloat16 error is a single rounding. The trajectory is returned in
 ``storage_dtype``.
 
+Dirichlet constraints inside the grid (which the tiled kernel K6 refuses)
+are a dense mask and value grid that the kernel applies after every
+stage, where the whole-grid kernel K1 applies its grid; the face stamps
+agree with it where both apply.
+
 ``resident_diffusion_rk4_trajectory`` launches the kernel for a CUDA
 tensor and runs ``resident_diffusion_rk4_trajectory_reference``, the
 plain PyTorch version, for a CPU tensor. On a CUDA tensor the kernel runs
 or the wrapper raises. ``launches`` counts the wrapper's kernel runs.
+
+``resident_diffusion_rk4_end`` (plain version
+``resident_diffusion_rk4_end_reference``) is the end mode: the same
+persistent kernel with no frame stores, which writes the resident tiles
+once, after the last step, in float32. It carries the JAX package's end
+kernel K2 past one CTA (``build_fused_diffusion_rk4_end``), up to that
+package's cap of 504 x 512 padded cells and, as a deliberate difference,
+past it as far as the resident plan reaches (ROADMAP.md, Queue 3).
 """
 
 from __future__ import annotations
@@ -37,7 +50,6 @@ from pararealml_tpu_torch.constrained_problem import ConstrainedProblem
 from pararealml_tpu_torch.ops.tiled_diffusion import (
     _DTYPES,
     _build_trajectory,
-    _require_face_only_dirichlet,
     _HornerConfig,
     _horner_step_reference,
     _raise_on_error,
@@ -153,6 +165,76 @@ def resident_diffusion_rk4_trajectory_reference(
     return out
 
 
+def resident_diffusion_rk4_end_reference(
+    y: torch.Tensor, cfg: _HornerConfig, n_steps: int
+) -> torch.Tensor:
+    """Plain version of K7's end mode: ``(..., H, W) -> (..., H, W)``,
+    the end state only."""
+    faces = cfg.faces(y.device)
+    state = y
+    for _ in range(n_steps):
+        state = _horner_step_reference(state, cfg, faces)
+    return state
+
+
+def _run(
+    batch: torch.Tensor,
+    out: torch.Tensor,
+    cfg: _HornerConfig,
+    n_steps: int,
+    write_trajectory: bool,
+    plan: Optional[_ResidentPlan],
+):
+    """One cooperative launch per state of the contiguous ``(B, H, W)``
+    float32 CUDA ``batch``, into ``out`` (``(B, n_steps, H, W)`` frames of
+    its dtype, or the ``(B, H, W)`` float32 end states)."""
+    if plan is None:
+        plan = make_resident_plan(cfg.height, cfg.width)
+    if plan is None:
+        raise ValueError("grid outside the resident kernel's range")
+    library = load_kernels()
+    masks, values = cfg.constants(batch.device)
+    interior = cfg.interior(batch.device)
+    # the halo exchange: two float32 grids of which only the cells within
+    # a halo's width of a tile's edge are ever written or read
+    exchange = torch.empty(
+        (2, cfg.height, cfg.width), dtype=torch.float32, device=batch.device
+    )
+    coefficients = cfg.coefficient_array()
+    # the ctypes launch targets the current device: make it the batch's
+    with torch.cuda.device(batch.device):
+        stream = torch.cuda.current_stream(batch.device).cuda_stream
+        for b in range(batch.shape[0]):
+            error = library.resident_diffusion_rk4(
+                batch[b].data_ptr(),
+                out[b].data_ptr(),
+                exchange.data_ptr(),
+                cfg.height,
+                cfg.width,
+                n_steps,
+                int(write_trajectory),
+                int(out.dtype == torch.bfloat16),
+                plan.n_tiles_h,
+                plan.n_tiles_w,
+                plan.tile_h,
+                plan.tile_w,
+                plan.steps_per_barrier,
+                int(cfg.has_convection),
+                int(cfg.fold_cols),
+                sum(1 << i for i, square in enumerate(cfg.square) if square),
+                coefficients,
+                masks.data_ptr(),
+                values.data_ptr(),
+                *(
+                    (grid.data_ptr() for grid in interior)
+                    if interior
+                    else (None, None)
+                ),
+                stream,
+            )
+            _raise_on_error(library, error, "resident diffusion kernel")
+
+
 def resident_diffusion_rk4_trajectory(
     y: torch.Tensor,
     cfg: _HornerConfig,
@@ -170,55 +252,46 @@ def resident_diffusion_rk4_trajectory(
         return resident_diffusion_rk4_trajectory_reference(
             y, cfg, n_steps, storage_dtype
         )
-    if plan is None:
-        plan = make_resident_plan(cfg.height, cfg.width)
-    if plan is None:
-        raise ValueError("grid outside the resident kernel's range")
-    library = load_kernels()
-    masks, values = cfg.constants(y.device)
     batch = y.reshape(-1, cfg.height, cfg.width)
     out = torch.empty(
         (batch.shape[0], n_steps, cfg.height, cfg.width),
         dtype=storage_dtype,
         device=y.device,
     )
-    # the halo exchange: two float32 grids of which only the cells within
-    # a halo's width of a tile's edge are ever written or read
-    exchange = torch.empty(
-        (2, cfg.height, cfg.width), dtype=torch.float32, device=y.device
-    )
-    coefficients = cfg.coefficient_array()
-    # the ctypes launch targets the current device: make it y's
-    with torch.cuda.device(y.device):
-        stream = torch.cuda.current_stream(y.device).cuda_stream
-        for b in range(batch.shape[0]):
-            error = library.resident_diffusion_rk4(
-                batch[b].data_ptr(),
-                out[b].data_ptr(),
-                exchange.data_ptr(),
-                cfg.height,
-                cfg.width,
-                n_steps,
-                int(storage_dtype == torch.bfloat16),
-                plan.n_tiles_h,
-                plan.n_tiles_w,
-                plan.tile_h,
-                plan.tile_w,
-                plan.steps_per_barrier,
-                int(cfg.has_convection),
-                int(cfg.fold_cols),
-                sum(1 << i for i, square in enumerate(cfg.square) if square),
-                coefficients,
-                masks.data_ptr(),
-                values.data_ptr(),
-                stream,
-            )
-            _raise_on_error(library, error, "resident diffusion kernel")
+    _run(batch, out, cfg, n_steps, True, plan)
     resident_diffusion_rk4_trajectory.launches += 1
     return out if y.ndim == 3 else out[0]
 
 
+def resident_diffusion_rk4_end(
+    y: torch.Tensor,
+    cfg: _HornerConfig,
+    n_steps: int,
+    plan: Optional[_ResidentPlan] = None,
+) -> torch.Tensor:
+    """K7's end mode: ``n_steps`` Horner-form RK4 steps returning the end
+    state only, ``(H, W) -> (H, W)`` or ``(B, H, W) -> (B, H, W)`` in
+    float32: the trajectory's persistent cooperative kernel, one launch
+    per state, with no frame stored and the resident tiles written once,
+    after the last step. ``plan`` overrides the tile plan."""
+    cfg.check_state(y)
+    if y.device.type == "cpu":
+        return resident_diffusion_rk4_end_reference(y, cfg, n_steps)
+    batch = y.reshape(-1, cfg.height, cfg.width)
+    out = torch.empty_like(batch)
+    _run(batch, out, cfg, n_steps, False, plan)
+    resident_diffusion_rk4_end.launches += 1
+    return out.reshape(y.shape)
+
+
 resident_diffusion_rk4_trajectory.launches = 0
+resident_diffusion_rk4_end.launches = 0
+
+
+def _resident_config(cp, d_t, diffusion_coefficient) -> _HornerConfig:
+    if make_resident_plan(*cp.mesh.vertices_shape) is None:
+        raise ValueError("grid outside the resident kernel's range")
+    return _HornerConfig(cp, d_t, diffusion_coefficient, resident=True)
 
 
 def build_resident_diffusion_rk4_trajectory(
@@ -234,13 +307,11 @@ def build_resident_diffusion_rk4_trajectory(
     ``(..., H, W, 1) -> (..., n_steps, H, W, 1)`` in ``storage_dtype``.
 
     Matches the tiled kernel's numerics (the same Horner evaluation order
-    and boundary stamps). Raises ValueError when the grid is outside the
-    resident range or has interior Dirichlet constraints."""
+    and boundary stamps) and, with Dirichlet constraints inside the grid,
+    applies them after every stage as the whole-grid kernel K1 does.
+    Raises ValueError when the grid is outside the resident range."""
     storage_dtype = _check_storage_dtype(storage_dtype)
-    if make_resident_plan(*cp.mesh.vertices_shape) is None:
-        raise ValueError("grid outside the resident kernel's range")
-    _require_face_only_dirichlet(cp, "resident")
-    cfg = _HornerConfig(cp, d_t, diffusion_coefficient, resident=True)
+    cfg = _resident_config(cp, d_t, diffusion_coefficient)
     return _build_trajectory(
         cfg,
         n_steps,
@@ -248,3 +319,33 @@ def build_resident_diffusion_rk4_trajectory(
             grids, cfg, n_steps, storage_dtype
         ),
     )
+
+
+def build_resident_diffusion_rk4_end(
+    cp: ConstrainedProblem,
+    d_t: float,
+    n_steps: int,
+    diffusion_coefficient: Optional[float] = None,
+    batch: Optional[int] = None,
+):
+    """Builds ``end(y) -> y_final`` advancing ``n_steps`` Horner-form RK4
+    steps through K7's end mode and returning only the final state, in
+    float32: with ``batch=B`` it maps ``(B, H, W, 1) -> (B, H, W, 1)``
+    (one launch per state), otherwise one ``(H, W, 1)`` state. Raises
+    ValueError when the grid is outside the resident range."""
+    from pararealml_tpu_torch.ops.fused_diffusion import _grids
+
+    cfg = _resident_config(cp, d_t, diffusion_coefficient)
+    expected_lead = () if batch is None else (batch,)
+
+    def end(y: torch.Tensor) -> torch.Tensor:
+        lead, grids = _grids(y, cfg)
+        if lead != expected_lead:
+            raise ValueError(
+                f"expected leading shape {expected_lead}, got {lead}"
+            )
+        return resident_diffusion_rk4_end(grids, cfg, n_steps).reshape(
+            y.shape
+        )
+
+    return end

@@ -132,9 +132,7 @@ def takes_streaming_path(cp) -> bool:
     )
 
     shape = cp.mesh.vertices_shape
-    return not fits_one_block(*shape) and (
-        make_resident_plan(*shape) is None or not dirichlet_is_face_only(cp)
-    )
+    return not fits_one_block(*shape) and make_resident_plan(*shape) is None
 
 
 def resolve_temporal_block(
@@ -359,8 +357,17 @@ class _HornerConfig:
         self.fold_cols = bool(
             faces["ghost_col_mask"].any() and faces["ghost_col_foldable"]
         )
+        # constraints inside the grid: the dense Dirichlet grid, which the
+        # resident kernel applies after every stage (the tiled kernel
+        # refuses them)
+        self.interior_dirichlet = not dirichlet_is_face_only(cp)
+        if self.interior_dirichlet:
+            mask, values = _static_dirichlet(cp)
+            faces["interior_mask"] = mask.astype(bool)
+            faces["interior_vals"] = values.astype(np.float32)
         self._host_faces = faces
         self._constants: Dict[torch.device, Tuple[torch.Tensor, ...]] = {}
+        self._interior: Dict[torch.device, Tuple[torch.Tensor, ...]] = {}
         self._faces: Dict[torch.device, Dict[str, torch.Tensor]] = {}
 
     @property
@@ -384,8 +391,27 @@ class _HornerConfig:
         flat += [self.two_dx0, self.two_dx1]
         return (ctypes.c_float * len(flat))(*flat)
 
+    def interior(self, device: torch.device) -> Tuple[torch.Tensor, ...]:
+        """The dense Dirichlet grid on ``device`` as the resident kernel
+        reads it, an ``(H, W)`` byte mask and float32 values, or ``()``
+        where every constraint lies on a face."""
+        if not self.interior_dirichlet:
+            return ()
+        grid = self._interior.get(device)
+        if grid is None:
+            grid = (
+                torch.as_tensor(
+                    self._host_faces["interior_mask"].astype(np.uint8)
+                ).to(device),
+                torch.as_tensor(self._host_faces["interior_vals"]).to(device),
+            )
+            self._interior[device] = grid
+        return grid
+
     def faces(self, device: torch.device) -> Dict[str, torch.Tensor]:
-        """The face vectors on ``device`` for the plain version."""
+        """The face vectors (and the dense Dirichlet grid where
+        constraints lie inside the grid) on ``device`` for the plain
+        version."""
         faces = self._faces.get(device)
         if faces is None:
             faces = {
@@ -457,7 +483,10 @@ def _horner_step_reference(
 ) -> torch.Tensor:
     """One Horner-form RK4 step over ``(..., H, W)`` float32 states, in
     the kernels' (and the JAX kernels' ``one_step``) evaluation order.
-    Out-of-grid neighbours read as zero."""
+    Out-of-grid neighbours read as zero. Where ``faces`` holds the dense
+    Dirichlet grid (constraints inside the grid; the resident kernel),
+    it overrides every constrained cell after each stage, where the
+    whole-grid kernel K1 applies its grid."""
     height, width = cfg.height, cfg.width
     drm, drv = faces["dir_row_mask"], faces["dir_row_vals"]
     dcm, dcv = faces["dir_col_mask"], faces["dir_col_vals"]
@@ -587,9 +616,12 @@ def _horner_step_reference(
             update = update + gradient_0 + gradient_1
         return update
 
+    interior = faces.get("interior_mask")
     t = y
     for stage, square in zip(cfg.stages, cfg.square):
         t = clamp(y + scaled_update(t, stage, square))
+        if interior is not None:
+            t = torch.where(interior, faces["interior_vals"], t)
     return t
 
 
@@ -666,7 +698,10 @@ def _configure(library: ctypes.CDLL):
     )
     library.tiled_diffusion_rk4.restype = c_int
     library.resident_diffusion_rk4.argtypes = (
-        [c_void_p] * 3 + [c_int] * 12 + tail
+        [c_void_p] * 3
+        + [c_int] * 13
+        + [ctypes.POINTER(ctypes.c_float)]
+        + [c_void_p] * 5
     )
     library.resident_diffusion_rk4.restype = c_int
     library.tiled_diffusion_error_string.argtypes = [c_int]
@@ -710,6 +745,11 @@ def tiled_diffusion_rk4_trajectory(
     storage_dtype, traj_dtype, temporal_block = _check_dtypes(
         storage_dtype, traj_dtype, temporal_block, n_steps
     )
+    if cfg.interior_dirichlet:
+        raise ValueError(
+            "the tiled kernel represents Dirichlet constraints as face "
+            "vectors; interior static y constraints are not supported"
+        )
     if y.device.type == "cpu":
         return tiled_diffusion_rk4_trajectory_reference(
             y, cfg, n_steps, storage_dtype, traj_dtype, temporal_block

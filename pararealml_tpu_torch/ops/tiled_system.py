@@ -40,6 +40,15 @@ a grid without a tile plan raises before any launch. ``launches`` counts
 the wrapper's kernel runs (one per trajectory; each runs one CUDA launch
 per step).
 
+``tiled_system_rk4_end`` (plain version ``tiled_system_rk4_end_reference``)
+is the end mode: the same kernel, one launch a step, stepping between two
+float32 ``(B, H, W, n)`` state buffers instead of storing frames, every
+state of a batch in the launch's third grid dimension. It carries the
+JAX package's K5 end (single or batched) and its packed K4 ends past one
+CTA: ``build_fused_system_rk4_end`` takes it there, and so do
+``FDMOperator.ends_function`` and Parareal's fine ends (one state per
+time slice) and single-state coarse ends.
+
 The tile plan is the port's own (:func:`make_system_tile_plan`): 2D tiles
 taken by grid size, halo and ``n`` from a table of the tilings measured
 fastest on the card (polar grids too: the polar wave example's 51 x 201
@@ -339,7 +348,19 @@ def tiled_system_rk4_trajectory_reference(
     return out
 
 
-# -- kernel wrapper -----------------------------------------------------------
+def tiled_system_rk4_end_reference(
+    y: torch.Tensor, cfg: _TiledSystemConfig, n_steps: int
+) -> torch.Tensor:
+    """Plain version of K8's end mode: ``(..., H, W, n) -> (..., H, W,
+    n)``, every step in ``y``'s dtype and only the end state kept."""
+    faces = cfg.constants(y.device, y.dtype)
+    state = y
+    for _ in range(n_steps):
+        state = _tiled_step_reference(state, cfg, faces)
+    return state
+
+
+# -- kernel wrappers ----------------------------------------------------------
 
 
 def _configure(library: ctypes.CDLL):
@@ -352,6 +373,14 @@ def _configure(library: ctypes.CDLL):
         + [ctypes.POINTER(ctypes.c_float), c_void_p]
     )
     library.tiled_system_rk4.restype = c_int
+    library.tiled_system_rk4_end.argtypes = (
+        [c_int, c_int, c_void_p, c_void_p, c_void_p]
+        + [c_int] * 7
+        + [ctypes.c_size_t]
+        + [c_void_p] * 9
+        + [ctypes.POINTER(ctypes.c_float), c_void_p]
+    )
+    library.tiled_system_rk4_end.restype = c_int
     library.tiled_system_error_string.argtypes = [c_int]
     library.tiled_system_error_string.restype = ctypes.c_char_p
 
@@ -365,6 +394,39 @@ def load_kernels() -> ctypes.CDLL:
         _configure(library)
         library._signatures_set = True
     return library
+
+
+def _checked_plan(
+    cfg: _TiledSystemConfig, plan: Optional[SystemTilePlan]
+) -> SystemTilePlan:
+    """``plan`` (the configuration's own when None), or a ValueError, on
+    any device and before any launch, when there is none or it does not
+    fit the problem (another grid, a halo too narrow for the equation,
+    too much shared memory)."""
+    plan = cfg.plan if plan is None else plan
+    if plan is None:
+        raise ValueError("grid outside the tiled kernel's range")
+    if (
+        plan.halo < cfg.halo
+        or (plan.height, plan.width, plan.n_components)
+        != (cfg.height, cfg.width, cfg.n)
+        or plan.shared_bytes > MAX_SHARED_MEMORY_BYTES
+    ):
+        raise ValueError(
+            f"tile plan {plan} does not fit this {cfg.height} x {cfg.width} "
+            f"x {cfg.n} problem (halo {cfg.halo} needed)"
+        )
+    return plan
+
+
+def _raise_on_error(library: ctypes.CDLL, error: int, plan: SystemTilePlan):
+    if error != 0:
+        message = library.tiled_system_error_string(error).decode()
+        raise RuntimeError(
+            f"tiled system kernel launch failed with {plan.rows} x "
+            f"{plan.cols} tiles of {plan.shared_bytes} bytes of shared "
+            f"memory: {message} ({error})"
+        )
 
 
 def tiled_system_rk4_trajectory(
@@ -383,19 +445,7 @@ def tiled_system_rk4_trajectory(
     a halo too narrow for the equation, too much shared memory)."""
     cfg.check_state(y)
     storage_dtype = _check_storage_dtype(storage_dtype)
-    plan = cfg.plan if plan is None else plan
-    if plan is None:
-        raise ValueError("grid outside the tiled kernel's range")
-    if (
-        plan.halo < cfg.halo
-        or (plan.height, plan.width, plan.n_components)
-        != (cfg.height, cfg.width, cfg.n)
-        or plan.shared_bytes > MAX_SHARED_MEMORY_BYTES
-    ):
-        raise ValueError(
-            f"tile plan {plan} does not fit this {cfg.height} x {cfg.width} "
-            f"x {cfg.n} problem (halo {cfg.halo} needed)"
-        )
+    plan = _checked_plan(cfg, plan)
     if y.device.type == "cpu":
         return tiled_system_rk4_trajectory_reference(
             y, cfg, n_steps, storage_dtype
@@ -430,21 +480,89 @@ def tiled_system_rk4_trajectory(
             cfg.coefficient_array(),
             stream,
         )
-    if error != 0:
-        message = library.tiled_system_error_string(error).decode()
-        raise RuntimeError(
-            f"tiled system kernel launch failed with {plan.rows} x "
-            f"{plan.cols} tiles of {plan.shared_bytes} bytes of shared "
-            f"memory: {message} ({error})"
-        )
+    _raise_on_error(library, error, plan)
     tiled_system_rk4_trajectory.launches += 1
     return out if y.ndim == 4 else out[0]
 
 
+def tiled_system_rk4_end(
+    y: torch.Tensor,
+    cfg: _TiledSystemConfig,
+    n_steps: int,
+    plan: Optional[SystemTilePlan] = None,
+) -> torch.Tensor:
+    """K8's end mode: ``n_steps`` RK4 steps returning the end state only,
+    ``(H, W, n) -> (H, W, n)`` or ``(B, H, W, n) -> (B, H, W, n)``, in
+    float32: the trajectory's kernel, one CUDA launch per step over every
+    tile of every state, stepping between two float32 state buffers
+    instead of storing frames. ``plan`` overrides the tile plan; a grid
+    without one, or a plan that does not fit, raises before any launch."""
+    cfg.check_state(y)
+    plan = _checked_plan(cfg, plan)
+    if y.device.type == "cpu":
+        return tiled_system_rk4_end_reference(y, cfg, n_steps)
+    library = load_kernels()
+    constants = cfg.constants(y.device)
+    batch = y.reshape((-1,) + cfg.state_shape)
+    out = torch.empty_like(batch)
+    scratch = torch.empty_like(batch) if n_steps > 1 else None
+    with torch.cuda.device(y.device):
+        stream = torch.cuda.current_stream(y.device).cuda_stream
+        error = library.tiled_system_rk4_end(
+            cfg.equation,
+            int(cfg.polar),
+            batch.data_ptr(),
+            out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            batch.shape[0],
+            cfg.height,
+            cfg.width,
+            n_steps,
+            plan.rows,
+            plan.cols,
+            plan.halo,
+            plan.shared_bytes,
+            *(c.data_ptr() for c in constants[:8]),
+            constants[8].data_ptr() if cfg.polar else None,
+            cfg.coefficient_array(),
+            stream,
+        )
+    _raise_on_error(library, error, plan)
+    tiled_system_rk4_end.launches += 1
+    return out.reshape(y.shape)
+
+
 tiled_system_rk4_trajectory.launches = 0
+tiled_system_rk4_end.launches = 0
 
 
 # -- build function mirroring the JAX package's API -------------------------
+
+
+def _tiled_config(cp: ConstrainedProblem, d_t: float) -> _TiledSystemConfig:
+    """K8's configuration for ``cp``, or a ValueError where K8 does not
+    cover it (Navier-Stokes, a grid without a tile plan, interior
+    Dirichlet constraints)."""
+    diff_eq = cp.differential_equation
+    if isinstance(diff_eq, NavierStokesEquation):
+        raise ValueError(
+            "the Navier-Stokes stream-function solve iterates over the "
+            "whole grid and cannot be row-tiled"
+        )
+    height, width = cp.mesh.vertices_shape
+    if (
+        make_system_tile_plan(
+            height, width, diff_eq.y_dimension, _halo(diff_eq)
+        )
+        is None
+    ):
+        raise ValueError("grid outside the tiled kernel's range")
+    if not dirichlet_is_face_only(cp):
+        raise ValueError(
+            "the tiled kernel represents Dirichlet constraints as face "
+            "vectors; interior static y constraints are not supported"
+        )
+    return _TiledSystemConfig(cp, d_t)
 
 
 def build_tiled_system_rk4_trajectory(
@@ -465,27 +583,8 @@ def build_tiled_system_rk4_trajectory(
     ``torch.bfloat16`` halves the kernel's traffic while all stencil
     arithmetic stays float32: tiles convert on load and round once per
     step on store)."""
-    diff_eq = cp.differential_equation
-    if isinstance(diff_eq, NavierStokesEquation):
-        raise ValueError(
-            "the Navier-Stokes stream-function solve iterates over the "
-            "whole grid and cannot be row-tiled"
-        )
     storage_dtype = _check_storage_dtype(storage_dtype)
-    height, width = cp.mesh.vertices_shape
-    if (
-        make_system_tile_plan(
-            height, width, diff_eq.y_dimension, _halo(diff_eq)
-        )
-        is None
-    ):
-        raise ValueError("grid outside the tiled kernel's range")
-    if not dirichlet_is_face_only(cp):
-        raise ValueError(
-            "the tiled kernel represents Dirichlet constraints as face "
-            "vectors; interior static y constraints are not supported"
-        )
-    cfg = _TiledSystemConfig(cp, d_t)
+    cfg = _tiled_config(cp, d_t)
 
     def trajectory(y: torch.Tensor) -> torch.Tensor:
         lead, batch = states(y, cfg)
@@ -493,3 +592,32 @@ def build_tiled_system_rk4_trajectory(
         return out.reshape(lead + (n_steps,) + cfg.state_shape)
 
     return trajectory
+
+
+def build_tiled_system_rk4_end(
+    cp: ConstrainedProblem,
+    d_t: float,
+    n_steps: int,
+    batch: Optional[int] = None,
+):
+    """Builds ``end(y) -> y_final`` advancing ``n_steps`` fused RK4 system
+    steps through K8's end mode and returning only the final state, in
+    float32: with ``batch=B`` it maps ``(B, H, W, n) -> (B, H, W, n)``,
+    every state in one launch a step (Parareal's fine ends, one state per
+    time slice); otherwise one ``(H, W, n)`` state. Raises ValueError
+    where K8 does not cover the problem, as the trajectory builder does.
+    The storage dtype knobs do not reach it: the JAX package's ends are
+    float32 on both sides of its VMEM cap (its K5 end below it, its
+    generic loop past it)."""
+    cfg = _tiled_config(cp, d_t)
+    expected_lead = () if batch is None else (batch,)
+
+    def end(y: torch.Tensor) -> torch.Tensor:
+        lead, states_ = states(y, cfg)
+        if lead != expected_lead:
+            raise ValueError(
+                f"expected leading shape {expected_lead}, got {lead}"
+            )
+        return tiled_system_rk4_end(states_, cfg, n_steps).reshape(y.shape)
+
+    return end

@@ -977,3 +977,138 @@ def test_cuda_navier_stokes_kernel_raises_instead_of_falling_back(
     end = ns.fused_navier_stokes_rk4_end(y, cfg, 2)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(end).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "family, faces, shape",
+    [
+        ("burgers", "dirichlet", (21, 21)),
+        ("wave", "partial", (21, 23)),
+        ("shallow_water", "partial", (36, 51)),
+        ("cahn_hilliard", "neumann", (41, 41)),
+        # past 2,048 cells: a cluster takes it
+        ("shallow_water", "dirichlet", (60, 60)),
+        ("burgers", "neumann", (64, 64)),
+    ],
+)
+def test_cuda_k5_equals_its_plain_version_on_every_cluster(
+    family, faces, shape, cuda_device
+):
+    """The redesigned K5 (cells owned by threads, kind by kind; the state
+    in registers; two stage buffers) and K4, on one block (where the grid
+    fits it) and on clusters of 2, 4 and 8 blocks, against their plain
+    versions over 50 steps: equal, bit for bit (the same float32
+    operations in the same order, built without contraction)."""
+    cp = system_problem(vars(torch_pkg), family, faces, shape)
+    cfg = fused_system._SystemKernelConfig(cp, 1e-3)
+    ys = torch.as_tensor(
+        states_2d(shape, cfg.n, batch=2), device=cuda_device
+    )
+    expected = fused_system.fused_system_rk4_trajectory_reference(ys, cfg, 50)
+    sizes = [
+        size
+        for size in (1, 2, 4, 8)
+        if (fused_system._block_cells(*shape, size) or 1 << 30) <= 2048
+    ]
+    assert fused_system.k5_cluster_size(cfg) in sizes
+    for size in sizes:
+        out = torch.empty_like(expected)
+        fused_system.launch(ys, out, cfg, 50, True, cluster_size=size)
+        torch.cuda.synchronize()
+        assert torch.equal(out, expected), size
+    assert torch.equal(
+        fused_system.fused_system_rk4_end(ys, cfg, 50), expected[:, -1]
+    )
+    if cfg.polar or not fused_system.fits_one_block(cp):
+        return
+    assert torch.equal(
+        packed_system.packed_system_rk4_ends(ys, cfg, 50), expected[:, -1]
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", sorted(FAMILIES_2D))
+def test_cuda_k8_end_matches_plain_version(family, cuda_device):
+    """K8's end mode, Cartesian (a 101 x 101 grid past one CTA) and polar
+    (the JAX tests' 21 x 41 mesh on small tiles), single and batched,
+    against its plain version (1e-5 of the largest value) and equal to
+    the K8 trajectory's last frame; a plan that does not fit is refused
+    before any launch."""
+    cp = system_problem(vars(torch_pkg), family, "dirichlet", (101, 101))
+    cfg = tiled_system._TiledSystemConfig(cp, 1e-3)
+    ys = torch.as_tensor(
+        states_2d((101, 101), cfg.n, batch=3), device=cuda_device
+    )
+    launches = tiled_system.tiled_system_rk4_end.launches
+    end = tiled_system.tiled_system_rk4_end(ys, cfg, 21)
+    _assert_matches(
+        end, tiled_system.tiled_system_rk4_end_reference(ys, cfg, 21)
+    )
+    assert torch.equal(
+        end, tiled_system.tiled_system_rk4_trajectory(ys, cfg, 21)[:, -1]
+    )
+    assert torch.equal(tiled_system.tiled_system_rk4_end(ys[1], cfg, 21), end[1])
+    assert tiled_system.tiled_system_rk4_end.launches == launches + 2
+    with pytest.raises(ValueError, match="tile plan"):
+        tiled_system.tiled_system_rk4_end(
+            ys, cfg, 2, plan=cfg.plan._replace(halo=0)
+        )
+    assert tiled_system.tiled_system_rk4_end.launches == launches + 2
+    polar = polar_problem(vars(torch_pkg), family, "dirichlet")
+    cfg = tiled_system._TiledSystemConfig(polar, 1e-3)
+    shape = polar.mesh.vertices_shape
+    ys = torch.as_tensor(states_2d(shape, cfg.n, batch=2), device=cuda_device)
+    small = cfg.plan._replace(rows=2 * cfg.halo + 3, cols=2 * cfg.halo + 5)
+    _assert_matches(
+        tiled_system.tiled_system_rk4_end(ys, cfg, 20, plan=small),
+        tiled_system.tiled_system_rk4_end_reference(ys, cfg, 20),
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("problem", sorted(LARGE_GRID_PROBLEMS))
+def test_cuda_resident_end_and_interior_dirichlet_match_plain_version(
+    problem, cuda_device
+):
+    """K7's end mode against its plain version (a batch of two, and equal
+    to the trajectory's last frame), and K7 with a Dirichlet square inside
+    the grid (trajectory and end) against its plain version, to 1e-5 of
+    the largest value."""
+    from pararealml_tpu_torch.constraint import Constraint
+
+    cp = large_grid_problem(vars(torch_pkg), *LARGE_GRID_PROBLEMS[problem])
+    cfg = tiled_diffusion._HornerConfig(cp, 1e-3, resident=True)
+    y = _large_grid_state(cp, cuda_device)
+    ys = torch.stack([y, 0.5 * y]).contiguous()
+    end = resident_diffusion.resident_diffusion_rk4_end(ys, cfg, 9)
+    _assert_matches(
+        end, resident_diffusion.resident_diffusion_rk4_end_reference(ys, cfg, 9)
+    )
+    assert torch.equal(
+        end[0], resident_diffusion.resident_diffusion_rk4_trajectory(y, cfg, 9)[-1]
+    )
+    height, width = cp.mesh.vertices_shape
+    old = cp.static_y_vertex_constraints
+    mask = np.asarray(old.mask).reshape(height, width).copy()
+    values = np.where(mask, np.asarray(old.values).reshape(height, width), 0.0)
+    mask[height // 3: 2 * height // 3, width // 3: 2 * width // 3] = True
+    values[mask & ~np.asarray(old.mask).reshape(height, width)] = 2.0
+    cp._y_vertex_constraints = Constraint(
+        values.reshape(np.asarray(old.values).shape),
+        mask.reshape(np.asarray(old.mask).shape),
+    )
+    cfg = tiled_diffusion._HornerConfig(cp, 1e-3, resident=True)
+    assert cfg.interior_dirichlet
+    _assert_matches(
+        resident_diffusion.resident_diffusion_rk4_trajectory(y, cfg, 9),
+        resident_diffusion.resident_diffusion_rk4_trajectory_reference(
+            y, cfg, 9
+        ),
+    )
+    _assert_matches(
+        resident_diffusion.resident_diffusion_rk4_end(ys, cfg, 9),
+        resident_diffusion.resident_diffusion_rk4_end_reference(ys, cfg, 9),
+    )
+    with pytest.raises(ValueError, match="face"):
+        tiled_diffusion.tiled_diffusion_rk4_trajectory(y, cfg, 2)

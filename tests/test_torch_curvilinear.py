@@ -560,7 +560,7 @@ def test_polar_gates_match_jax(x64_off):
 def test_fdm_operator_dispatches_polar_problems(monkeypatch):
     """float32 polar trajectories, ends and steps go through polar K5 (one
     CTA) and, with the one-CTA limit patched down, polar K8 (the
-    trajectory and the step; the ends take the generic carry-only loop),
+    trajectory and the step; the ends, single and batched, its end mode),
     their plain versions here, and agree with the generic path to float32
     rounding; past the JAX package's VMEM cap (patched down) the generic
     path solves them."""
@@ -584,6 +584,7 @@ def test_fdm_operator_dispatches_polar_problems(monkeypatch):
         (torch_fused, "fused_system_rk4_end"),
         (torch_fused, "fused_system_rk4_step"),
         (torch_tiled, "tiled_system_rk4_trajectory"),
+        (torch_tiled, "tiled_system_rk4_end"),
     ):
         wrapper = getattr(module, name)
 
@@ -615,8 +616,15 @@ def test_fdm_operator_dispatches_polar_problems(monkeypatch):
     assert torch.equal(tiled_fn(y, 0.0), fused)
     step = operator(True)._build_step_function(cp)
     assert torch.equal(step(y, 0, 0.0), fused[0])
-    assert not operator(True).ends_function(cp, interval).fused
-    assert calls == ["tiled_system_rk4_trajectory"] * 2
+    ends = operator(True).ends_function(cp, interval)
+    assert ends.fused and not ends.batched
+    assert torch.equal(ends(y, 0.0), fused[-1])
+    ends = operator(True).ends_function(cp, interval, batch=2)
+    assert ends.fused and ends.batched
+    assert torch.equal(ends(torch.stack([y, y]), 0.0)[1], fused[-1])
+    assert calls == ["tiled_system_rk4_trajectory"] * 2 + [
+        "tiled_system_rk4_end"
+    ] * 2
 
     monkeypatch.setattr(torch_fused, "REFERENCE_VMEM_BUDGET_CELLS", 1024)
     assert not operator(True).trajectory_function(cp, interval)[0].fused
@@ -625,8 +633,10 @@ def test_fdm_operator_dispatches_polar_problems(monkeypatch):
 def test_polar_parareal_takes_no_k4(monkeypatch):
     """Parareal over a polar problem: the batched K4, which the JAX package
     keeps Cartesian, takes none of it (the fine ends run batched polar K5,
-    one CTA per slice); the solution matches the fine solve to the
-    tolerance."""
+    one CTA per slice, and, with the one-CTA limit patched down, the
+    batched end mode of polar K8, one z-slice of its grid per time slice);
+    the solution matches the fine solve to the tolerance, and the polar K8
+    run matches the polar K5 run to float32 rounding."""
     _, cp = _polar_problems("wave", "neumann")
     ivp = torch_pkg.InitialValueProblem(
         cp,
@@ -636,14 +646,18 @@ def test_polar_parareal_takes_no_k4(monkeypatch):
         ),
     )
     calls = []
-    for name in ("packed_system_rk4_ends", "packed_system_rk4_trajectory"):
-        wrapper = getattr(torch_packed, name)
+    for module, name in (
+        (torch_packed, "packed_system_rk4_ends"),
+        (torch_packed, "packed_system_rk4_trajectory"),
+        (torch_tiled, "tiled_system_rk4_end"),
+    ):
+        wrapper = getattr(module, name)
 
         def counting(*args, _wrapper=wrapper, _name=name, **kwargs):
-            calls.append(_name)
+            calls.append((_name, tuple(args[0].shape[:-3])))
             return _wrapper(*args, **kwargs)
 
-        monkeypatch.setattr(torch_packed, name, counting)
+        monkeypatch.setattr(module, name, counting)
 
     def fdm(d_t):
         return FDMOperator(
@@ -659,3 +673,28 @@ def test_polar_parareal_takes_no_k4(monkeypatch):
     fine = fdm(1e-3).solve(ivp).discrete_y()
     assert not calls
     assert np.abs(actual - fine).max() <= 2e-5 * np.abs(fine).max()
+
+    monkeypatch.setattr(torch_fused, "MAX_SHARED_MEMORY_BYTES", 1024)
+    parareal = PararealOperator(fdm(1e-3), fdm(1e-2), 1e-5, num_time_slices=4)
+    tiled = parareal.solve(ivp).discrete_y()
+    assert calls.count(("tiled_system_rk4_end", (4,))) == (
+        parareal.last_iterations
+    )
+    assert all(name == "tiled_system_rk4_end" for name, _ in calls)
+    # polar K8 keeps polar K5's order of operations
+    assert np.abs(tiled - actual).max() <= 1e-5 * np.abs(fine).max()
+
+
+@pytest.mark.parametrize("family", ["wave", "cahn_hilliard"])
+def test_polar_k8_end_matches_pallas_k5(family):
+    """Polar K8's end mode (its plain version), batched, against the last
+    frame of the JAX package's polar K5 in interpret mode (the cached run
+    of ``_jax_polar_k5``), to 1e-5 of the largest value."""
+    _, torch_cp = _polar_problems(family, _faces(family))
+    y, expected = _jax_polar_k5(family)
+    cfg = torch_tiled._TiledSystemConfig(torch_cp, D_T)
+    actual = torch_tiled.tiled_system_rk4_end(
+        torch.as_tensor(np.stack([y, y])), cfg, STEPS
+    )
+    assert actual.dtype == torch.float32
+    assert _relative_error(actual[1], expected[-1]) <= F32_TOL

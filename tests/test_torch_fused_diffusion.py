@@ -208,9 +208,16 @@ def test_applicability_requires_the_grid_to_fit_shared_memory():
         torch_fused.MAX_SHARED_MEMORY_BYTES
     )
     assert not torch_fused.fits_one_block(129, 129)
-    # K1-K3 do not take the grid: it has no end kernel, and its
-    # trajectory and step go to the resident kernel's route
-    assert torch_fused.build_fused_diffusion_rk4_end(cp, D_T, 3) is None
+    # K1-K3 do not take the grid: its trajectory and step go to the
+    # resident kernel's route, and its end to that kernel's end mode
+    end = torch_fused.build_fused_diffusion_rk4_end(cp, D_T, 3)
+    y = torch.ones((129, 129, 1))
+    np.testing.assert_array_equal(
+        end(y).numpy(),
+        torch_fused.build_fused_diffusion_rk4_trajectory(cp, D_T, 3)(y)[
+            -1
+        ].numpy(),
+    )
     assert torch_fused.fused_diffusion_step_applicable(cp, RK4())
     assert torch_resident.make_resident_plan(129, 129) is not None
     assert not torch_tiled.takes_streaming_path(cp)
@@ -274,3 +281,31 @@ def test_built_functions_reject_float64_states(builder):
     y = torch.as_tensor(_states(cp), dtype=torch.float64)
     with pytest.raises(TypeError, match="float32"):
         built(y)
+
+
+def test_batched_k1_and_k2_serve_the_packed_diffusion_kernel(x64_off):
+    """The JAX package's K4 diffusion family (its packed kernel over
+    Parareal's slices) has no port of its own: the port's Parareal takes
+    the batched K2 end for every iteration's fine ends and the batched K1
+    trajectory for the final expansion. Their plain versions against the
+    JAX packed trajectory in interpret mode over 3 slices of the flagship
+    problem, to 1e-5: the trajectory frame by frame, the end against its
+    last frame."""
+    from pararealml_tpu.ops import packed_system as jax_packed
+
+    jax_cp, torch_cp = _problems("flagship")
+    steps, batch = 10, 3
+    ys = _states(jax_cp, batch=batch)
+    expected = np.asarray(
+        jax_packed.build_packed_system_rk4_trajectory(
+            jax_cp, D_T, steps, batch, interpret=True
+        )(ys)
+    )
+    trajectory = torch_fused.build_fused_diffusion_rk4_trajectory(
+        torch_cp, D_T, steps
+    )(torch.as_tensor(ys))
+    end = torch_fused.build_fused_diffusion_rk4_end(
+        torch_cp, D_T, steps, batch=batch
+    )(torch.as_tensor(ys))
+    _assert_close(trajectory, expected)
+    _assert_close(end, expected[:, -1])

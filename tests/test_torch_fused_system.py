@@ -10,6 +10,8 @@ wrappers' CPU routing and the FDM operator's dispatch to K5. The CUDA
 kernels themselves are held against their plain versions in
 tests/test_torch_cuda.py."""
 
+import functools
+
 import jax
 import numpy as np
 import pytest
@@ -257,8 +259,8 @@ def test_both_gates_admit_navier_stokes(x64_off):
 
 def test_applicability_requires_the_grid_to_fit_shared_memory():
     """Past one CTA's shared memory (an 81 x 81 Burgers grid), the
-    trajectory takes the tiled kernel K8, and the end and K4, which need
-    the whole grid in one CTA, have none."""
+    trajectory takes the tiled kernel K8 and the end its end mode; K4,
+    which needs the whole grid in one CTA, has none."""
     assert torch_fused.shared_memory_bytes(64, 64, 2) <= (
         torch_fused.MAX_SHARED_MEMORY_BYTES
     )
@@ -270,7 +272,6 @@ def test_applicability_requires_the_grid_to_fit_shared_memory():
     assert not torch_fused.fits_one_block(cp)
     assert torch_fused.fused_system_step_applicable(cp, RK4())
     assert not torch_packed.packed_system_applicable(cp, RK4(), 4)
-    assert torch_fused.build_fused_system_rk4_end(cp, D_T, 3) is None
     y = torch.as_tensor(
         np.random.default_rng(0).uniform(0.5, 1.5, (81, 81, 2)),
         dtype=torch.float32,
@@ -282,8 +283,12 @@ def test_applicability_requires_the_grid_to_fit_shared_memory():
         trajectory.numpy(),
         torch_tiled.tiled_system_rk4_trajectory_reference(y, cfg, 2).numpy(),
     )
+    end_launches = torch_tiled.tiled_system_rk4_end.launches
+    end = torch_fused.build_fused_system_rk4_end(cp, D_T, 2)(y)
+    np.testing.assert_array_equal(end.numpy(), trajectory[-1].numpy())
     # the CPU runs the plain version: no launch
     assert torch_tiled.tiled_system_rk4_trajectory.launches == launches
+    assert torch_tiled.tiled_system_rk4_end.launches == end_launches
 
 
 # the JAX package's generic path in float64 against the new families'
@@ -318,21 +323,54 @@ def test_new_families_match_the_generic_path_in_float64(family, faces):
     assert np.abs(ends.numpy() - expected[:, -1]).max() <= 1e-10 * scale
 
 
-def test_cahn_hilliard_plain_version_matches_pallas_kernel(x64_off):
-    """Cahn-Hilliard's own step, in float32, against the JAX package's K5
-    in interpret mode."""
-    jax_cp, torch_cp = (
+def _cahn_hilliard_problems():
+    return tuple(
         system_problem(vars(module), "cahn_hilliard", "dirichlet", (9, 11))
         for module in (jax_pkg, torch_pkg)
     )
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_cahn_hilliard_k5():
+    """The JAX package's K5 trajectory on the 9 x 11 Cahn-Hilliard problem
+    in interpret mode over ``STEPS`` steps: one interpret-mode run, shared
+    by the two tests below."""
+    jax_cp, _ = _cahn_hilliard_problems()
     y = states_2d((9, 11), 2)
-    expected = jax_fused.build_fused_system_rk4_trajectory(
-        jax_cp, D_T, STEPS, interpret=True
-    )(y)
+    jax.config.update("jax_enable_x64", False)
+    try:
+        return y, np.asarray(
+            jax_fused.build_fused_system_rk4_trajectory(
+                jax_cp, D_T, STEPS, interpret=True
+            )(y)
+        )
+    finally:
+        jax.config.update("jax_enable_x64", True)
+
+
+def test_cahn_hilliard_plain_version_matches_pallas_kernel():
+    """Cahn-Hilliard's own step, in float32, against the JAX package's K5
+    in interpret mode."""
+    _, torch_cp = _cahn_hilliard_problems()
+    y, expected = _jax_cahn_hilliard_k5()
     actual = torch_fused.build_fused_system_rk4_trajectory(
         torch_cp, D_T, STEPS
     )(torch.as_tensor(y))
     _assert_close(actual, expected)
+
+
+def test_cahn_hilliard_k8_end_matches_pallas_k5():
+    """K8's end mode for Cahn-Hilliard (its plain version, the tiled
+    helpers' Laplacian), batched, against the last frame of the JAX
+    package's K5 in interpret mode, which the JAX package's end computes
+    on such a grid, to 1e-5."""
+    _, torch_cp = _cahn_hilliard_problems()
+    y, expected = _jax_cahn_hilliard_k5()
+    cfg = torch_tiled._TiledSystemConfig(torch_cp, D_T)
+    actual = torch_tiled.tiled_system_rk4_end(
+        torch.as_tensor(np.stack([y, y])), cfg, STEPS
+    )
+    _assert_close(actual[0], expected[-1])
 
 
 def test_wrappers_run_the_plain_version_for_cpu_tensors():

@@ -426,10 +426,16 @@ def test_fdm_operator_takes_the_large_grid_routes(
     np.testing.assert_allclose(
         fused.numpy(), generic.numpy(), atol=1e-4, rtol=1e-4
     )
-    # ends on such a grid stay on the generic carry-only loop
-    assert torch_fused.build_fused_diffusion_rk4_end(cp, D_T, steps) is None
+    # ends on such a grid take the resident kernel's end mode where it
+    # takes the trajectory, else the generic carry-only loop
     ends = _operator(D_T).ends_function(cp, (0.0, steps * D_T))
-    assert not ends.fused
+    assert ends.fused == (route == "resident")
+    assert (
+        torch_fused.build_fused_diffusion_rk4_end(cp, D_T, steps) is None
+    ) == (route == "tiled")
+    np.testing.assert_allclose(
+        ends(y, 0.0).numpy(), generic[-1].numpy(), atol=1e-4, rtol=1e-4
+    )
     # the fused step is the one-step trajectory
     step = torch_fused.build_fused_diffusion_rk4_step(cp, D_T)
     np.testing.assert_allclose(

@@ -14,6 +14,8 @@ path to 1e-10 (the same operations, regrouped only where the generic
 path sums its symbolic terms); bfloat16 storage agrees with float32
 storage to 2e-2 of the largest value (the JAX test's bound)."""
 
+import functools
+
 import jax
 import numpy as np
 import pytest
@@ -22,6 +24,9 @@ import torch
 import pararealml_tpu as jax_pkg
 import pararealml_tpu_torch as torch_pkg
 from pararealml_tpu.operators.fdm import FDMOperator as JaxFDMOperator
+from pararealml_tpu.operators.parareal import (
+    PararealOperator as JaxPararealOperator,
+)
 from pararealml_tpu.operators.fdm import RK4 as JaxRK4
 from pararealml_tpu.operators.fdm import (
     ThreePointCentralDifferenceMethod as JaxThreePoint,
@@ -33,6 +38,7 @@ from pararealml_tpu_torch.operators.fdm import (
     FDMOperator,
     ThreePointCentralDifferenceMethod,
 )
+from pararealml_tpu_torch.operators.parareal import PararealOperator
 from pararealml_tpu_torch.ops import fused_system as torch_fused
 from pararealml_tpu_torch.ops import packed_system as torch_packed
 from pararealml_tpu_torch.ops import tiled_system as torch_tiled
@@ -340,7 +346,8 @@ def test_dispatch_rule_matches_jax(x64_off):
     Queue 3 logs a deliberate difference: shallow water past the JAX
     package's VMEM cap takes K8, interior Dirichlet constraints past one
     CTA take the generic path, and float64 states take the generic
-    path."""
+    path. Past one CTA the end states take K8's end mode, as the JAX
+    package's take its K5 end there."""
     cases = {
         "wave": ("dirichlet", (81, 81), True),
         "burgers": ("neumann", (81, 81), True),
@@ -361,7 +368,8 @@ def test_dispatch_rule_matches_jax(x64_off):
         assert not torch_packed.packed_system_applicable(
             torch_cp, RK4(), 4, torch.float32
         )
-        assert torch_fused.build_fused_system_rk4_end(torch_cp, D_T, 2) is None
+        # the end takes K8's end mode (K5's end in the JAX package)
+        assert torch_fused.build_fused_system_rk4_end(torch_cp, D_T, 2)
     # past the JAX package's VMEM cap, shallow water stays generic there
     jax_cp, torch_cp = _problems("shallow_water", "neumann", (641, 641))
     assert not jax_tiled.tiled_system_applicable(jax_cp)
@@ -378,6 +386,7 @@ def test_dispatch_rule_matches_jax(x64_off):
     )
     assert jax_fused.fused_system_step_applicable(jax_cp, JaxRK4())
     assert not torch_fused.fused_system_step_applicable(torch_cp, RK4())
+    assert torch_fused.build_fused_system_rk4_end(torch_cp, D_T, 2) is None
 
 
 def test_fdm_operator_dispatches_past_one_cta_to_k8(monkeypatch):
@@ -385,21 +394,29 @@ def test_fdm_operator_dispatches_past_one_cta_to_k8(monkeypatch):
     alone ``kernel_storage_dtype`` takes effect, as there) patched down, a
     17 x 33 Burgers problem's trajectory and step go through the K8
     wrapper (its plain version here), in the stored dtype, and agree with
-    the generic path to float32 rounding; its ends take the generic
-    carry-only loop."""
+    the generic path to float32 rounding; its ends, single and batched,
+    take K8's end mode (its plain version here), equal to the
+    trajectory's last frame."""
     monkeypatch.setattr(torch_fused, "MAX_SHARED_MEMORY_BYTES", 1024)
     # 24 x 128 padded cells of two components: past a cap of 1,024
     monkeypatch.setattr(
         torch_fused, "REFERENCE_VMEM_BUDGET_CELLS", 1024 * (7 * 2 + 4)
     )
     calls = []
+    end_calls = []
     wrapper = torch_tiled.tiled_system_rk4_trajectory
+    end_wrapper = torch_tiled.tiled_system_rk4_end
 
     def counting(y, *args, **kwargs):
         calls.append(tuple(y.shape))
         return wrapper(y, *args, **kwargs)
 
+    def counting_ends(y, *args, **kwargs):
+        end_calls.append(tuple(y.shape))
+        return end_wrapper(y, *args, **kwargs)
+
     monkeypatch.setattr(torch_tiled, "tiled_system_rk4_trajectory", counting)
+    monkeypatch.setattr(torch_tiled, "tiled_system_rk4_end", counting_ends)
     _, cp = _problems("burgers", "dirichlet")
     y = torch.as_tensor(states_2d((17, 33), 2))
 
@@ -430,12 +447,18 @@ def test_fdm_operator_dispatches_past_one_cta_to_k8(monkeypatch):
     step = operator(True)._build_step_function(cp)
     np.testing.assert_array_equal(step(y, 0, 0.0).numpy(), fused[0].numpy())
     ends = operator(True).ends_function(cp, interval, batch=2)
-    assert not ends.fused and ends.vmappable
+    assert ends.fused and ends.batched
     calls.clear()
     np.testing.assert_array_equal(
-        ends(torch.stack([y, y]), 0.0)[1].numpy(), generic[-1].numpy()
+        ends(torch.stack([y, y]), 0.0)[1].numpy(), fused[-1].numpy()
+    )
+    single = operator(True).ends_function(cp, interval)
+    assert single.fused and not single.batched
+    np.testing.assert_array_equal(
+        single(y, 0.0).numpy(), fused[-1].numpy()
     )
     assert not calls
+    assert end_calls == [(2, 17, 33, 2), (1, 17, 33, 2)]
 
 
 def _wave_example(module):
@@ -455,6 +478,48 @@ def _wave_example(module):
     return cp, np.asarray(ic.discrete_y_0(True), np.float32)
 
 
+_WAVE_INTERVAL = (0.0, 0.03)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_k5_wave_example():
+    """The JAX package's FDM trajectory on the wave example's 101² problem
+    over 3 steps of 0.01 with ``kernel_storage_dtype=bfloat16``, which its
+    K5 ignores there: one interpret-mode run of its K5, shared by the two
+    tests below. Returns the float32 initial state and the frames."""
+    import jax.numpy as jnp
+
+    jax_cp, y = _wave_example(jax_pkg)
+    jax.config.update("jax_enable_x64", False)
+    try:
+        jax_fn, _ = JaxFDMOperator(
+            JaxRK4(), JaxThreePoint(), 0.01, kernel_storage_dtype=jnp.bfloat16
+        ).trajectory_function(jax_cp, _WAVE_INTERVAL)
+        expected = jax_fn(jnp.asarray(y), 0.0)
+        assert expected.dtype == jnp.float32
+        return y, np.asarray(expected)
+    finally:
+        jax.config.update("jax_enable_x64", True)
+
+
+def test_end_mode_matches_pallas_k5_on_the_wave_example():
+    """K8's end mode (its plain version) on the wave example's 101² grid,
+    past one CTA, against the last frame of the JAX package's K5 in
+    interpret mode (what the JAX package runs there, end and trajectory
+    alike), to 1e-5 of the largest value; through
+    ``build_fused_system_rk4_end``, single and batched."""
+    torch_cp, _ = _wave_example(torch_pkg)
+    y, expected = _jax_k5_wave_example()
+    end = torch_fused.build_fused_system_rk4_end(torch_cp, 0.01, 3)
+    actual = end(torch.as_tensor(y))
+    assert actual.dtype == torch.float32
+    assert _relative_error(actual, expected[-1]) <= F32_TOL
+    batched = torch_fused.build_fused_system_rk4_end(
+        torch_cp, 0.01, 3, batch=2
+    )(torch.as_tensor(np.stack([y, y])))
+    np.testing.assert_array_equal(batched[1].numpy(), actual.numpy())
+
+
 def test_storage_dtype_takes_effect_only_past_the_jax_vmem_cap(x64_off):
     """``kernel_storage_dtype=bfloat16`` on the wave example's 101²
     problem, which lies within the JAX package's VMEM cap: its K5 ignores
@@ -463,17 +528,11 @@ def test_storage_dtype_takes_effect_only_past_the_jax_vmem_cap(x64_off):
     steps of 0.01 (before, the port returned bfloat16, 2.9e-2 away).
     Past the cap the knob takes effect in both
     (``test_fdm_operator_dispatches_past_one_cta_to_k8``)."""
-    import jax.numpy as jnp
-
-    jax_cp, y = _wave_example(jax_pkg)
     torch_cp, _ = _wave_example(torch_pkg)
     assert not torch_fused.fits_one_block(torch_cp)
     assert torch_fused.fits_reference_vmem(torch_cp)
-    interval = (0.0, 0.03)
-    jax_fn, _ = JaxFDMOperator(
-        JaxRK4(), JaxThreePoint(), 0.01, kernel_storage_dtype=jnp.bfloat16
-    ).trajectory_function(jax_cp, interval)
-    expected = jax_fn(jnp.asarray(y), 0.0)
+    interval = _WAVE_INTERVAL
+    y, expected = _jax_k5_wave_example()
     torch_fn, _ = FDMOperator(
         RK4(),
         ThreePointCentralDifferenceMethod(),
@@ -484,6 +543,134 @@ def test_storage_dtype_takes_effect_only_past_the_jax_vmem_cap(x64_off):
     ).trajectory_function(torch_cp, interval)
     assert torch_fn.fused
     actual = torch_fn(torch.as_tensor(y), 0.0)
-    assert expected.dtype == jnp.float32
+    assert expected.dtype == np.float32
     assert actual.dtype == torch.float32
+    assert _relative_error(actual, expected) <= F32_TOL
+
+
+@pytest.mark.parametrize(
+    "family, faces",
+    [("burgers", "dirichlet"), ("cahn_hilliard", "neumann")],
+)
+def test_end_mode_matches_generic_path_in_float64(family, faces):
+    """K8's end mode (its plain version) in float64 against the JAX
+    package's generic path over 5 steps, batched, to 1e-10 of the largest
+    value: the end is the trajectory's last frame, with nothing stored."""
+    jax_cp, torch_cp = _problems(family, faces)
+    n = jax_cp.differential_equation.y_dimension
+    ys = states_2d((17, 33), n, batch=2).astype(np.float64)
+    generic, _ = JaxFDMOperator(
+        JaxRK4(), JaxThreePoint(), D_T, fused_kernels=False
+    ).trajectory_function(jax_cp, (0.0, STEPS * D_T))
+    expected = np.stack([np.asarray(generic(y, 0.0))[-1] for y in ys])
+    cfg = torch_tiled._TiledSystemConfig(torch_cp, D_T)
+    actual = torch_tiled.tiled_system_rk4_end_reference(
+        torch.as_tensor(ys), cfg, STEPS
+    )
+    assert actual.dtype == torch.float64
+    assert _relative_error(actual, expected) <= F64_TOL
+
+
+def test_end_wrapper_refuses_before_any_launch():
+    """The end mode raises, on any device and before any launch, where
+    the trajectory does: no tile plan, a plan that does not fit, interior
+    Dirichlet constraints, Navier-Stokes, float64 states; on the CPU it
+    runs its plain version and counts no launch."""
+    _, cp = _problems("wave", "dirichlet")
+    cfg = torch_tiled._TiledSystemConfig(cp, D_T)
+    y = torch.as_tensor(states_2d((17, 33), 2))
+    with pytest.raises(ValueError, match="does not fit"):
+        torch_tiled.tiled_system_rk4_end(
+            y, cfg, 2, plan=cfg.plan._replace(halo=0)
+        )
+    with pytest.raises(TypeError, match="float32"):
+        torch_tiled.tiled_system_rk4_end(y.double(), cfg, 2)
+    _, thin = _problems("burgers", "neumann", shape=(2, 9))
+    with pytest.raises(ValueError, match="range"):
+        torch_tiled.build_tiled_system_rk4_end(thin, D_T, 2)
+    with pytest.raises(ValueError, match="interior"):
+        torch_tiled.build_tiled_system_rk4_end(
+            _add_interior_dirichlet(
+                torch_pkg, _problems("wave", "dirichlet")[1]
+            ),
+            D_T,
+            2,
+        )
+    end = torch_tiled.build_tiled_system_rk4_end(cp, D_T, 3, batch=2)
+    with pytest.raises(ValueError, match="leading shape"):
+        end(y)
+    launches = torch_tiled.tiled_system_rk4_end.launches
+    np.testing.assert_array_equal(
+        end(torch.stack([y, y]))[0].numpy(),
+        torch_tiled.tiled_system_rk4_trajectory_reference(y, cfg, 3)[
+            -1
+        ].numpy(),
+    )
+    assert torch_tiled.tiled_system_rk4_end.launches == launches
+
+
+def test_parareal_past_one_cta_takes_the_batched_k8_end(monkeypatch):
+    """A Parareal over a 17 x 33 wave problem (4 slices of 10 fine steps
+    and one coarse step at a Courant number of 0.6) with the one-CTA
+    limit patched down: every iteration's fine ends go through K8's end mode
+    for the 4 slices at once (one z-slice of the grid a time slice; its
+    plain version here), the corrective coarse sweeps through its
+    single-state end, and the final expansion through the batched K8
+    trajectory; no K4. The solution matches the JAX package's Parareal
+    (its generic path under the suite's x64) to 1e-5 of the largest
+    value, after more than one iteration."""
+    monkeypatch.setattr(torch_fused, "MAX_SHARED_MEMORY_BYTES", 1024)
+    calls = []
+    for module, name in (
+        (torch_tiled, "tiled_system_rk4_end"),
+        (torch_tiled, "tiled_system_rk4_trajectory"),
+        (torch_packed, "packed_system_rk4_ends"),
+    ):
+        wrapper = getattr(module, name)
+
+        def counting(y, *args, _wrapper=wrapper, _name=name, **kwargs):
+            calls.append((_name, tuple(y.shape[:-3])))
+            return _wrapper(y, *args, **kwargs)
+
+        monkeypatch.setattr(module, name, counting)
+
+    def ivp(module):
+        cp = system_problem(vars(module), "wave", "dirichlet")
+        return module.InitialValueProblem(
+            cp,
+            (0.0, 0.4),
+            module.DiscreteInitialCondition(
+                cp, states_2d((17, 33), 2).astype(np.float64), True
+            ),
+        )
+
+    def fdm(d_t):
+        return FDMOperator(
+            RK4(),
+            ThreePointCentralDifferenceMethod(),
+            d_t,
+            device="cpu",
+            dtype=torch.float32,
+        )
+
+    parareal = PararealOperator(fdm(1e-2), fdm(0.1), 1e-5, num_time_slices=4)
+    actual = parareal.solve(ivp(torch_pkg)).discrete_y()
+    assert parareal.last_iterations > 1
+    fine_ends = calls.count(("tiled_system_rk4_end", (4,)))
+    assert fine_ends == parareal.last_iterations
+    assert ("tiled_system_rk4_end", (1,)) in calls
+    assert calls.count(("tiled_system_rk4_trajectory", (4,))) == 1
+    assert not any(name == "packed_system_rk4_ends" for name, _ in calls)
+
+    def jax_fdm(d_t):
+        return JaxFDMOperator(JaxRK4(), JaxThreePoint(), d_t)
+
+    expected = (
+        JaxPararealOperator(
+            jax_fdm(1e-2), jax_fdm(0.1), 1e-5, num_time_slices=4
+        )
+        .solve(ivp(jax_pkg))
+        .discrete_y()
+    )
+    assert actual.shape == expected.shape == (40, 17, 33, 2)
     assert _relative_error(actual, expected) <= F32_TOL
