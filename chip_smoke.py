@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch port's main paths on one NVIDIA GPU.
 
-Drives ``pararealml_tpu_torch`` — never JAX — through its seven ported
-paths at full size, each through the entry points a user calls.
+Drives ``pararealml_tpu_torch`` — never JAX — through its ported paths
+at full size, each through the entry points a user calls.
 
 The diffusion_2d Parareal flagship (21 x 21 grid, Dirichlet 1.5 on the x
 faces, zero-flux y faces, a Gaussian of amplitude 1000, RK4 with fine
@@ -121,11 +121,12 @@ card by default:
     ``FDMOperator.solve`` (wave 101^2 x 2,000 steps, shallow water 101 x
     51 x 8,000 steps, Cahn-Hilliard 101^2 x 10,000 steps) and the 641^2
     Burgers ``trajectory_function`` over 1,000 steps in float32 and with
-    ``kernel_storage_dtype=torch.bfloat16``, one K8 launch each with no
-    generic step built, then an 8-slice Cahn-Hilliard Parareal on 41^2
-    (fine d_t 1e-4, coarse 5e-4, T = 0.4) over K4 fine ends and expansion
-    and K5 coarse sweeps; it checks each run's first 20 frames against
-    K8's plain version and the generic path (atol = rtol = 1e-4),
+    ``kernel_storage_dtype=torch.bfloat16``, one launch each with no
+    generic step built (the examples' on the cluster-resident mode,
+    641^2 on K8), then an 8-slice Cahn-Hilliard Parareal on 41^2 (fine
+    d_t 1e-4, coarse 5e-4, T = 0.4) over K4 fine ends and expansion and
+    K5 coarse sweeps; it checks each run's first 20 frames against its
+    kernel's plain version and the generic path (atol = rtol = 1e-4),
     bfloat16 against float32 over the first 4 frames (2e-2 of the largest
     value; the last frame's difference is printed, not gated: at d_t 1e-3
     the increments are under half a bfloat16 step, and the JAX generic
@@ -133,7 +134,7 @@ card by default:
     test_torch_tiled_system.py), and Parareal against
     the fine trajectory (2 x the tolerance), where the coarse operator
     alone fails that check and at least two iterations must correct it;
-19. times each full-width K8 run, the generic path over 20 steps at the
+19. times each full-width run, the generic path over 20 steps at the
     same size (scaled, and labelled so), K8 on its plan's tiles against
     two other tilings at each size, the Parareal against its fine
     solve, and each kernel function at its path's shapes beside its plain
@@ -156,8 +157,8 @@ spherical problem), on the card by default:
     plain version and the float32 frames rounded once;
 22. runs the path with every counter at 0 through ``FDMOperator.solve``:
     shallow water polar 36 x 51 x 3 over 4,000 steps (one polar K5
-    launch), wave polar 51 x 201 x 2 over 25,000 steps (one polar K8
-    trajectory, one CUDA launch a step), with no generic step built, and
+    launch), wave polar 51 x 201 x 2 over 25,000 steps (one launch of the
+    cluster-resident mode), with no generic step built, and
     the spherical Burgers problem 9 x 21 x 6 x 3 over 200 steps (the
     generic path, in both packages); it checks the first 20 frames of each
     polar run against the plain version and the generic path (atol = rtol
@@ -197,6 +198,46 @@ d_t 0.05 to T = 100), on the card by default:
     counted;
 28. profiles the solve and Parareal as in phase 4.
 
+The end states past one CTA (K8's and K7's end modes) and K5's step
+split, on the card by default:
+
+29. holds K8's end mode (B = 3 and single, four families on 101^2, the
+    polar wave example's 51 x 201) and K7's end mode and K7 with a
+    Dirichlet square inside 201^2 against their plain versions;
+30. runs with every counter at 0 an 8-slice Parareal over the wave
+    example's 101^2 (its fine and coarse ends on the cluster-resident
+    mode), ``ends_function`` over 20 steps of 641^2 Burgers (K8's end
+    mode) and ``ends_function`` and ``solve`` on the 201^2 diffusion
+    problem with the square (K7), and checks them;
+31. times the Parareal, one iteration's fine ends against the generic
+    carry-only loop, and each end function at its path's shapes beside
+    its plain version and its bound;
+32. prints K5's step split (``tools/k5_step_split.py``) and profiles.
+
+The cluster-resident mode on the 2D examples' grids (one thread block
+cluster of up to 16 blocks a state, all steps in one launch), on the
+card by default:
+
+33. holds the mode against its plain version (K5's, bit for bit) at the
+    wave, shallow-water, Cahn-Hilliard and polar wave examples' shapes
+    on every plan its instances take (clusters of 2 to 16 blocks, 1, 2
+    or 4 cells a thread; the plan's single-state and B = 8 choices among
+    them), its end (B = 2) and bfloat16 frames, and checks that a
+    cluster of 17 blocks is refused before any launch;
+34. runs with every counter at 0 the four examples' ``solve`` (one
+    launch of the mode each, no K8, K5 or K4) and the wave example's
+    8-slice Parareal (its fine and coarse ends and its expansion on the
+    mode, no K8), and holds the mode against per-step K8 over each
+    example's horizon (the first ``MODE_HEAD_STEPS`` frames to
+    ``MODE_K8_TOL`` of the largest value; the last frame printed);
+35. times the mode and per-step K8 in turns (K8, mode, mode, K8) at each
+    example's full length and on one Parareal iteration's B = 8 fine
+    ends, and each of the mode's functions over ``MODE_TIMED_STEPS``
+    steps beside its plain version and its bound;
+36. prints K8's step split (``tools/k8_step_split.py``: launch gap, tile
+    load, stages, barriers and store, and K5 on a cluster of 8 on the
+    same states) and profiles each timed run on both routes.
+
 Run it from the repository root with no arguments: ``python3
 chip_smoke.py``. It needs one CUDA card and ``nvcc`` and exits non-zero,
 printing no result, without them. The line before last is the card's
@@ -212,6 +253,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -412,6 +454,18 @@ CH_PARAREAL_TOLERANCE = 5e-5
 TILED_SYSTEM_SOURCE = "pararealml_tpu_torch/csrc/tiled_system.cu"
 TILED_SYSTEM_KERNEL = "tiled_system_rk4_trajectory"
 TILED_SYSTEM_REPLACES = "pararealml_tpu/ops/tiled_system.py:369"
+CLUSTER_KERNEL = "cluster_system_rk4_trajectory"
+# the cluster-resident mode (phases 33-36): the examples' grids on one
+# thread block cluster a state; each plan against its plain version over
+# MODE_SMALL_STEPS steps, the mode against per-step K8 over the first
+# MODE_HEAD_STEPS frames to MODE_K8_TOL of the largest value (float32 in
+# two orders), each kernel function timed beside its plain version over
+# MODE_TIMED_STEPS steps
+CLUSTER_SOURCE = "pararealml_tpu_torch/csrc/cluster_system.cu"
+MODE_SMALL_STEPS = 10
+MODE_HEAD_STEPS = 100
+MODE_K8_TOL = 1e-4
+MODE_TIMED_STEPS = 100
 
 # the curvilinear path: examples/shallow_water_polar_fdm.py (36 x 51 x 3,
 # d_t 0.0025, T = 10: 4,000 steps, one CTA: polar K5),
@@ -503,6 +557,10 @@ WAVE_PARAREAL_COARSE_D_T = 0.05
 WAVE_PARAREAL_TOLERANCE = 1e-3
 END_K8_SHAPE = (101, 101)
 END_SMALL_STEPS = 21
+# K8's end mode on its path: 641^2 Burgers (past the JAX package's VMEM
+# cap, so past the cluster-resident mode), one ends_function over 20
+# steps (the wave example's fine and coarse ends take the mode)
+END_K8_641_STEPS = 20
 END_K7_N = 201
 END_K7_STEPS = 200
 END_K7_D_T = 1e-3
@@ -2586,7 +2644,10 @@ def system_2d_phases(
             generic_builds.append(cp)
         return build_step(self, cp, allow_fused, dtype)
 
-    wrappers = dict(family_wrappers, **{TILED_SYSTEM_KERNEL: k8})
+    mode = fs.cluster_system_rk4_trajectory
+    wrappers = dict(
+        family_wrappers, **{TILED_SYSTEM_KERNEL: k8, CLUSTER_KERNEL: mode}
+    )
     for wrapper in wrappers.values():
         wrapper.launches = 0
     FDMOperator._build_step_function = counting_build
@@ -2606,13 +2667,15 @@ def system_2d_phases(
     iterations = parareal.last_iterations
     log(
         f"2d system main-path launches: {launches} (the three examples' "
-        f"solves and the two 641^2 trajectories: {k8_runs}; the generic "
-        f"path was built {len(generic_builds)} times in them); Parareal "
-        f"{iterations} iterations"
+        f"solves on the cluster-resident mode and the two 641^2 "
+        f"trajectories on K8: {k8_runs}; the generic path was built "
+        f"{len(generic_builds)} times in them); Parareal {iterations} "
+        f"iterations"
     )
-    assert not generic_builds, "a K8 run took the generic path"
+    assert not generic_builds, "a kernel run took the generic path"
     assert k8_runs == dict(
-        {name: 0 for name in family_wrappers}, **{TILED_SYSTEM_KERNEL: 5}
+        {name: 0 for name in family_wrappers},
+        **{TILED_SYSTEM_KERNEL: 2, CLUSTER_KERNEL: 3},
     ), k8_runs
     # Parareal: each iteration's fine ends on K4, the final expansion on
     # K4, the whole-domain coarse roll-out on the K5 trajectory and the
@@ -2621,7 +2684,7 @@ def system_2d_phases(
     assert launches["packed_system_rk4_trajectory"] == 1, launches
     assert launches["fused_system_rk4_trajectory"] >= 1, launches
     assert launches["fused_system_rk4_end"] >= 1, launches
-    assert launches[TILED_SYSTEM_KERNEL] == 5, launches
+    assert launches[TILED_SYSTEM_KERNEL] == 2, launches
 
     head = SYSTEM_HEAD_STEPS
     heads = {}
@@ -2647,12 +2710,26 @@ def system_2d_phases(
         burgers_ys[f32][:head].double(),
     )
     for label, (cp, d_t, y_0, frames) in heads.items():
-        cfg = ts._TiledSystemConfig(cp, d_t)
-        plain = k8_plain(y_0, cfg, head).double()
+        # the examples' grids run on the cluster-resident mode (its plain
+        # version is K5's), 641^2 on K8
+        on_mode = fs.cluster_system_applicable(cp)
+        key = CLUSTER_KERNEL if on_mode else TILED_SYSTEM_KERNEL
+        if on_mode:
+            cfg = fs._SystemKernelConfig(cp, d_t)
+            route = f"the mode, a cluster of {fs.cluster_plan(cfg).cluster_size}"
+            plain = fs.fused_system_rk4_trajectory_reference(
+                y_0, cfg, head
+            ).double()
+        else:
+            cfg = ts._TiledSystemConfig(cp, d_t)
+            route = (
+                f"K8, {cfg.plan.blocks} blocks of {cfg.plan.rows} x "
+                f"{cfg.plan.cols}"
+            )
+            plain = k8_plain(y_0, cfg, head).double()
         rel = float((frames - plain).abs().max()) / float(plain.abs().max())
-        errors[TILED_SYSTEM_KERNEL] = max(
-            errors.get(TILED_SYSTEM_KERNEL, 0.0),
-            float((frames - plain).abs().max()),
+        errors[key] = max(
+            errors.get(key, 0.0), float((frames - plain).abs().max())
         )
         generic_fn, _ = fdm(d_t, fused_kernels=False).trajectory_function(
             cp, (0.0, head * d_t)
@@ -2661,8 +2738,7 @@ def system_2d_phases(
         generic = generic_fn(y_0, 0.0).double()
         difference = (frames - generic).abs()
         log(
-            f"phase 2d system path: {label} (K8, {cfg.plan.blocks} blocks of "
-            f"{cfg.plan.rows} x {cfg.plan.cols}): first {head} frames "
+            f"phase 2d system path: {label} ({route}): first {head} frames "
             f"against the plain version max|d|/max|y| = {rel:.3e}, against "
             f"the generic path max|d| = {float(difference.max()):.3e} "
             f"(atol = rtol = 1e-4)"
@@ -2776,8 +2852,13 @@ def system_2d_phases(
         run_ms[label] = cuda_ms(torch, runs[label], reps=3)
         item = 2 if label.endswith("bfloat16") else 4
         bound_ms, bound_by = tiled_system_bound(family, cfg, 1, steps, item)
+        route = (
+            "the cluster-resident mode"
+            if fs.cluster_system_applicable(cp)
+            else f"K8 trajectory ({cfg.plan.blocks} blocks)"
+        )
         log(
-            f"time: {label}, K8 trajectory ({cfg.plan.blocks} blocks), "
+            f"time: {label}, {route}, "
             f"{steps} steps: {run_ms[label]:.3f} ms "
             f"({1e3 * run_ms[label] / steps:.3f} us a step), bound "
             f"{bound_ms:.3f} ms ({bound_by}) [{card}]"
@@ -2792,7 +2873,7 @@ def system_2d_phases(
         log(
             f"time: generic path {label}, {SYSTEM_TIMED_STEPS} steps: "
             f"{generic_ms:.3f} ms (median of 3), scaled to {steps} steps "
-            f"{scaled_ms:.3f} ms (scaled, not run): K8 "
+            f"{scaled_ms:.3f} ms (scaled, not run): the kernel "
             f"{scaled_ms / run_ms[label]:.3f}x faster [{card}]"
         )
     # the plan's tiles against two other tilings, through the K8 wrapper
@@ -3275,7 +3356,7 @@ def polar_phases(
     for label, family, kernel, (ivp, d_t) in (
         ("shallow water polar 36 x 51 x 3", "polar-shallow-water",
          "fused_system_rk4_trajectory", shallow_water_polar_example(prml)),
-        ("wave polar 51 x 201 x 2", "polar-wave", TILED_SYSTEM_KERNEL,
+        ("wave polar 51 x 201 x 2", "polar-wave", CLUSTER_KERNEL,
          wave_polar_example(prml)),
     ):
         examples[label] = (family, ivp, d_t, initial(ivp), kernel)
@@ -3283,6 +3364,7 @@ def polar_phases(
     wave_cp = examples["wave polar 51 x 201 x 2"][1].constrained_problem
     assert fs.fits_one_block(sw_cp) and not fs.fits_one_block(wave_cp)
     assert fs.fits_reference_vmem(wave_cp)
+    assert fs.cluster_system_applicable(wave_cp)
     spherical_ivp, spherical_d_t = burgers_spherical_example(prml)
     k9_wrappers = {
         name: getattr(f3, name)
@@ -3297,6 +3379,7 @@ def polar_phases(
         **k9_wrappers,
         packed_system_rk4_ends=ps.packed_system_rk4_ends,
         packed_system_rk4_trajectory=k4_trajectory,
+        **{CLUSTER_KERNEL: fs.cluster_system_rk4_trajectory},
     )
     generic_builds = []
     build_step = FDMOperator._build_step_function
@@ -3325,10 +3408,12 @@ def polar_phases(
         f"spherical solve {len(generic_builds) - polar_builds})"
     )
     assert polar_builds == 0, "a polar example took the generic path"
+    # the polar wave example runs on the cluster-resident mode, polar K8
+    # no more
     assert launches == dict(
         {name: 0 for name in counted},
         fused_system_rk4_trajectory=1,
-        **{TILED_SYSTEM_KERNEL: 1},
+        **{CLUSTER_KERNEL: 1},
     ), launches
     # the spherical problem has no kernel in either package: generic
     assert len(generic_builds) - polar_builds >= 1
@@ -3341,10 +3426,10 @@ def polar_phases(
         assert ys.shape == (steps,) + tuple(y_0.shape), (label, ys.shape)
         assert np.isfinite(ys).all(), label
         frames = torch.as_tensor(ys[:head], device=device)
-        if kernel == TILED_SYSTEM_KERNEL:
-            plain = plains[kernel](y_0, ts._TiledSystemConfig(cp, d_t), head)
-        else:
-            plain = plains[kernel](y_0, fs._SystemKernelConfig(cp, d_t), head)
+        # both K5's plain version: the mode computes what K5 computes
+        plain = fs.fused_system_rk4_trajectory_reference(
+            y_0, fs._SystemKernelConfig(cp, d_t), head
+        )
         plain = plain.double()
         rel = float((frames - plain).abs().max()) / float(plain.abs().max())
         errors[f"{kernel}:polar"] = max(
@@ -3414,16 +3499,16 @@ def polar_phases(
         steps = len(t)
         runs[label] = lambda fn=fn, y_0=y_0: fn(y_0, 0.0)
         run_ms[label] = cuda_ms(torch, runs[label], reps=3)
-        if kernel == TILED_SYSTEM_KERNEL:
-            kcfg = ts._TiledSystemConfig(cp, d_t)
-            bound_ms, bound_by = tiled_system_bound(family, kcfg, 1, steps, 4)
-            what = f"K8 ({kcfg.plan.blocks} blocks of {kcfg.plan.rows} x "
-            what += f"{kcfg.plan.cols})"
-        else:
-            kcfg = fs._SystemKernelConfig(cp, d_t)
-            bound_ms, bound_by = stencil_bound(
-                family, 1, steps, kcfg.height * kcfg.width, kcfg.n, True
+        kcfg = fs._SystemKernelConfig(cp, d_t)
+        bound_ms, bound_by = stencil_bound(
+            family, 1, steps, kcfg.height * kcfg.width, kcfg.n, True
+        )
+        if kernel == CLUSTER_KERNEL:
+            what = (
+                "the cluster-resident mode, a cluster of "
+                f"{fs.cluster_plan(kcfg).cluster_size} blocks"
             )
+        else:
             clusters = fs.k5_cluster_size(kcfg)
             what = (
                 "K5, one CTA" if clusters == 1
@@ -3492,9 +3577,11 @@ def polar_phases(
          (sw_y, sw_cfg),
          stencil_bound("polar-shallow-water", 1, 1, sw_cells, 3, True),
          False),
+        # polar K8 left the polar wave example's path for the
+        # cluster-resident mode (phases 33-36)
         (TILED_SYSTEM_KERNEL, f"51 x 201 x 2 polar wave, {steps} steps",
          (wave_y, wave_cfg, steps),
-         tiled_system_bound("polar-wave", wave_cfg, 1, steps, 4), True),
+         tiled_system_bound("polar-wave", wave_cfg, 1, steps, 4), False),
     ]
     entries = []
     for name, what, args, (bound_ms, bound_by), on_path in timings:
@@ -4082,11 +4169,15 @@ def end_mode_phases(
     from pararealml_tpu_torch.ops import tiled_diffusion as td
     from pararealml_tpu_torch.ops import tiled_system as ts
 
+    from pararealml_tpu_torch.ops import fused_system as fs
+
     started = time.perf_counter()
     k8_end, k7_end = ts.tiled_system_rk4_end, rd.resident_diffusion_rk4_end
     counted = {
         "tiled_system_rk4_end": k8_end,
         "tiled_system_rk4_trajectory": ts.tiled_system_rk4_trajectory,
+        "cluster_system_rk4_end": fs.cluster_system_rk4_end,
+        CLUSTER_KERNEL: fs.cluster_system_rk4_trajectory,
         "resident_diffusion_rk4_end": k7_end,
         "resident_diffusion_rk4_trajectory": (
             rd.resident_diffusion_rk4_trajectory
@@ -4217,10 +4308,23 @@ def end_mode_phases(
             True,
         ),
     )
+    # 641^2 Burgers, past the JAX package's VMEM cap: K8's end mode
+    burgers_ivp = burgers_641(prml)
+    burgers_cp = burgers_ivp.constrained_problem
+    burgers_interval = (0.0, END_K8_641_STEPS * BURGERS_641_D_T)
+    burgers_ends = fdm(BURGERS_641_D_T).ends_function(
+        burgers_cp, burgers_interval
+    )
+    burgers_y0 = torch.as_tensor(
+        burgers_ivp.initial_condition.discrete_y_0(True),
+        dtype=torch.float32,
+        device=device,
+    )
     for wrapper in counted.values():
         wrapper.launches = 0
     parareal_ys = parareal.solve(wave_parareal_ivp).discrete_y()
     iterations = parareal.last_iterations
+    burgers_end = burgers_ends(burgers_y0, 0.0)
     k7_ends = diffusion.ends_function(interior_cp, k7_interval)
     k7_y0 = torch.as_tensor(
         k7_ivp.initial_condition.discrete_y_0(True),
@@ -4235,9 +4339,14 @@ def end_mode_phases(
         f"{iterations} iterations [{card}]"
     )
     assert k7_ends.fused and k7_ends.vmappable is False
-    # every iteration's fine ends (B = 8) and at least one coarse end
-    assert launches["tiled_system_rk4_end"] > iterations
-    assert launches["tiled_system_rk4_trajectory"] >= 1
+    # the wave example's 101^2 on the cluster-resident mode: every
+    # iteration's fine ends (B = 8), at least one coarse end and the
+    # expansion; K8's end mode on 641^2 Burgers alone
+    assert launches["cluster_system_rk4_end"] > iterations
+    assert launches[CLUSTER_KERNEL] >= 1
+    assert launches["tiled_system_rk4_end"] == 1
+    assert launches["tiled_system_rk4_trajectory"] == 0
+    assert bool(torch.isfinite(burgers_end).all())
     assert launches["resident_diffusion_rk4_end"] == 1
     assert launches["resident_diffusion_rk4_trajectory"] == 1
     wave_fine = fdm(wave_d_t).solve(wave_parareal_ivp).discrete_y()
@@ -4299,9 +4408,8 @@ def end_mode_phases(
         f"{slice_steps * WAVE_PARAREAL_SLICES} steps) "
         f"{run_ms['wave 101^2 fine']:.3f} ms [{card}]"
     )
-    # one iteration's fine ends: the batched K8 end against the generic
-    # carry-only loop, on the same borders
-    wave_cfg = ts._TiledSystemConfig(wave_cp, wave_d_t)
+    # one iteration's fine ends: the mode's batched end against the
+    # generic carry-only loop, on the same borders
     borders = torch.stack(
         [wave_y0 * (1.0 - 0.05 * i) for i in range(WAVE_PARAREAL_SLICES)]
     ).contiguous()
@@ -4324,7 +4432,7 @@ def end_mode_phases(
     del generic_out
     log(
         f"time: wave 101^2 parareal fine ends (B={WAVE_PARAREAL_SLICES}, "
-        f"{slice_steps} steps: one iteration): batched K8 end "
+        f"{slice_steps} steps: one iteration): the mode's batched end "
         f"{fused_ms:.3f} ms, generic carry-only loop {generic_ms:.3f} ms "
         f"(one run), {generic_ms / fused_ms:.1f}x; max|d|/max|y| "
         f"{ends_diff:.3e} [{card}]"
@@ -4354,13 +4462,14 @@ def end_mode_phases(
 
     interior_cfg = td._HornerConfig(interior_cp, END_K7_D_T, resident=True)
     cells_k7 = END_K7_N * END_K7_N
-    wave_cells = wave_cfg.height * wave_cfg.width
+    burgers_cfg = ts._TiledSystemConfig(burgers_cp, BURGERS_641_D_T)
     timings = (
         ("tiled_system_rk4_end", "tiled_system_rk4_end",
-         f"B={WAVE_PARAREAL_SLICES} x 101^2 x 2 wave, {slice_steps} steps "
-         "(one iteration's fine ends)",
-         (borders, wave_cfg, slice_steps), ts.tiled_system_rk4_end_reference,
-         end_bound("wave", wave_cells, 2, WAVE_PARAREAL_SLICES, slice_steps),
+         f"641^2 x 2 Burgers, {END_K8_641_STEPS} steps",
+         (burgers_y0, burgers_cfg, END_K8_641_STEPS),
+         ts.tiled_system_rk4_end_reference,
+         end_bound("burgers", burgers_cfg.height * burgers_cfg.width, 2, 1,
+                   END_K8_641_STEPS),
          ts.tiled_system_rk4_end),
         ("tiled_system_rk4_end:polar", "tiled_system_rk4_end",
          f"51 x 201 x 2 polar wave, {POLAR_TIMED_STEPS} steps",
@@ -4446,6 +4555,372 @@ def end_mode_phases(
     return entries
 
 
+def cluster_mode_phases(
+    torch, prml, device, card, cuda_ms, once_ms, device_busy_ms
+):
+    """Phases 33-36: the cluster-resident mode on the 2D examples' grids
+    (K8's examples' regime redesigned: one launch a solve, one cluster a
+    state) against its plain version, its main paths counted, per-step K8
+    and the mode timed in turns, K8's step split and the profiles.
+    Returns their entries of the JSON line. ``cuda_ms``, ``once_ms`` and
+    ``device_busy_ms`` are the timing and profiling functions."""
+    from pararealml_tpu_torch.operators.fdm import (
+        RK4,
+        FDMOperator,
+        ThreePointCentralDifferenceMethod,
+    )
+    from pararealml_tpu_torch.operators.parareal import PararealOperator
+    from pararealml_tpu_torch.ops import fused_system as fs
+    from pararealml_tpu_torch.ops import packed_system as ps
+    from pararealml_tpu_torch.ops import tiled_system as ts
+
+    started = time.perf_counter()
+    mode, mode_end = fs.cluster_system_rk4_trajectory, fs.cluster_system_rk4_end
+    k5_plain = fs.fused_system_rk4_trajectory_reference
+    errors = {}
+
+    def check(key, what, kernel, plain):
+        torch.cuda.synchronize()
+        assert kernel.shape == plain.shape, (key, what)
+        assert kernel.dtype == plain.dtype, (key, what)
+        abs_err = float((kernel.float() - plain.float()).abs().max())
+        rel_err = abs_err / float(plain.float().abs().max())
+        errors[key] = max(errors.get(key, 0.0), abs_err)
+        if not rel_err <= KERNEL_REL_TOL:
+            raise AssertionError(
+                f"{key} disagrees with its plain version ({what}): "
+                f"{rel_err:.3e}"
+            )
+        return rel_err
+
+    def fdm(d_t):
+        # no device argument: the entry points run on the card
+        return FDMOperator(RK4(), ThreePointCentralDifferenceMethod(), d_t)
+
+    def initial(ivp):
+        return torch.as_tensor(
+            ivp.initial_condition.discrete_y_0(True),
+            dtype=torch.float32,
+            device=device,
+        )
+
+    # key: (label, family for the operation count, problem, d_t)
+    examples = {}
+    for key, label, family, (ivp, d_t) in (
+        (CLUSTER_KERNEL, "wave 101^2 x 2", "wave", wave_example(prml)),
+        (f"{CLUSTER_KERNEL}:shallow-water", "shallow water 101 x 51 x 3",
+         "shallow-water", shallow_water_example(prml)),
+        (f"{CLUSTER_KERNEL}:cahn-hilliard", "cahn-hilliard 101^2 x 2",
+         "cahn-hilliard",
+         (cahn_hilliard_2d(torch, prml, 101, CH_2D_T_END), 5e-4)),
+        (f"{CLUSTER_KERNEL}:polar", "wave polar 51 x 201 x 2", "polar-wave",
+         wave_polar_example(prml)),
+    ):
+        examples[key] = (label, family, ivp, d_t)
+
+    # -- phase 33: the mode against its plain version ----------------------
+    sizes_run = set()
+    for key, (label, _, ivp, d_t) in examples.items():
+        cp = ivp.constrained_problem
+        assert fs.cluster_system_applicable(cp), label
+        cfg = fs._SystemKernelConfig(cp, d_t)
+        shape = cp.mesh.vertices_shape
+        ys = smooth_states_2d(torch, device, shape, cfg.n, batch=2)
+        expected = k5_plain(ys, cfg, MODE_SMALL_STEPS)
+        plans = [
+            plan
+            for plan in (
+                fs.ClusterPlan(*shape, cfg.n, cfg.polar, size, cells)
+                for size in range(2, fs.MAX_CLUSTER_SIZE + 1)
+                for cells in fs._CLUSTER_CELLS
+            )
+            if plan.fits
+        ]
+        active = fs.card_active_clusters(cfg, True)
+        chosen = [fs.cluster_plan(cfg, batch, None, active) for batch in (1, 8)]
+        assert all(plan in plans for plan in chosen), (label, chosen)
+        for plan in plans:
+            check(
+                key,
+                f"{label}, a cluster of {plan.cluster_size}, {plan.cells} "
+                "cells a thread",
+                mode(ys, cfg, MODE_SMALL_STEPS, plan=plan),
+                expected,
+            )
+            sizes_run.add(plan.cluster_size)
+        check(
+            "cluster_system_rk4_end",
+            f"{label}, B=2",
+            mode_end(ys, cfg, MODE_SMALL_STEPS),
+            expected[:, -1],
+        )
+        frames = mode(ys, cfg, MODE_SMALL_STEPS, frame_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        assert torch.equal(frames, expected.to(torch.bfloat16)), label
+        log(
+            f"kernels: the cluster-resident mode, {label}: {len(plans)} plans "
+            f"(clusters of {plans[0].cluster_size} to "
+            f"{plans[-1].cluster_size}, 1 to 4 cells a thread; the plan "
+            f"takes {chosen[0].cluster_size} x {chosen[0].cells} for one "
+            f"state and {chosen[1].cluster_size} x {chosen[1].cells} for "
+            f"B=8), B=2 trajectory and end, bfloat16 frames, "
+            f"{MODE_SMALL_STEPS} steps: max|d| = {errors[key]:.3e} against "
+            f"the plain version (K5's)"
+        )
+    assert 16 in sizes_run
+    # a cluster past the card's 16 blocks is refused before any launch
+    label, _, ivp, d_t = examples[CLUSTER_KERNEL]
+    cfg = fs._SystemKernelConfig(ivp.constrained_problem, d_t)
+    ys = smooth_states_2d(torch, device, (101, 101), 2, batch=2)
+    out = torch.full((2, 2, 101, 101, 2), float("nan"), device=device)
+    launches = mode.launches
+    try:
+        fs.launch_cluster(
+            ys, out, cfg, 2, True, fs.cluster_plan(cfg)._replace(
+                cluster_size=17
+            )
+        )
+    except RuntimeError as error:
+        log(f"kernels: a cluster of 17 blocks is refused: {error}")
+    else:
+        raise AssertionError("the mode launched a cluster of 17 blocks")
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(out).all()) and mode.launches == launches
+    del ys, out, expected, frames
+    log(f"phase cluster kernels: ok ({time.perf_counter() - started:.1f} s)")
+
+    # -- phase 34: the main paths, counted ---------------------------------
+    counted = {
+        CLUSTER_KERNEL: mode,
+        "cluster_system_rk4_end": mode_end,
+        TILED_SYSTEM_KERNEL: ts.tiled_system_rk4_trajectory,
+        "tiled_system_rk4_end": ts.tiled_system_rk4_end,
+        "fused_system_rk4_trajectory": fs.fused_system_rk4_trajectory,
+        "fused_system_rk4_end": fs.fused_system_rk4_end,
+        "packed_system_rk4_ends": ps.packed_system_rk4_ends,
+    }
+    path_launches = {}
+    for key, (label, _, ivp, d_t) in examples.items():
+        for wrapper in counted.values():
+            wrapper.launches = 0
+        ys = fdm(d_t).solve(ivp).discrete_y()
+        launches = {name: w.launches for name, w in counted.items()}
+        path_launches[key] = launches[CLUSTER_KERNEL]
+        steps = round(ivp.t_interval[1] / d_t)
+        assert ys.shape[0] == steps and np.isfinite(ys).all(), label
+        log(f"cluster main-path launches: {label} solve, {steps} steps: "
+            f"{launches}")
+        assert launches == dict(
+            {name: 0 for name in counted}, **{CLUSTER_KERNEL: 1}
+        ), (label, launches)
+        del ys
+    wave_ivp, wave_d_t = wave_example(prml)
+    wave_cp = wave_ivp.constrained_problem
+    parareal_ivp = prml.InitialValueProblem(
+        wave_cp, (0.0, WAVE_PARAREAL_T_END), wave_ivp.initial_condition
+    )
+    parareal = PararealOperator(
+        fdm(wave_d_t),
+        fdm(WAVE_PARAREAL_COARSE_D_T),
+        WAVE_PARAREAL_TOLERANCE,
+        num_time_slices=WAVE_PARAREAL_SLICES,
+    )
+    for wrapper in counted.values():
+        wrapper.launches = 0
+    parareal_ys = parareal.solve(parareal_ivp).discrete_y()
+    launches = {name: w.launches for name, w in counted.items()}
+    iterations = parareal.last_iterations
+    path_launches["cluster_system_rk4_end"] = launches["cluster_system_rk4_end"]
+    log(
+        f"cluster main-path launches: wave 101^2 Parareal, "
+        f"{WAVE_PARAREAL_SLICES} slices, {iterations} iterations: {launches}"
+    )
+    # every iteration's fine ends (B = 8) and the coarse ends on the mode's
+    # end, the expansion (and a coarse roll-out) on its trajectory; no K8
+    assert launches["cluster_system_rk4_end"] > iterations, launches
+    assert launches[CLUSTER_KERNEL] >= 1, launches
+    assert all(
+        launches[name] == 0
+        for name in counted
+        if name not in (CLUSTER_KERNEL, "cluster_system_rk4_end")
+    ), launches
+    wave_fine = fdm(wave_d_t).solve(parareal_ivp).discrete_y()
+    parareal_diff = float(np.abs(parareal_ys - wave_fine).max())
+    log(
+        f"phase cluster parareal: wave 101^2, {iterations} iterations, max "
+        f"diff vs fine {parareal_diff:.3e} (gate "
+        f"{2 * WAVE_PARAREAL_TOLERANCE:g})"
+    )
+    assert parareal_diff <= 2 * WAVE_PARAREAL_TOLERANCE
+    del parareal_ys, wave_fine
+
+    # the mode against per-step K8 over each example's horizon: the first
+    # frames held to float32 rounding in two orders, the last recorded
+    for key, (label, _, ivp, d_t) in examples.items():
+        cp = ivp.constrained_problem
+        y_0 = initial(ivp)
+        steps = round(ivp.t_interval[1] / d_t)
+        cfg = fs._SystemKernelConfig(cp, d_t)
+        tcfg = ts._TiledSystemConfig(cp, d_t)
+        frames = mode(y_0, cfg, steps)
+        k8_frames = ts.tiled_system_rk4_trajectory(y_0, tcfg, steps)
+        head = MODE_HEAD_STEPS
+        scale = float(k8_frames[:head].abs().max())
+        head_rel = float((frames[:head] - k8_frames[:head]).abs().max()) / scale
+        last_rel = float((frames[-1] - k8_frames[-1]).abs().max()) / float(
+            k8_frames[-1].abs().max()
+        )
+        log(
+            f"phase cluster path: {label}: the mode against per-step K8, "
+            f"first {head} frames max|d|/max|y| = {head_rel:.3e} (limit "
+            f"{MODE_K8_TOL:g}); frame {steps} {last_rel:.3e} (recorded)"
+        )
+        assert head_rel <= MODE_K8_TOL, (label, head_rel)
+        assert np.isfinite(last_rel)
+        del frames, k8_frames
+    torch.cuda.empty_cache()
+    log(f"phase cluster path: ok ({time.perf_counter() - started:.1f} s)")
+
+    # -- phase 35: times, per-step K8 and the mode in turns ----------------
+    rows = []
+    for key, (label, family, ivp, d_t) in examples.items():
+        cp = ivp.constrained_problem
+        steps = round(ivp.t_interval[1] / d_t)
+        y_0 = initial(ivp)
+        cfg = fs._SystemKernelConfig(cp, d_t)
+        tcfg = ts._TiledSystemConfig(cp, d_t)
+        rows.append(
+            (key, label, family, 1, steps, True, cfg, y_0,
+             lambda y_0=y_0, cfg=cfg, steps=steps: mode(y_0, cfg, steps),
+             lambda y_0=y_0, tcfg=tcfg, steps=steps: (
+                 ts.tiled_system_rk4_trajectory(y_0, tcfg, steps)
+             ))
+        )
+    slice_steps = round(WAVE_PARAREAL_T_END / WAVE_PARAREAL_SLICES / wave_d_t)
+    wave_cfg = fs._SystemKernelConfig(wave_cp, wave_d_t)
+    wave_tcfg = ts._TiledSystemConfig(wave_cp, wave_d_t)
+    wave_y0 = initial(wave_ivp)
+    borders = torch.stack(
+        [wave_y0 * (1.0 - 0.05 * i) for i in range(WAVE_PARAREAL_SLICES)]
+    ).contiguous()
+    rows.append(
+        ("cluster_system_rk4_end",
+         f"B={WAVE_PARAREAL_SLICES} x 101^2 x 2 wave ends", "wave",
+         WAVE_PARAREAL_SLICES, slice_steps, False, wave_cfg, borders,
+         lambda: mode_end(borders, wave_cfg, slice_steps),
+         lambda: ts.tiled_system_rk4_end(borders, wave_tcfg, slice_steps))
+    )
+    entries = []
+    turns = {}
+    for (key, label, family, batch, steps, trajectory, cfg, y_0, run_mode,
+         run_k8) in rows:
+        run_k8()
+        run_mode()
+        # in turns: K8, the mode, the mode, K8
+        k8_a = once_ms(torch, run_k8)
+        mode_a = once_ms(torch, run_mode)
+        mode_b = once_ms(torch, run_mode)
+        k8_b = once_ms(torch, run_k8)
+        mode_ms, k8_ms = 0.5 * (mode_a + mode_b), 0.5 * (k8_a + k8_b)
+        turns[label] = (mode_ms, k8_ms, steps)
+        cells = cfg.height * cfg.width
+        bound_ms, bound_by = stencil_bound(
+            family, batch, steps, cells, cfg.n, trajectory
+        )
+        plan = fs.cluster_plan(cfg, batch, None, fs.card_active_clusters(
+            cfg, trajectory
+        ))
+        log(
+            f"time: {label}, {steps} steps, in turns (K8, mode, mode, K8): "
+            f"the cluster-resident mode (a cluster of {plan.cluster_size}, "
+            f"{plan.cells} cells a thread) {mode_a:.3f} / {mode_b:.3f} ms "
+            f"({1e3 * mode_ms / steps:.3f} us a step), per-step K8 "
+            f"{k8_a:.3f} / {k8_b:.3f} ms ({1e3 * k8_ms / steps:.3f} us a "
+            f"step): {k8_ms / mode_ms:.3f}x; bound {bound_ms * 1e3:.3f} us "
+            f"({bound_by}) [{card}]"
+        )
+        # the function's entry: the kernel and its plain version on the
+        # same inputs over MODE_TIMED_STEPS steps (the plain version takes
+        # milliseconds a step)
+        timed = min(steps, MODE_TIMED_STEPS)
+        if trajectory:
+            args = (y_0, cfg, timed)
+            wrapper, plain = mode, k5_plain
+        else:
+            args = (y_0, cfg, steps)
+            wrapper, plain = mode_end, fs.fused_system_rk4_end_reference
+            timed = steps
+        kernel_ms = cuda_ms(torch, lambda: wrapper(*args))
+        outputs = []
+        plain_ms = once_ms(torch, lambda: outputs.append(plain(*args)))
+        rel_err = check(key, f"{label}, {timed} steps, timed",
+                        wrapper(*args), outputs[0])
+        del outputs
+        entry_bound_ms, entry_bound_by = stencil_bound(
+            family, batch, timed, cells, cfg.n, trajectory
+        )
+        what = f"{label}, {timed} steps"
+        log(
+            f"time: {key} ({what}): kernel {kernel_ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms (one run), bound {entry_bound_ms * 1e3:.3f} "
+            f"us ({entry_bound_by}); against the plain version there "
+            f"max|d|/max|y| = {rel_err:.3e} [{card}]"
+        )
+        entries.append(
+            {
+                "name": key,
+                "route": "cuda",
+                "source": CLUSTER_SOURCE,
+                "replaces": (
+                    "pararealml_tpu/ops/fused_system.py:822" if trajectory
+                    else "pararealml_tpu/ops/fused_system.py:964"
+                ),
+                "on_path": True,
+                "launches": path_launches[key],
+                "max_abs_err": errors.get(key, 0.0),
+                "ms": kernel_ms,
+                "plain_ms": plain_ms,
+                "bound_ms": entry_bound_ms,
+                "bound_us": entry_bound_ms * 1e3,
+                "bound_by": entry_bound_by,
+                "library_ms": None,
+                "timed": what,
+                "path_ms": mode_ms,
+                "path_k8_ms": k8_ms,
+                "path_steps": steps,
+            }
+        )
+    log(f"phase cluster times: ok ({time.perf_counter() - started:.1f} s)")
+
+    # -- phase 36: K8's step split and the profiles ------------------------
+    for result in load_tool("k8_step_split").run(device, card, log):
+        log(
+            "k8 split: {case}: a step {step_us:.3f} us: launch gap "
+            "{launch_gap:.3f}, tile load {load:.3f}, stages {stages:.3f}, "
+            "barriers {barriers:.3f}, store {store:.3f} us; K5 on a cluster "
+            "of {k5_cluster_size} {k5_step_us:.3f} us [{card}]".format(
+                card=card, **result, **result["parts_us"]
+            )
+        )
+    for (key, label, _, _, _, _, _, _, run_mode, run_k8) in rows:
+        mode_ms, k8_ms, _ = turns[label]
+        for route, run, wall in (
+            ("the mode", run_mode, mode_ms),
+            ("per-step K8", run_k8, k8_ms),
+        ):
+            busy_ms, top = device_busy_ms(torch, run, reps=1)
+            if busy_ms is None:
+                log(f"profile: {label}, {route}: not measured (no device "
+                    "events)")
+                continue
+            log(
+                f"profile: {label}, {route}: device busy {busy_ms:.3f} ms "
+                f"of {wall:.3f} ms, idle share {1.0 - busy_ms / wall:.3f}; "
+                f"top: {top} [{card}]"
+            )
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -4487,7 +4962,8 @@ def main() -> int:
     )
 
     start = time.perf_counter()
-    # one nvcc per source, all started together
+    # one nvcc per source, all started together, the step splits'
+    # instrumented copies (phases 32 and 36) too
     sources = (
         "fused_diffusion",
         "fused_system",
@@ -4495,14 +4971,24 @@ def main() -> int:
         "fused_system_3d",
         "tiled_system",
         "fused_navier_stokes",
+        "cluster_system",
     )
+    split_builds = [
+        threading.Thread(target=load_tool(name).build_split_library)
+        for name in ("k5_step_split", "k8_step_split")
+    ]
+    for thread in split_builds:
+        thread.start()
     cuda_library.build_libraries(sources)
+    for thread in split_builds:
+        thread.join()
     fd.load_kernels()
     fused_system.load_kernels()
     tiled_diffusion.load_kernels()
     fused_system_3d.load_kernels()
     tiled_system.load_kernels()
     fused_navier_stokes.load_kernels()
+    fused_system.load_cluster_kernels()
     log(
         f"kernel libraries ready in {time.perf_counter() - start:.2f} s "
         f"(nvcc, in parallel: {cuda_library.build_seconds})"
@@ -4762,6 +5248,7 @@ def main() -> int:
         ("21-24", polar_phases, (cuda_ms, once_ms, device_busy_ms)),
         ("25-28", navier_stokes_phases, (cuda_ms, once_ms, device_busy_ms)),
         ("29-32", end_mode_phases, (cuda_ms, once_ms, device_busy_ms)),
+        ("33-36", cluster_mode_phases, (cuda_ms, once_ms, device_busy_ms)),
     ):
         kernels += phases(torch, prml, device, card, *timing)
         log(f"phases {label} done at {time.perf_counter() - start:.1f} s")

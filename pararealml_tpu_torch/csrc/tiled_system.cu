@@ -56,9 +56,13 @@
 // blocks fill the card in one wave where they can; the last tile of a
 // row or column is clamped inside the grid and overlaps its neighbour,
 // which then writes the same values. The TPU kernel's sublane and lane
-// padding, 256-row tile caps and DMA rings are not carried over. Making
-// it fast (several steps a launch, a persistent or cluster-resident
-// variant for grids just past one block, TMA tile loads) is later work.
+// padding, 256-row tile caps and DMA rings are not carried over. On the
+// grids that a thread block cluster holds within the JAX package's VMEM
+// cap (the 2D examples' 101 x 101, 101 x 51 and polar 51 x 201) the host
+// takes the cluster-resident mode instead (cluster_system.cu: one launch
+// a solve, no halo recomputed); K8 keeps the grids past it (641 x 641
+// Burgers). Making it fast there (several steps a launch, a persistent
+// cooperative variant, TMA tile loads) is later work.
 //
 // Built with -fmad=false so that every multiply and add rounds as the
 // plain PyTorch version's separate operations do.
@@ -69,6 +73,58 @@
 
 #include "state_io.cuh"
 #include "system_2d.cuh"
+
+// The step split (tools/k8_step_split.py builds this source with
+// -DK8_STEP_SPLIT): lane 0 of every warp of the middle tile's block of
+// state 0 adds the clock64() cycles it spends in each segment of a step
+// (the tile load, the barrier after it, each stage's arithmetic and its
+// barrier, the frame store) to the buffer k8_split_sums points to,
+// kSplitSegments a warp, over every launch; and the first thread of every
+// block records the globaltimer at its entry (the launch's first, by
+// atomicMin) and at its exit (the last, by atomicMax) in k8_split_spans,
+// two a step. Without the macro the marks compile to nothing.
+constexpr int kSplitSegments = 11;
+#ifdef K8_STEP_SPLIT
+__device__ long long* k8_split_sums;
+__device__ unsigned long long* k8_split_spans;
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#define K8_SPLIT_BEGIN(step)                                                \
+  const bool split_block = blockIdx.x == gridDim.x / 2 &&                   \
+                           blockIdx.y == gridDim.y / 2 && blockIdx.z == 0;  \
+  const bool split_first = threadIdx.x == 0 && threadIdx.y == 0;            \
+  const int split_step = (step);                                            \
+  if (split_first && k8_split_spans != nullptr) {                           \
+    atomicMin(&k8_split_spans[2 * split_step], global_ns());                \
+  }                                                                         \
+  long long split_sum[kSplitSegments] = {};                                 \
+  long long split_time = clock64();
+#define K8_SPLIT_MARK(segment)                    \
+  do {                                            \
+    const long long split_now = clock64();        \
+    split_sum[segment] += split_now - split_time; \
+    split_time = split_now;                       \
+  } while (0)
+#define K8_SPLIT_END                                                        \
+  if (split_block && ((threadIdx.y * blockDim.x + threadIdx.x) & 31) == 0 && \
+      k8_split_sums != nullptr) {                                           \
+    const int warp = (threadIdx.y * blockDim.x + threadIdx.x) / 32;         \
+    for (int s = 0; s < kSplitSegments; ++s) {                              \
+      k8_split_sums[warp * kSplitSegments + s] += split_sum[s];             \
+    }                                                                       \
+  }                                                                         \
+  __syncthreads();                                                          \
+  if (split_first && k8_split_spans != nullptr) {                           \
+    atomicMax(&k8_split_spans[2 * split_step + 1], global_ns());            \
+  }
+#else
+#define K8_SPLIT_BEGIN(step)
+#define K8_SPLIT_MARK(segment)
+#define K8_SPLIT_END
+#endif
 
 namespace {
 
@@ -263,6 +319,7 @@ __global__ void __launch_bounds__(512) tiled_system_kernel(const TiledArgs a) {
   const size_t b = blockIdx.z;
   const size_t values = static_cast<size_t>(p.height) * p.width * N;
   const size_t source_base = b * a.source_stride;
+  K8_SPLIT_BEGIN(a.step)
 
   // the state arrives interleaved ((H, W, n)) and is kept as planes
   for (int li = threadIdx.y; li < rows; li += blockDim.y) {
@@ -285,22 +342,34 @@ __global__ void __launch_bounds__(512) tiled_system_kernel(const TiledArgs a) {
       }
     }
   }
+  K8_SPLIT_MARK(0);
   __syncthreads();
+  K8_SPLIT_MARK(1);
 
   if constexpr (Equation::kRK4) {
     const Planes y_in = {y, plane, cols};
     const Planes a_in = {stage_a, plane, cols};
     const Planes b_in = {stage_b, plane, cols};
     rk4_stage<Equation, Grid, 0>(a, y_in, stage_a, y, acc, gi0, gj0);
+    K8_SPLIT_MARK(2);
     __syncthreads();
+    K8_SPLIT_MARK(3);
     rk4_stage<Equation, Grid, 1>(a, a_in, stage_b, y, acc, gi0, gj0);
+    K8_SPLIT_MARK(4);
     __syncthreads();
+    K8_SPLIT_MARK(5);
     rk4_stage<Equation, Grid, 2>(a, b_in, stage_a, y, acc, gi0, gj0);
+    K8_SPLIT_MARK(6);
     __syncthreads();
+    K8_SPLIT_MARK(7);
     rk4_stage<Equation, Grid, 3>(a, a_in, nullptr, y, acc, gi0, gj0);
+    K8_SPLIT_MARK(8);
     __syncthreads();
+    K8_SPLIT_MARK(9);
   } else {
+    // both stages and their barriers in one segment
     cahn_hilliard_step<Grid>(a, y, stage_a, acc, gi0, gj0);
+    K8_SPLIT_MARK(2);
   }
 
   const size_t frame = (b * a.n_steps + a.step) * values;
@@ -320,6 +389,8 @@ __global__ void __launch_bounds__(512) tiled_system_kernel(const TiledArgs a) {
       }
     }
   }
+  K8_SPLIT_MARK(10);
+  K8_SPLIT_END
 }
 
 template <class Equation>
@@ -408,6 +479,23 @@ extern "C" {
 const char* tiled_system_error_string(int error) {
   return cudaGetErrorString(static_cast<cudaError_t>(error));
 }
+
+#ifdef K8_STEP_SPLIT
+// Points the step split's marks at `sums` (kSplitSegments long longs for
+// each warp of the recorded block) and `spans` (two unsigned long longs a
+// step), or turns them off (null).
+int tiled_system_split_buffers(void* sums, void* spans) {
+  long long* sums_pointer = static_cast<long long*>(sums);
+  unsigned long long* spans_pointer = static_cast<unsigned long long*>(spans);
+  cudaError_t error = cudaMemcpyToSymbol(k8_split_sums, &sums_pointer,
+                                         sizeof(sums_pointer));
+  if (error != cudaSuccess) return static_cast<int>(error);
+  return static_cast<int>(cudaMemcpyToSymbol(k8_split_spans, &spans_pointer,
+                                             sizeof(spans_pointer)));
+}
+
+int tiled_system_split_segments() { return kSplitSegments; }
+#endif
 
 // n_steps launches on `stream`, one per RK4 step, each advancing every
 // tile of every state of the batch. y0 is (batch, H, W, n) float32; traj

@@ -13,7 +13,18 @@ state on-chip for all steps, each thread owning fixed cells with their
 state in registers, so a solve reads the state once and writes either
 every step or the end state. The equation functors live in
 ``csrc/system_2d.cuh``, shared with the tiled kernel K8
-(``ops/tiled_system.py``), which takes the grids one CTA cannot hold.
+(``ops/tiled_system.py``).
+
+Past one CTA the same kernel template (``csrc/system_2d_resident.cuh``)
+runs as the cluster-resident mode (``csrc/cluster_system.cu``): one
+thread block cluster of up to 16 blocks a state, all steps in one
+launch, planned by :func:`make_cluster_plan` from a table measured on
+the card. It takes every grid within the JAX package's VMEM cap (where
+that package runs its K5) that a cluster holds
+(:func:`cluster_system_applicable`): the 2D examples' 101 x 101, 101 x
+51 and polar 51 x 201, interior Dirichlet constraints included. It
+computes what K5 computes, so its plain versions are K5's. Grids past
+it take K8.
 
 Each kernel has a wrapper and a plain PyTorch version beside it:
 
@@ -39,10 +50,10 @@ away from the origin (``r_low > 0``) and within the JAX package's VMEM cap
 (:func:`fits_reference_vmem`); past that cap it takes the generic path,
 as there. Where the grid's working set fits the 227 KB of shared memory
 one CTA can hold (about 74² for two components, 60² for three), the
-trajectory, end and step take K5; past that, they take K8 (the end its
-end mode) where the Dirichlet constraints lie on the grid's faces (polar
-grids a polar K8 in K5's order of operations, the port's carrier of the
-JAX package's polar K5 past one CTA).
+trajectory, end and step take K5; past that, the cluster-resident mode
+within the JAX package's VMEM cap and the mode's range (about 176² for
+two components), Cartesian and polar, and past those K8 (the end its end
+mode) where the Dirichlet constraints lie on the grid's faces.
 
 The Navier-Stokes family (:func:`fused_navier_stokes_step_applicable`)
 runs its own kernel, ``csrc/fused_navier_stokes.cu`` through
@@ -56,13 +67,15 @@ VMEM cap; the port also needs the grid to fit the largest cluster (up to
 
 ``kernel_storage_dtype`` takes effect where the JAX package's does: past
 its VMEM cap. Below it the JAX package runs K5, which ignores the knob,
-so the port's K8 runs there with float32 storage and returns float32.
+and so do K5 and the cluster-resident mode (and K8 past the mode's
+range), which store float32.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+import math
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -187,9 +200,9 @@ def _system_applicable(
             return False
     elif coordinate_system != CoordinateSystem.CARTESIAN:
         return False
-    if fits_one_block(cp):
+    if fits_one_block(cp) or cluster_system_applicable(cp):
         return True
-    # past one CTA: the tiled kernel (K8)
+    # past the cluster-resident mode: the tiled kernel (K8)
     from pararealml_tpu_torch.ops.tiled_system import tiled_system_applicable
 
     return tiled_system_applicable(cp)
@@ -384,6 +397,9 @@ class _SystemKernelConfig:
             for name, value in self._constraint_arrays(cp).items()
         }
         self._constants: Dict[tuple, Tuple[torch.Tensor, ...]] = {}
+        # the card's count of the cluster-resident mode's clusters it
+        # holds at once, by (cluster size, cells a thread, trajectory)
+        self._active_clusters: Dict[tuple, int] = {}
 
     def _constraint_arrays(self, cp: ConstrainedProblem):
         """The constraint arrays in kernel argument order: K5's Dirichlet
@@ -1058,6 +1074,451 @@ fused_system_rk4_end.launches = 0
 fused_system_rk4_step.launches = 0
 
 
+# -- the cluster-resident mode ------------------------------------------------
+
+# The mode's range: clusters of up to 16 blocks (past 8 a non-portable
+# size), each block at most 512 threads of up to 4 cells, or 1,024 of
+# one (csrc/cluster_system.cu)
+MAX_CLUSTER_SIZE = 16
+CLUSTER_MAX_BLOCK_CELLS = 2048
+_CLUSTER_THREADS = 512
+_ONE_CELL_THREADS = 1024
+_CLUSTER_CELLS = (1, 2, 4)
+# the shared memory a block can opt into (MAX_SHARED_MEMORY_BYTES, which
+# also gates K5's first design's working set)
+_BLOCK_SHARED_BYTES = 227 * 1024
+# The plan's table, by components, step kind ("rk4", or "cahn-hilliard"
+# for its two-stage step) and polar grid: for each grid measured, its
+# rows, columns, and the cluster size and cells a thread that ran its
+# solve fastest (tools/cluster_plan_sweep.py, 1,000 steps, every plan of
+# the instances, on an NVIDIA H100 80GB HBM3 at 700 W). A grid takes the
+# entry of its kind (Cartesian where its polar kind has none) whose cell
+# count is nearest its own on a log scale: the largest valid size up to
+# the entry's, with the entry's cells a thread where they fit.
+_MEASURED_CLUSTERS = {
+    # the wave example: 4.473 us a step (16 x 2: 4.727; 12 x 2: 4.605)
+    (2, "rk4", False): ((101, 101, 16, 1),),
+    # the shallow-water example: 7.106 us (16 x 2: 8.154)
+    (3, "rk4", False): ((101, 51, 16, 1),),
+    # the Cahn-Hilliard example: 2.569 us (16 x 2: 2.672)
+    (2, "cahn-hilliard", False): ((101, 101, 16, 1),),
+    # the polar wave example: 4.799 us (16 x 1: 4.864)
+    (2, "rk4", True): ((51, 201, 16, 2),),
+}
+# How many clusters of each size the card holds at once
+# (cudaOccupancyMaxActiveClusters on the wave and shallow-water examples'
+# kernels, tools/cluster_plan_sweep.py, NVIDIA H100 80GB HBM3), for blocks
+# of more than 256 threads (one a multiprocessor: 128 registers a thread)
+# and of at most 256 (two): what the plan assumes where no card is asked
+# (the CPU); on the card the wrappers ask the card itself.
+_MEASURED_ACTIVE_CLUSTERS = {
+    False: {
+        3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15, 9: 9, 10: 7,
+        11: 7, 12: 7, 13: 7, 14: 7, 15: 7, 16: 7,
+    },
+    True: {
+        6: 39, 7: 32, 8: 30, 9: 37, 10: 30, 11: 16, 12: 16, 13: 14,
+        14: 14, 15: 14, 16: 14,
+    },
+}
+
+
+class ClusterPlan(NamedTuple):
+    """How a cluster of ``cluster_size`` blocks splits the rows of an H x
+    W grid of n-component states (as evenly as they divide), each thread
+    owning up to ``cells`` cells of its block."""
+
+    height: int
+    width: int
+    n_components: int
+    polar: bool
+    cluster_size: int
+    cells: int
+
+    @property
+    def slab_rows(self) -> int:
+        """The rows of the largest block."""
+        return -(-self.height // self.cluster_size)
+
+    @property
+    def block_rows(self) -> Tuple[int, ...]:
+        base, extra = divmod(self.height, self.cluster_size)
+        return tuple(
+            base + (rank < extra) for rank in range(self.cluster_size)
+        )
+
+    @property
+    def block_cells(self) -> int:
+        return self.slab_rows * self.width
+
+    @property
+    def threads(self) -> int:
+        """The block's threads: its cells over ``cells``, in whole
+        warps."""
+        per_thread = -(-self.block_cells // self.cells)
+        return 32 * -(-per_thread // 32)
+
+    @property
+    def shared_bytes(self) -> int:
+        """Two sets of n float planes of the largest slab and its two halo
+        rows, the float Neumann face vectors, on a polar grid 1 / r, and
+        the byte masks (``shared_bytes_of`` in the kernel's header)."""
+        faces = 2 * self.n_components * (self.height + self.width)
+        planes = 2 * self.n_components * (self.slab_rows + 2) * self.width
+        rows = self.height if self.polar else 0
+        return 4 * (planes + faces + rows) + faces
+
+    @property
+    def fits(self) -> bool:
+        """Whether the mode's instances take the plan: at most
+        ``MAX_CLUSTER_SIZE`` blocks, each with a row, at most
+        ``CLUSTER_MAX_BLOCK_CELLS`` cells in at most 1,024 threads of one
+        cell or 512 of two or four, and its planes in one block's shared
+        memory."""
+        return (
+            1 <= self.cluster_size <= min(MAX_CLUSTER_SIZE, self.height)
+            and self.cells in _CLUSTER_CELLS
+            and self.block_cells <= CLUSTER_MAX_BLOCK_CELLS
+            and self.threads
+            <= (_ONE_CELL_THREADS if self.cells == 1 else _CLUSTER_THREADS)
+            and self.shared_bytes <= _BLOCK_SHARED_BYTES
+        )
+
+
+def _measured_active_clusters(plan: "ClusterPlan") -> int:
+    return _MEASURED_ACTIVE_CLUSTERS[plan.threads <= 256].get(
+        plan.cluster_size, 0
+    )
+
+
+def make_cluster_plan(
+    height: int,
+    width: int,
+    n_components: int,
+    polar: bool = False,
+    step: str = "rk4",
+    batch: int = 1,
+    active_clusters=None,
+) -> Optional[ClusterPlan]:
+    """Plans the cluster-resident mode for a batch of ``batch`` H x W
+    grids of n-component states, or returns None past the mode's range
+    (no cluster of up to 16 blocks holds the grid). The size is the
+    largest valid one up to the measured table's entry for the grid
+    (``_MEASURED_CLUSTERS``) at which the card holds every state's
+    cluster at once (``active_clusters(plan)``, by default the measured
+    counts of ``_MEASURED_ACTIVE_CLUSTERS``), each thread owning the
+    entry's cells where that plan fits and is held at once, else the
+    fewest cells that are; where no size is, the smallest valid size
+    (the batch runs in waves)."""
+    if min(height, width) < 3:
+        return None
+    plans = [
+        plan
+        for plan in (
+            ClusterPlan(height, width, n_components, polar, size, cells)
+            for size in range(1, MAX_CLUSTER_SIZE + 1)
+            for cells in _CLUSTER_CELLS
+        )
+        if plan.fits
+    ]
+    if not plans:
+        return None
+    entries = (
+        _MEASURED_CLUSTERS.get((n_components, step, polar))
+        or _MEASURED_CLUSTERS.get((n_components, step, False))
+        or ((height, width, MAX_CLUSTER_SIZE, 1),)
+    )
+    cells = height * width
+    _, _, preferred, preferred_cells = min(
+        entries,
+        key=lambda entry: abs(math.log(cells / (entry[0] * entry[1]))),
+    )
+    smallest = plans[0].cluster_size
+    within = [
+        plan
+        for plan in plans
+        if plan.cluster_size <= max(preferred, smallest)
+    ]
+    if active_clusters is None:
+        active_clusters = _measured_active_clusters
+    for plan in sorted(
+        within,
+        key=lambda plan: (
+            -plan.cluster_size,
+            plan.cells != preferred_cells,
+            plan.cells,
+        ),
+    ):
+        if active_clusters(plan) >= batch:
+            return plan
+    return within[0]
+
+
+def _step_kind(cp_or_cfg) -> str:
+    equation_type = (
+        cp_or_cfg.equation_type
+        if isinstance(cp_or_cfg, _SystemKernelConfig)
+        else type(cp_or_cfg.differential_equation)
+    )
+    return "cahn-hilliard" if equation_type is CahnHilliardEquation else "rk4"
+
+
+def cluster_system_applicable(cp: ConstrainedProblem) -> bool:
+    """Whether the cluster-resident mode takes this (already
+    type/BC/integrator-gated) 2D problem: past one CTA, within the JAX
+    package's VMEM cap (where its K5 runs, interior Dirichlet constraints
+    included) and within the mode's range. The JAX package's dispatch on
+    its K5's grids, as far as a cluster reaches; past it K8."""
+    if fits_one_block(cp) or not fits_reference_vmem(cp):
+        return False
+    if isinstance(cp.differential_equation, NavierStokesEquation):
+        return False
+    height, width = cp.mesh.vertices_shape
+    return (
+        make_cluster_plan(
+            height,
+            width,
+            cp.differential_equation.y_dimension,
+            _is_polar(cp),
+            _step_kind(cp),
+        )
+        is not None
+    )
+
+
+def _configure_cluster(library: ctypes.CDLL):
+    c_int, c_void_p = ctypes.c_int, ctypes.c_void_p
+    library.cluster_system_rk4.argtypes = (
+        [c_int, c_int, c_void_p, c_void_p]
+        + [c_int] * 8
+        + [c_void_p] * 7
+        + [ctypes.POINTER(ctypes.c_float), c_void_p]
+    )
+    library.cluster_system_rk4.restype = c_int
+    library.cluster_system_max_active_clusters.argtypes = [c_int] * 7 + [
+        ctypes.POINTER(c_int)
+    ]
+    library.cluster_system_max_active_clusters.restype = c_int
+    library.cluster_system_error_string.argtypes = [c_int]
+    library.cluster_system_error_string.restype = ctypes.c_char_p
+
+
+def load_cluster_kernels() -> ctypes.CDLL:
+    """The built and loaded library of the cluster-resident mode
+    (compiled on first use)."""
+    from pararealml_tpu_torch.ops.cuda_library import load_library
+
+    library = load_library("cluster_system")
+    if not getattr(library, "_signatures_set", False):
+        _configure_cluster(library)
+        library._signatures_set = True
+    return library
+
+
+def _raise_cluster_error(library: ctypes.CDLL, error: int, plan):
+    if error != 0:
+        message = library.cluster_system_error_string(error).decode()
+        raise RuntimeError(
+            f"cluster system kernel launch failed on a cluster of "
+            f"{plan.cluster_size} blocks of {plan.threads} threads, "
+            f"{plan.cells} cells a thread: {message} ({error})"
+        )
+
+
+def card_active_clusters(cfg: _SystemKernelConfig, write_trajectory: bool):
+    """``active_clusters(plan)`` for :func:`make_cluster_plan` from the
+    card: how many clusters of the plan's kernel it holds at once
+    (``cudaOccupancyMaxActiveClusters``), cached on ``cfg``."""
+    library = load_cluster_kernels()
+    cache = cfg._active_clusters
+
+    def active_clusters(plan: ClusterPlan) -> int:
+        key = (plan.cluster_size, plan.cells, write_trajectory)
+        if key not in cache:
+            count = ctypes.c_int(0)
+            error = library.cluster_system_max_active_clusters(
+                cfg.equation,
+                int(cfg.polar),
+                cfg.height,
+                cfg.width,
+                int(write_trajectory),
+                plan.cluster_size,
+                plan.cells,
+                ctypes.byref(count),
+            )
+            _raise_cluster_error(library, error, plan)
+            cache[key] = count.value
+        return cache[key]
+
+    return active_clusters
+
+
+def cluster_plan(
+    cfg: _SystemKernelConfig,
+    batch: int = 1,
+    plan: Optional[ClusterPlan] = None,
+    active_clusters=None,
+) -> ClusterPlan:
+    """``plan`` (:func:`make_cluster_plan`'s for ``cfg`` and ``batch``
+    when None), or a ValueError, on any device and before any launch,
+    when the grid is past the mode's range or the plan does not fit the
+    problem."""
+    if plan is None:
+        plan = make_cluster_plan(
+            cfg.height,
+            cfg.width,
+            cfg.n,
+            cfg.polar,
+            _step_kind(cfg),
+            batch,
+            active_clusters,
+        )
+        if plan is None:
+            raise ValueError(
+                f"a {cfg.height} x {cfg.width} grid of {cfg.n}-component "
+                "states is past the cluster-resident mode's range"
+            )
+    if (
+        plan.height,
+        plan.width,
+        plan.n_components,
+        plan.polar,
+    ) != (cfg.height, cfg.width, cfg.n, cfg.polar) or not plan.fits:
+        raise ValueError(
+            f"cluster plan {plan} does not fit this {cfg.height} x "
+            f"{cfg.width} x {cfg.n} problem or the mode's instances"
+        )
+    return plan
+
+
+def launch_cluster(
+    y: torch.Tensor,
+    out: torch.Tensor,
+    cfg: _SystemKernelConfig,
+    n_steps: int,
+    write_trajectory: bool,
+    plan: Optional[ClusterPlan] = None,
+) -> ClusterPlan:
+    """Launches the cluster-resident mode on ``y``'s device and its
+    current stream for a contiguous ``(B, H, W, n)`` float32 CUDA state,
+    one cluster a state on ``plan`` (the plan the card's occupancy gives
+    for the batch when None), and raises if the launch is refused (a
+    cluster the card cannot place is refused before it starts). A
+    trajectory's frames are stored in ``out``'s dtype, float32 or
+    bfloat16. Returns the plan."""
+    frame_bfloat16 = out.dtype == torch.bfloat16
+    if out.dtype not in (torch.float32, torch.bfloat16) or (
+        frame_bfloat16 and not write_trajectory
+    ):
+        raise TypeError(f"unsupported output dtype {out.dtype}")
+    library = load_cluster_kernels()
+    if plan is None:
+        plan = cluster_plan(
+            cfg, y.shape[0], None, card_active_clusters(cfg, write_trajectory)
+        )
+    constants = cfg.constants(y.device)
+    if any(t.device != y.device for t in (out,) + constants):
+        raise ValueError(
+            f"the output and constraint tensors must be on {y.device}"
+        )
+    inv_r = constants[6].data_ptr() if cfg.polar else None
+    with torch.cuda.device(y.device):
+        stream = torch.cuda.current_stream(y.device).cuda_stream
+        error = library.cluster_system_rk4(
+            cfg.equation,
+            int(cfg.polar),
+            y.data_ptr(),
+            out.data_ptr(),
+            y.shape[0],
+            cfg.height,
+            cfg.width,
+            n_steps,
+            int(write_trajectory),
+            int(frame_bfloat16),
+            plan.cluster_size,
+            plan.cells,
+            *(c.data_ptr() for c in constants[:6]),
+            inv_r,
+            cfg.coefficient_array(),
+            stream,
+        )
+    _raise_cluster_error(library, error, plan)
+    return plan
+
+
+def cluster_system_rk4_trajectory_reference(
+    y: torch.Tensor,
+    cfg: _SystemKernelConfig,
+    n_steps: int,
+    frame_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Plain version of the mode's trajectory: K5's, its frames rounded
+    to ``frame_dtype`` (float32 or bfloat16, as K4's snapshots)."""
+    frames = fused_system_rk4_trajectory_reference(y, cfg, n_steps)
+    return frames if frame_dtype == frames.dtype else frames.to(frame_dtype)
+
+
+def cluster_system_rk4_trajectory(
+    y: torch.Tensor,
+    cfg: _SystemKernelConfig,
+    n_steps: int,
+    frame_dtype: torch.dtype = torch.float32,
+    plan: Optional[ClusterPlan] = None,
+) -> torch.Tensor:
+    """The cluster-resident mode's trajectory: ``n_steps`` RK4 steps in
+    one launch, one cluster a state, storing every step, ``(H, W, n) ->
+    (n_steps, H, W, n)`` or ``(B, H, W, n) -> (B, n_steps, H, W, n)``,
+    the frames in ``frame_dtype`` (float32, or bfloat16 rounded over the
+    float32 state carried). ``plan`` overrides the cluster plan (to
+    exercise other cluster sizes); a grid past the mode's range, or a
+    plan that does not fit, raises on any device before any launch."""
+    cfg.check_state(y)
+    if frame_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(
+            f"frame_dtype must be float32 or bfloat16, got {frame_dtype}"
+        )
+    batch = y.reshape((-1,) + cfg.state_shape)
+    if y.device.type == "cpu":
+        cluster_plan(cfg, batch.shape[0], plan)
+        return cluster_system_rk4_trajectory_reference(
+            y, cfg, n_steps, frame_dtype
+        )
+    if plan is not None:
+        cluster_plan(cfg, batch.shape[0], plan)
+    out = trajectory_buffer(batch, cfg, n_steps, frame_dtype)
+    launch_cluster(batch, out, cfg, n_steps, True, plan)
+    cluster_system_rk4_trajectory.launches += 1
+    return out if y.ndim == 4 else out[0]
+
+
+def cluster_system_rk4_end(
+    y: torch.Tensor,
+    cfg: _SystemKernelConfig,
+    n_steps: int,
+    plan: Optional[ClusterPlan] = None,
+) -> torch.Tensor:
+    """The cluster-resident mode's end state: ``n_steps`` RK4 steps in
+    one launch, one cluster a state, ``(H, W, n) -> (H, W, n)`` or ``(B,
+    H, W, n) -> (B, H, W, n)``, in float32 (plain version: K5's,
+    :func:`fused_system_rk4_end_reference`). ``plan`` as for the
+    trajectory."""
+    cfg.check_state(y)
+    batch = y.reshape((-1,) + cfg.state_shape)
+    if y.device.type == "cpu":
+        cluster_plan(cfg, batch.shape[0], plan)
+        return fused_system_rk4_end_reference(y, cfg, n_steps)
+    if plan is not None:
+        cluster_plan(cfg, batch.shape[0], plan)
+    out = torch.empty_like(batch)
+    launch_cluster(batch, out, cfg, n_steps, False, plan)
+    cluster_system_rk4_end.launches += 1
+    return out.reshape(y.shape)
+
+
+cluster_system_rk4_trajectory.launches = 0
+cluster_system_rk4_end.launches = 0
+
+
 # -- builders mirroring the JAX package's API -------------------------------
 
 
@@ -1085,17 +1546,18 @@ def build_fused_system_rk4_trajectory(
     """Builds ``trajectory(y) -> ys`` computing ``n_steps`` fused RK4
     steps, ``(..., H, W, n) -> (..., n_steps, H, W, n)``: through the K5
     trajectory kernel (one CTA per leading index) where the grid fits one
-    CTA, else through the tiled kernel K8
-    (``build_tiled_system_rk4_trajectory`` of
-    :mod:`pararealml_tpu_torch.ops.tiled_system`). A polar grid past the
-    JAX package's VMEM cap raises, as the JAX builder does.
+    CTA, through the cluster-resident mode (one cluster per leading
+    index, one launch) where :func:`cluster_system_applicable` admits it,
+    else through the tiled kernel K8 (``build_tiled_system_rk4_trajectory``
+    of :mod:`pararealml_tpu_torch.ops.tiled_system`). A polar grid past
+    the JAX package's VMEM cap raises, as the JAX builder does.
 
     ``storage_dtype`` selects the precision of the stored trajectory and
     of the state carried from step to step, and the trajectory is returned
     in it, past the JAX package's VMEM cap only (:func:`fits_reference_vmem`;
     K8 there, as the JAX package's tiled kernel). Below the cap it is
-    ignored, as the JAX package's whole-grid kernel ignores it: K5, or K8
-    past one CTA, stores float32.
+    ignored, as the JAX package's whole-grid kernel ignores it: K5, the
+    mode, or K8 past the mode's range, store float32.
 
     Navier-Stokes takes its cluster kernel
     (:mod:`pararealml_tpu_torch.ops.fused_navier_stokes`), whose stream
@@ -1120,7 +1582,8 @@ def build_fused_system_rk4_trajectory(
             "polar grids past the JAX package's VMEM cap take the generic "
             "path (it has no tiled polar kernel to mirror)"
         )
-    if not fits_one_block(cp):
+    one_block = fits_one_block(cp)
+    if not one_block and not cluster_system_applicable(cp):
         from pararealml_tpu_torch.ops.tiled_system import (
             build_tiled_system_rk4_trajectory,
         )
@@ -1135,7 +1598,12 @@ def build_fused_system_rk4_trajectory(
 
     def trajectory(y: torch.Tensor) -> torch.Tensor:
         lead, batch = states(y, cfg)
-        out = fused_system_rk4_trajectory(batch, cfg, n_steps)
+        kernel = (
+            fused_system_rk4_trajectory
+            if one_block
+            else cluster_system_rk4_trajectory
+        )
+        out = kernel(batch, cfg, n_steps)
         return out.reshape(lead + (n_steps,) + cfg.state_shape)
 
     return trajectory
@@ -1151,16 +1619,18 @@ def build_fused_system_rk4_end(
 ):
     """Builds ``end(y) -> y_final`` advancing ``n_steps`` fused RK4 steps
     and returning ONLY the final state: through the K5 end kernel where
-    the grid fits one CTA's shared memory, else through K8's end mode
-    (``build_tiled_system_rk4_end`` of
+    the grid fits one CTA's shared memory, through the cluster-resident
+    mode's end where :func:`cluster_system_applicable` admits it, else
+    through K8's end mode (``build_tiled_system_rk4_end`` of
     :mod:`pararealml_tpu_torch.ops.tiled_system`, polar grids included)
     where K8 covers the problem, else ``None`` (interior Dirichlet
-    constraints past one CTA; a polar grid past the JAX package's VMEM
-    cap).
+    constraints past the mode's range; a polar grid past the JAX
+    package's VMEM cap).
 
     With ``batch=B``, ``end`` maps ``(B, H, W, n) -> (B, H, W, n)``, one
-    CTA per state on K5, every state in one launch a step on K8;
-    otherwise it maps one ``(H, W, n)`` state.
+    CTA or cluster per state in one launch on K5 and the mode, every
+    state in one launch a step on K8; otherwise it maps one ``(H, W, n)``
+    state.
     Navier-Stokes takes its cluster kernel, one cluster per state (None
     where the grid fits no cluster), with the two anti-Laplacian
     settings of :func:`build_fused_system_rk4_trajectory`."""
@@ -1177,7 +1647,8 @@ def build_fused_system_rk4_end(
             anti_laplacian_tol,
             anti_laplacian_max_iterations,
         )
-    if not fits_one_block(cp):
+    one_block = fits_one_block(cp)
+    if not one_block and not cluster_system_applicable(cp):
         from pararealml_tpu_torch.ops.tiled_system import (
             build_tiled_system_rk4_end,
             tiled_system_applicable,
@@ -1197,7 +1668,8 @@ def build_fused_system_rk4_end(
             raise ValueError(
                 f"expected leading shape {expected_lead}, got {lead}"
             )
-        out = fused_system_rk4_end(states_, cfg, n_steps)
+        kernel = fused_system_rk4_end if one_block else cluster_system_rk4_end
+        out = kernel(states_, cfg, n_steps)
         return out.reshape(y.shape)
 
     return end
@@ -1211,9 +1683,9 @@ def build_fused_system_rk4_step(
 ):
     """Builds ``step(y) -> y_next`` computing one fused RK4 step, ``(...,
     H, W, n) -> (..., H, W, n)``: the K5 step kernel where the grid fits
-    one CTA, else the one-step K8 trajectory (as the JAX package reaches
-    its tiled kernel through the trajectory builder), polar grids
-    included; for Navier-Stokes the cluster kernel's step, with the two
+    one CTA, else the one-step trajectory of the cluster-resident mode or
+    K8 (as the JAX package reaches its tiled kernel through the
+    trajectory builder), polar grids included; for Navier-Stokes the cluster kernel's step, with the two
     anti-Laplacian settings of :func:`build_fused_system_rk4_trajectory`."""
     if isinstance(cp.differential_equation, NavierStokesEquation):
         from pararealml_tpu_torch.ops.fused_navier_stokes import (

@@ -44,10 +44,10 @@ per step).
 is the end mode: the same kernel, one launch a step, stepping between two
 float32 ``(B, H, W, n)`` state buffers instead of storing frames, every
 state of a batch in the launch's third grid dimension. It carries the
-JAX package's K5 end (single or batched) and its packed K4 ends past one
-CTA: ``build_fused_system_rk4_end`` takes it there, and so do
-``FDMOperator.ends_function`` and Parareal's fine ends (one state per
-time slice) and single-state coarse ends.
+JAX package's K5 end (single or batched) and its packed K4 ends past
+the cluster-resident mode's grids: ``build_fused_system_rk4_end`` takes
+it there, and so do ``FDMOperator.ends_function`` and Parareal's fine
+ends (one state per time slice) and single-state coarse ends.
 
 The tile plan is the port's own (:func:`make_system_tile_plan`): 2D tiles
 taken by grid size, halo and ``n`` from a table of the tilings measured
@@ -61,8 +61,12 @@ x 3 (78 blocks) and at the polar 51 x 201 x 2 (117 blocks), and 32 x 96
 
 Applicability (:func:`tiled_system_applicable`): a grid with a tile plan
 whose Dirichlet constraints lie on its faces, for any of the four
-families; the JAX package sends shallow water past VMEM to its generic
-path on a TPU v5e timing, the port sends it to K8 (ROADMAP.md, Queue 3).
+families, that the cluster-resident mode does not take
+(:func:`pararealml_tpu_torch.ops.fused_system.cluster_system_applicable`:
+the grids a thread block cluster holds within the JAX package's VMEM
+cap, the 2D examples' among them, run there in one launch a solve); the
+JAX package sends shallow water past VMEM to its generic path on a TPU
+v5e timing, the port sends it to K8 (ROADMAP.md, Queue 3).
 The coordinate system is gated by
 :func:`pararealml_tpu_torch.ops.fused_system.fused_system_step_applicable`.
 """
@@ -88,6 +92,7 @@ from pararealml_tpu_torch.ops.fused_system import (
     _Helpers,
     _step_reference,
     _SystemKernelConfig,
+    cluster_system_applicable,
     states,
 )
 from pararealml_tpu_torch.ops.tiled_diffusion import dirichlet_is_face_only
@@ -211,10 +216,16 @@ def _halo(diff_eq) -> int:
 
 
 def tiled_system_applicable(cp: ConstrainedProblem) -> bool:
-    """Whether the tiled system kernel covers this (already
-    type/BC/integrator-gated) problem's grid."""
+    """Whether the tiled system kernel takes this (already
+    type/BC/integrator-gated) problem's grid: one the cluster-resident
+    mode does not take
+    (:func:`pararealml_tpu_torch.ops.fused_system.cluster_system_applicable`:
+    past the JAX package's VMEM cap, or past the mode's range), with a
+    tile plan and its Dirichlet constraints on its faces."""
     diff_eq = cp.differential_equation
-    if isinstance(diff_eq, NavierStokesEquation):
+    if isinstance(diff_eq, NavierStokesEquation) or cluster_system_applicable(
+        cp
+    ):
         return False
     return (
         make_system_tile_plan(

@@ -1112,3 +1112,142 @@ def test_cuda_resident_end_and_interior_dirichlet_match_plain_version(
     )
     with pytest.raises(ValueError, match="face"):
         tiled_diffusion.tiled_diffusion_rk4_trajectory(y, cfg, 2)
+
+
+def _cluster_examples():
+    """The 2D examples' problems at their own sizes (the cluster-resident
+    mode's main path), and the wave example with one Dirichlet vertex
+    inside the grid (the mode reads K5's dense mask)."""
+    import chip_smoke
+    from pararealml_tpu_torch.constraint import Constraint
+
+    wave = chip_smoke.wave_example(torch_pkg)[0].constrained_problem
+    interior = chip_smoke.wave_example(torch_pkg)[0].constrained_problem
+    old = interior.static_y_vertex_constraints
+    mask = np.asarray(old.mask).reshape(101, 101, 2).copy()
+    values = np.where(mask, np.asarray(old.values).reshape(101, 101, 2), 0.0)
+    mask[50, 50] = True
+    values[50, 50] = 1.0
+    interior._y_vertex_constraints = Constraint(
+        values.reshape(np.asarray(old.values).shape),
+        mask.reshape(np.asarray(old.mask).shape),
+    )
+    return {
+        "wave 101^2": wave,
+        "wave 101^2 interior dirichlet": interior,
+        "shallow water 101 x 51": chip_smoke.shallow_water_example(
+            torch_pkg
+        )[0].constrained_problem,
+        "cahn-hilliard 101^2": chip_smoke.cahn_hilliard_2d(
+            torch, torch_pkg, 101, 5.0
+        ).constrained_problem,
+        "polar wave 51 x 201": chip_smoke.wave_polar_example(torch_pkg)[
+            0
+        ].constrained_problem,
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "example",
+    [
+        "wave 101^2",
+        "wave 101^2 interior dirichlet",
+        "shallow water 101 x 51",
+        "cahn-hilliard 101^2",
+        "polar wave 51 x 201",
+    ],
+)
+def test_cuda_cluster_mode_matches_plain_version(example, cuda_device):
+    """The cluster-resident mode at the 2D examples' shapes on every plan
+    its instances take (clusters of 2 to 16 blocks, each with a row, 1, 2
+    or 4 cells a thread), the plan's own single-state and B = 8 choices
+    among them, against its plain version (K5's) over 10 steps: equal,
+    bit for bit (the same float32 operations in the same order, built
+    without contraction). The end, batched and single, and bfloat16
+    frames (rounded once over the float32 state) likewise."""
+    cp = _cluster_examples()[example]
+    assert fused_system.cluster_system_applicable(cp)
+    cfg = fused_system._SystemKernelConfig(cp, 1e-3)
+    shape = cp.mesh.vertices_shape
+    ys = torch.as_tensor(states_2d(shape, cfg.n, batch=2), device=cuda_device)
+    expected = fused_system.fused_system_rk4_trajectory_reference(ys, cfg, 10)
+    plans = [
+        fused_system.ClusterPlan(*shape, cfg.n, cfg.polar, size, cells)
+        for size in range(2, fused_system.MAX_CLUSTER_SIZE + 1)
+        for cells in fused_system._CLUSTER_CELLS
+    ]
+    plans = [plan for plan in plans if plan.fits]
+    active = fused_system.card_active_clusters(cfg, True)
+    chosen = {
+        fused_system.cluster_plan(cfg, batch, None, active)
+        for batch in (1, 8)
+    }
+    assert chosen <= set(plans)
+    assert 16 in {plan.cluster_size for plan in plans}
+    launches = fused_system.cluster_system_rk4_trajectory.launches
+    for plan in plans:
+        assert active(plan) >= 1, plan
+        out = fused_system.cluster_system_rk4_trajectory(
+            ys, cfg, 10, plan=plan
+        )
+        torch.cuda.synchronize()
+        assert torch.equal(out, expected), plan
+    assert fused_system.cluster_system_rk4_trajectory.launches == (
+        launches + len(plans)
+    )
+    end = fused_system.cluster_system_rk4_end(ys, cfg, 10)
+    assert torch.equal(end, expected[:, -1])
+    assert torch.equal(
+        fused_system.cluster_system_rk4_end(ys[1], cfg, 10), expected[1, -1]
+    )
+    frames = fused_system.cluster_system_rk4_trajectory(
+        ys, cfg, 10, frame_dtype=torch.bfloat16
+    )
+    assert frames.dtype == torch.bfloat16
+    assert torch.equal(frames, expected.to(torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_cuda_cluster_mode_refuses_and_never_falls_back(
+    cuda_device, monkeypatch
+):
+    """A cluster of 17 blocks, past the 16 the card places, is refused by
+    the kernel's host code before any launch (the output untouched, no
+    launch counted); the wrappers refuse plans the instances do not take
+    and what the kernel does not take; and a CUDA state never runs the
+    plain version."""
+    cp = _cluster_examples()["wave 101^2"]
+    cfg = fused_system._SystemKernelConfig(cp, 1e-3)
+    ys = torch.as_tensor(states_2d((101, 101), 2, batch=2), device=cuda_device)
+    plan = fused_system.cluster_plan(cfg)
+    out = torch.full((2, 3, 101, 101, 2), float("nan"), device=cuda_device)
+    launches = fused_system.cluster_system_rk4_trajectory.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fused_system.launch_cluster(
+            ys, out, cfg, 3, True, plan._replace(cluster_size=17)
+        )
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(out).all())
+    with pytest.raises(ValueError, match="does not fit"):
+        fused_system.cluster_system_rk4_trajectory(
+            ys, cfg, 3, plan=plan._replace(cluster_size=17)
+        )
+    with pytest.raises(TypeError, match="float32"):
+        fused_system.cluster_system_rk4_end(ys.double(), cfg, 3)
+    assert fused_system.cluster_system_rk4_trajectory.launches == launches
+
+    def plain(*args, **kwargs):
+        raise AssertionError("a CUDA state ran the plain version")
+
+    for name in (
+        "fused_system_rk4_trajectory_reference",
+        "fused_system_rk4_end_reference",
+        "cluster_system_rk4_trajectory_reference",
+    ):
+        monkeypatch.setattr(fused_system, name, plain)
+    end = fused_system.build_fused_system_rk4_end(cp, 1e-3, 3, batch=2)(ys)
+    frames = fused_system.build_fused_system_rk4_trajectory(cp, 1e-3, 3)(ys)
+    torch.cuda.synchronize()
+    assert torch.equal(end, frames[:, -1])
+    assert fused_system.cluster_system_rk4_trajectory.launches == launches + 1

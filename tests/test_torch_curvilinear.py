@@ -350,6 +350,8 @@ def test_polar_k8_plain_version_matches_pallas_k5(monkeypatch):
     tests' 21 x 41 grid counts as past it) against the JAX package's polar
     K5 in interpret mode, which is what the JAX package runs there."""
     monkeypatch.setattr(torch_fused, "MAX_SHARED_MEMORY_BYTES", 1024)
+    # and the cluster-resident mode's range, so that K8 takes the grid
+    monkeypatch.setattr(torch_fused, "CLUSTER_MAX_BLOCK_CELLS", 0)
     _, torch_cp = _polar_problems("wave", _faces("wave"))
     y, expected = _jax_polar_k5("wave")
     calls = []
@@ -612,6 +614,8 @@ def test_fdm_operator_dispatches_polar_problems(monkeypatch):
 
     calls.clear()
     monkeypatch.setattr(torch_fused, "MAX_SHARED_MEMORY_BYTES", 1024)
+    # and the cluster-resident mode's range, so that K8 takes the grid
+    monkeypatch.setattr(torch_fused, "CLUSTER_MAX_BLOCK_CELLS", 0)
     tiled_fn, _ = operator(True).trajectory_function(cp, interval)
     assert torch.equal(tiled_fn(y, 0.0), fused)
     step = operator(True)._build_step_function(cp)
@@ -675,6 +679,8 @@ def test_polar_parareal_takes_no_k4(monkeypatch):
     assert np.abs(actual - fine).max() <= 2e-5 * np.abs(fine).max()
 
     monkeypatch.setattr(torch_fused, "MAX_SHARED_MEMORY_BYTES", 1024)
+    # and the cluster-resident mode's range, so that K8 takes the grid
+    monkeypatch.setattr(torch_fused, "CLUSTER_MAX_BLOCK_CELLS", 0)
     parareal = PararealOperator(fdm(1e-3), fdm(1e-2), 1e-5, num_time_slices=4)
     tiled = parareal.solve(ivp).discrete_y()
     assert calls.count(("tiled_system_rk4_end", (4,))) == (

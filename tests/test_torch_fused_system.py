@@ -259,8 +259,9 @@ def test_both_gates_admit_navier_stokes(x64_off):
 
 def test_applicability_requires_the_grid_to_fit_shared_memory():
     """Past one CTA's shared memory (an 81 x 81 Burgers grid), the
-    trajectory takes the tiled kernel K8 and the end its end mode; K4,
-    which needs the whole grid in one CTA, has none."""
+    trajectory and the end take the cluster-resident mode, whose plain
+    version is K5's (the JAX package runs its K5 there); K4, which needs
+    the whole grid in one CTA, has none."""
     assert torch_fused.shared_memory_bytes(64, 64, 2) <= (
         torch_fused.MAX_SHARED_MEMORY_BYTES
     )
@@ -276,19 +277,20 @@ def test_applicability_requires_the_grid_to_fit_shared_memory():
         np.random.default_rng(0).uniform(0.5, 1.5, (81, 81, 2)),
         dtype=torch.float32,
     )
-    launches = torch_tiled.tiled_system_rk4_trajectory.launches
+    assert torch_fused.cluster_system_applicable(cp)
+    launches = torch_fused.cluster_system_rk4_trajectory.launches
     trajectory = torch_fused.build_fused_system_rk4_trajectory(cp, D_T, 2)(y)
-    cfg = torch_tiled._TiledSystemConfig(cp, D_T)
+    cfg = torch_fused._SystemKernelConfig(cp, D_T)
     np.testing.assert_array_equal(
         trajectory.numpy(),
-        torch_tiled.tiled_system_rk4_trajectory_reference(y, cfg, 2).numpy(),
+        torch_fused.fused_system_rk4_trajectory_reference(y, cfg, 2).numpy(),
     )
-    end_launches = torch_tiled.tiled_system_rk4_end.launches
+    end_launches = torch_fused.cluster_system_rk4_end.launches
     end = torch_fused.build_fused_system_rk4_end(cp, D_T, 2)(y)
     np.testing.assert_array_equal(end.numpy(), trajectory[-1].numpy())
     # the CPU runs the plain version: no launch
-    assert torch_tiled.tiled_system_rk4_trajectory.launches == launches
-    assert torch_tiled.tiled_system_rk4_end.launches == end_launches
+    assert torch_fused.cluster_system_rk4_trajectory.launches == launches
+    assert torch_fused.cluster_system_rk4_end.launches == end_launches
 
 
 # the JAX package's generic path in float64 against the new families'

@@ -344,10 +344,11 @@ def test_dispatch_rule_matches_jax(x64_off):
     """The port's gates against the JAX package's on grids past one CTA
     (81² for two components, 65² for three), except where ROADMAP.md's
     Queue 3 logs a deliberate difference: shallow water past the JAX
-    package's VMEM cap takes K8, interior Dirichlet constraints past one
-    CTA take the generic path, and float64 states take the generic
-    path. Past one CTA the end states take K8's end mode, as the JAX
-    package's take its K5 end there."""
+    package's VMEM cap takes K8, and float64 states take the generic
+    path. Within the JAX package's VMEM cap and the cluster's range the
+    trajectories and end states take the cluster-resident mode, as the
+    JAX package's take its K5 there, interior Dirichlet constraints
+    included; past the cap K8 and its end mode."""
     cases = {
         "wave": ("dirichlet", (81, 81), True),
         "burgers": ("neumann", (81, 81), True),
@@ -357,6 +358,8 @@ def test_dispatch_rule_matches_jax(x64_off):
     for family, (faces, shape, expected) in cases.items():
         jax_cp, torch_cp = _problems(family, faces, shape)
         assert not torch_fused.fits_one_block(torch_cp)
+        assert torch_fused.cluster_system_applicable(torch_cp)
+        assert not torch_tiled.tiled_system_applicable(torch_cp)
         assert jax_fused.fused_system_step_applicable(jax_cp, JaxRK4())
         assert torch_fused.fused_system_step_applicable(
             torch_cp, RK4(), torch.float32
@@ -368,7 +371,7 @@ def test_dispatch_rule_matches_jax(x64_off):
         assert not torch_packed.packed_system_applicable(
             torch_cp, RK4(), 4, torch.float32
         )
-        # the end takes K8's end mode (K5's end in the JAX package)
+        # the end takes the mode's end (K5's end in the JAX package)
         assert torch_fused.build_fused_system_rk4_end(torch_cp, D_T, 2)
     # past the JAX package's VMEM cap, shallow water stays generic there
     jax_cp, torch_cp = _problems("shallow_water", "neumann", (641, 641))
@@ -377,7 +380,8 @@ def test_dispatch_rule_matches_jax(x64_off):
     jax_cp, torch_cp = _problems("wave", "dirichlet", (641, 641))
     assert jax_tiled.tiled_system_applicable(jax_cp)
     assert torch_tiled.tiled_system_applicable(torch_cp)
-    # interior Dirichlet past one CTA: K5 in VMEM there, generic here
+    # interior Dirichlet past one CTA: K5 in VMEM there, the mode here
+    # (its dense Dirichlet mask); K8 keeps refusing it
     jax_cp, torch_cp = (
         _add_interior_dirichlet(module, cp)
         for module, cp in zip(
@@ -385,8 +389,10 @@ def test_dispatch_rule_matches_jax(x64_off):
         )
     )
     assert jax_fused.fused_system_step_applicable(jax_cp, JaxRK4())
-    assert not torch_fused.fused_system_step_applicable(torch_cp, RK4())
-    assert torch_fused.build_fused_system_rk4_end(torch_cp, D_T, 2) is None
+    assert torch_fused.fused_system_step_applicable(torch_cp, RK4())
+    assert torch_fused.cluster_system_applicable(torch_cp)
+    assert not torch_tiled.tiled_system_applicable(torch_cp)
+    assert torch_fused.build_fused_system_rk4_end(torch_cp, D_T, 2)
 
 
 def test_fdm_operator_dispatches_past_one_cta_to_k8(monkeypatch):
@@ -398,6 +404,8 @@ def test_fdm_operator_dispatches_past_one_cta_to_k8(monkeypatch):
     take K8's end mode (its plain version here), equal to the
     trajectory's last frame."""
     monkeypatch.setattr(torch_fused, "MAX_SHARED_MEMORY_BYTES", 1024)
+    # and the cluster-resident mode's range, so that K8 takes the grid
+    monkeypatch.setattr(torch_fused, "CLUSTER_MAX_BLOCK_CELLS", 0)
     # 24 x 128 padded cells of two components: past a cap of 1,024
     monkeypatch.setattr(
         torch_fused, "REFERENCE_VMEM_BUDGET_CELLS", 1024 * (7 * 2 + 4)
@@ -620,6 +628,8 @@ def test_parareal_past_one_cta_takes_the_batched_k8_end(monkeypatch):
     (its generic path under the suite's x64) to 1e-5 of the largest
     value, after more than one iteration."""
     monkeypatch.setattr(torch_fused, "MAX_SHARED_MEMORY_BYTES", 1024)
+    # and the cluster-resident mode's range, so that K8 takes the grid
+    monkeypatch.setattr(torch_fused, "CLUSTER_MAX_BLOCK_CELLS", 0)
     calls = []
     for module, name in (
         (torch_tiled, "tiled_system_rk4_end"),
