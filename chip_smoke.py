@@ -181,8 +181,10 @@ d_t 0.05 to T = 100), on the card by default:
 25. holds the Navier-Stokes kernel (trajectory, B = 4 end, step) against
     its plain version on the JAX tests' 17 x 17 problem (one block, 20
     steps) and over the example's first 50 steps, the first step's
-    700-sweep solve included, at every cluster size whose slabs fit a
-    block (2, 4 and 8), with the Jacobi sweeps each counted;
+    700-sweep solve included, on its measured plan, that plan with
+    groups of one Jacobi sweep, and every cluster size whose slabs fit a
+    block (2, 4 and 8) at its default group, 0.0 apart with the Jacobi
+    sweeps each counted equal;
 26. runs the path with every counter at 0: the example's
     ``FDMOperator.solve`` (2,000 steps, one launch, no generic step
     built) and an 8-slice Parareal over its first 3.2 time units (coarse
@@ -195,7 +197,10 @@ d_t 0.05 to T = 100), on the card by default:
 27. times the solve, Parareal, the generic path over 20 steps (scaled,
     and labelled so) and each kernel function at its path's shapes
     beside its plain version (once) and its bound from the sweeps it
-    counted;
+    counted; times the solve, one Parareal iteration's B = 8 fine ends
+    and the Parareal on the measured plans against the same plans with
+    groups of one sweep, in turns; and splits a Jacobi sweep and a stage
+    (``tools/ns_sweep_split.py``);
 28. profiles the solve and Parareal as in phase 4.
 
 The end states past one CTA (K8's and K7's end modes) and K5's step
@@ -248,6 +253,7 @@ time and its bound (the least time the card could take for its work at
 the timed shapes); the last line is ``{"ok": true, "device": ...}``.
 """
 
+import contextlib
 import json
 import os
 import statistics
@@ -3696,6 +3702,25 @@ def navier_stokes_bound(cells, batch, n_steps, sweeps, trajectory):
     return bound(read + written, flops)
 
 
+@contextlib.contextmanager
+def navier_stokes_groups_of_one(ns, enabled=True):
+    """Within the block (where ``enabled``), every Navier-Stokes kernel
+    launch runs its plan with groups of one Jacobi sweep: the measured
+    plans' comparison in turns, reached through the wrappers' plan hook
+    (``ns._plan``) and nowhere else."""
+    choose = ns._plan
+
+    def groups_of_one(cfg, batch, cluster_size, plan):
+        return choose(cfg, batch, cluster_size, plan)._replace(group=1)
+
+    if enabled:
+        ns._plan = groups_of_one
+    try:
+        yield
+    finally:
+        ns._plan = choose
+
+
 def navier_stokes_problem(prml, example=True):
     """examples/navier_stokes_fdm.py's problem: Navier-Stokes at Re 5000
     on [-2.5, 2.5] x [0, 4] at (0.05, 0.05) (101 x 81 x 4), from rest to
@@ -3752,10 +3777,11 @@ def navier_stokes_phases(
     sweep_totals = {}
     started = time.perf_counter()
 
-    def check(name, what, args, cluster_size=None):
+    def check(name, what, args, cluster_size=None, plan=None):
         """Runs the kernel and its plain version on ``args``; returns
-        max|d|/max|y| and both sweep totals."""
-        kernel = wrappers[name](*args, cluster_size=cluster_size)
+        max|d|/max|y| (0.0: both evaluate the same operations in the same
+        order) and both sweep totals."""
+        kernel = wrappers[name](*args, cluster_size=cluster_size, plan=plan)
         plain, plain_sweeps = plains[name](*args)
         torch.cuda.synchronize()
         assert kernel.shape == plain.shape, (name, what)
@@ -3766,7 +3792,7 @@ def navier_stokes_phases(
             int(wrappers[name].sweeps.sum()),
             int(plain_sweeps.sum()),
         )
-        if not rel_err <= KERNEL_REL_TOL:
+        if not abs_err == 0.0:
             raise AssertionError(
                 f"{name} disagrees with its plain version ({what}): "
                 f"{rel_err:.3e}"
@@ -3817,12 +3843,18 @@ def navier_stokes_phases(
     sizes = [
         size
         for size in ns.CLUSTER_SIZES
-        if ns.cluster_plan_2d(101, 81, size).fits
+        if ns.cluster_plan_2d(101, 81, size, 1).fits
     ]
-    assert sizes[0] == cfg.plan.cluster_size
-    for size in sizes:
+    assert sizes == [2, 4, 8], sizes
+    plans = list(
+        dict.fromkeys(
+            [cfg.plan, cfg.plan._replace(group=1)]
+            + [ns.cluster_plan_2d(101, 81, size) for size in sizes]
+        )
+    )
+    for plan in plans:
         kernel = wrappers["fused_navier_stokes_rk4_trajectory"](
-            y_0, cfg, NS_PREFIX_STEPS, cluster_size=size
+            y_0, cfg, NS_PREFIX_STEPS, plan=plan
         )
         torch.cuda.synchronize()
         abs_err = float((kernel - prefix).abs().max())
@@ -3833,23 +3865,27 @@ def navier_stokes_phases(
         )
         rel_end, end_sweeps = check(
             "fused_navier_stokes_rk4_end", "101 x 81, B=4",
-            (batch, cfg, NS_PREFIX_STEPS), size,
+            (batch, cfg, NS_PREFIX_STEPS), plan=plan,
         )
         rel_step, step_sweeps = check(
             "fused_navier_stokes_rk4_step", "101 x 81, B=4", (batch, cfg),
-            size,
+            plan=plan,
         )
         log(
             f"kernels: navier-stokes 101 x 81 (the example), a cluster of "
-            f"{size} blocks ({ns.cluster_plan_2d(101, 81, size).slab} rows "
-            f"a block): trajectory over {NS_PREFIX_STEPS} steps from rest "
-            f"max|d|/max|y| = {rel:.3e}, Jacobi sweeps kernel "
+            f"{plan.cluster_size} blocks ({plan.slab} rows and "
+            f"{plan.block_threads} threads a block), groups of "
+            f"{plan.group} sweeps: trajectory over {NS_PREFIX_STEPS} steps "
+            f"from rest max|d|/max|y| = {rel:.3e}, Jacobi sweeps kernel "
             f"{kernel_sweeps}, plain {int(prefix_sweeps)}; B=4 end over "
             f"{NS_PREFIX_STEPS} steps {rel_end:.3e}, sweeps {end_sweeps[0]} "
             f"and {end_sweeps[1]}; B=4 step {rel_step:.3e}, sweeps "
             f"{step_sweeps[0]} and {step_sweeps[1]}"
         )
-        assert rel <= KERNEL_REL_TOL, (size, rel)
+        assert abs_err == 0.0, (plan, abs_err)
+        assert kernel_sweeps == int(prefix_sweeps), plan
+        assert end_sweeps[0] == end_sweeps[1], (plan, end_sweeps)
+        assert step_sweeps[0] == step_sweeps[1], (plan, step_sweeps)
     sweep_totals["prefix"] = (kernel_sweeps, int(prefix_sweeps))
     del prefix, kernel
     log(f"phase navier-stokes kernels: ok "
@@ -4050,7 +4086,7 @@ def navier_stokes_phases(
         abs_err = float((kernel - plain).abs().max())
         rel_err = abs_err / float(plain.abs().max())
         errors[name] = max(errors[name], abs_err)
-        assert rel_err <= KERNEL_REL_TOL, (name, rel_err)
+        assert abs_err == 0.0, (name, rel_err)
         del outputs, plain, kernel
         state_batch = args[0].shape[0] if args[0].ndim == 4 else 1
         n_steps = args[2] if len(args) > 2 else 1
@@ -4084,6 +4120,65 @@ def navier_stokes_phases(
                 "timed": what,
             }
         )
+    # the measured plans against the same plans with groups of one sweep
+    # (one norm a sweep), in turns: the solve, one iteration's fine ends,
+    # the Parareal
+    ends = wrappers["fused_navier_stokes_rk4_end"]
+    in_turns = {
+        "solve": lambda: solve_fn(y_0),
+        f"B={NS_PARAREAL_SLICES} fine ends": lambda: ends(
+            slice_starts, cfg, slice_steps
+        ),
+        "parareal": lambda: parareal_fn(y_0),
+    }
+    turns = {label: {"measured": [], "groups of 1": []} for label in in_turns}
+    for order in (("measured", "groups of 1"), ("groups of 1", "measured")):
+        for plans_of in order:
+            with navier_stokes_groups_of_one(ns, plans_of == "groups of 1"):
+                for label, run in in_turns.items():
+                    turns[label][plans_of].append(
+                        cuda_ms(torch, run, reps=3)
+                    )
+    for label, times in turns.items():
+        measured = statistics.mean(times["measured"])
+        of_one = statistics.mean(times["groups of 1"])
+        log(
+            f"time: navier-stokes {label} in turns: the measured plans "
+            f"{measured:.3f} ms ({times['measured']}), groups of one sweep "
+            f"{of_one:.3f} ms ({times['groups of 1']}): "
+            f"{of_one / measured:.3f}x [{card}]"
+        )
+        for entry in entries:
+            if label == "solve" and entry["name"] == NS_KERNELS[0][0] or (
+                label.endswith("fine ends")
+                and entry["name"] == NS_KERNELS[1][0]
+            ):
+                entry["in_turns"] = {
+                    "timed": label,
+                    "measured_ms": measured,
+                    "groups_of_one_ms": of_one,
+                }
+    # a Jacobi sweep and a stage split into their segments
+    split = load_tool("ns_sweep_split").run(device, card, log)
+    log(
+        "ns sweep split: "
+        + json.dumps(
+            [
+                dict(
+                    plan=result["plan"],
+                    step_us=result["step_us"],
+                    sweep_us=result["sweep_us"],
+                    stage_us=result["stage_us"],
+                    counts=result["counts"],
+                    segments_us={
+                        row["segment"]: row["us"]
+                        for row in result["segments"]
+                    },
+                )
+                for result in split
+            ]
+        )
+    )
     torch.cuda.empty_cache()
     log(f"phase navier-stokes times: ok "
         f"({time.perf_counter() - started:.1f} s)")
@@ -4962,8 +5057,8 @@ def main() -> int:
     )
 
     start = time.perf_counter()
-    # one nvcc per source, all started together, the step splits'
-    # instrumented copies (phases 32 and 36) too
+    # one nvcc per source, all started together, the step and sweep
+    # splits' instrumented copies (phases 27, 32 and 36) too
     sources = (
         "fused_diffusion",
         "fused_system",
@@ -4975,7 +5070,7 @@ def main() -> int:
     )
     split_builds = [
         threading.Thread(target=load_tool(name).build_split_library)
-        for name in ("k5_step_split", "k8_step_split")
+        for name in ("k5_step_split", "k8_step_split", "ns_sweep_split")
     ]
     for thread in split_builds:
         thread.start()

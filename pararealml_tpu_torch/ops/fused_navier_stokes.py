@@ -8,7 +8,8 @@ system on Cartesian meshes. Its three Pallas TPU kernels become launches
 of one hand-written CUDA kernel for Hopper, ``csrc/fused_navier_stokes.cu``
 (see its header for the design): one thread block cluster of 1, 2, 4 or 8
 blocks holds one state for the whole solve, each block a slab of rows in
-shared memory, with the stream function's Jacobi solve inside the kernel.
+shared memory, with the stream function's Jacobi solve inside the kernel,
+its sweeps in groups between cluster barriers.
 
 Each kernel has a wrapper and a plain PyTorch version beside it:
 
@@ -19,12 +20,16 @@ Each kernel has a wrapper and a plain PyTorch version beside it:
   raises. Each counts its kernel launches in ``launches``, and keeps the
   Jacobi sweeps of each state of its last call (the kernel's device
   counters, or the plain version's) in ``sweeps``. They take a test-only
-  ``cluster_size=`` to exercise other slab splits.
+  ``cluster_size=`` or ``plan=`` (a :class:`ClusterPlan2D`) to exercise
+  other slab splits and groups.
 - ``fused_navier_stokes_rk4_{trajectory,end,step}_reference`` are the
   plain versions, over ``_navier_stokes_step_reference`` of
   :mod:`pararealml_tpu_torch.ops.fused_system` (the JAX package's
   Navier-Stokes branch term for term). They run on any device and in any
   floating-point type, and return the sweeps beside the states.
+- ``_group_schedule_reference`` models the kernel's Jacobi solve in
+  groups (slabs, halos, per-sweep partials, the stop found after a group,
+  the replay) in plain PyTorch, for the tests only.
 
 States use the JAX package's layout: ``(H, W, 4)`` (w, psi, u, v), or
 ``(B, H, W, 4)`` for a batch (one cluster per state).
@@ -38,6 +43,7 @@ grid that fits the largest cluster (:func:`make_cluster_plan_2d`).
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -47,34 +53,57 @@ from pararealml_tpu_torch.differential_equation import NavierStokesEquation
 from pararealml_tpu_torch.mesh import CoordinateSystem
 from pararealml_tpu_torch.ops.fused_system import (
     MAX_SHARED_MEMORY_BYTES,
+    _jacobi_sweep_reference,
     _navier_stokes_step_reference,
     _SystemKernelConfig,
     states,
 )
 
 CLUSTER_SIZES = (1, 2, 4, 8)
-# the kernel's shared-memory reduction scratch: two partial-sum slots and
-# one sum for each of at most 32 warps, as doubles
-_REDUCTION_BYTES = 8 * (2 + 32)
+# the Jacobi sweeps a group runs between cluster barriers: the kernel's
+# instances
+GROUP_SIZES = (1, 2, 3, 4, 8)
+# a plan's group where the measured table has no entry: the largest of
+# GROUP_SIZES up to it that the plan admits
+DEFAULT_GROUP = 4
+MAX_THREADS = 1024
+# the kernel's shared-memory reduction scratch, as doubles: two sets of
+# one slot a sweep of a group, and each of at most 32 warps' sum of each
+_REDUCTION_DOUBLES_A_SWEEP = 2 + 32
 
 
-def shared_memory_bytes_2d(rows: int, width: int) -> int:
+def shared_memory_bytes_2d(
+    rows: int, width: int, group: int = 1, cluster_size: int = 1
+) -> int:
     """The kernel's shared-memory working set for a slab of ``rows`` rows
-    of ``width`` cells: the reduction's doubles, twelve float planes (w,
-    psi, u, v; w's two stage buffers and RK4 accumulator; the second
-    stream-function buffer; the four Dirichlet value planes) and the four
-    Dirichlet byte-mask planes, in the order the CUDA kernel carves them;
-    the launch passes it to the kernel."""
-    return _REDUCTION_BYTES + (12 * 4 + 4) * rows * width
+    of ``width`` cells with groups of ``group`` sweeps, in the order the
+    CUDA kernel carves it (its ``shared_bytes_2d``): the reduction's
+    doubles; five float planes of the slab and its guard rows (``group``
+    above and below it on a cluster, one for a single block: the three
+    stream-function buffers, w and psi's Dirichlet values); six float
+    planes of the slab (u, v, a stage buffer, the Dirichlet values of w, u
+    and v); psi's Dirichlet byte mask with the guard rows and the three
+    others of the slab. The launch passes it to the kernel."""
+    guard = group if cluster_size > 1 else 1
+    return (
+        8 * _REDUCTION_DOUBLES_A_SWEEP * group
+        + (rows + 2 * guard) * width * (5 * 4 + 1)
+        + rows * width * (6 * 4 + 3)
+    )
 
 
 class ClusterPlan2D(NamedTuple):
     """How one cluster holds an H x W grid: block r of ``cluster_size``
-    keeps rows ``[r H // s, (r + 1) H // s)``."""
+    keeps rows ``[r H // s, (r + 1) H // s)`` and runs the Jacobi sweeps
+    in groups of ``group`` between cluster barriers, with ``threads``
+    threads (0: as many as the largest slab has cells, up to 1,024, in
+    whole warps)."""
 
     cluster_size: int
     height: int
     width: int
+    group: int = 1
+    threads: int = 0
 
     @property
     def slab(self) -> int:
@@ -82,20 +111,39 @@ class ClusterPlan2D(NamedTuple):
         return -(-self.height // self.cluster_size)
 
     @property
+    def min_rows(self) -> int:
+        """The fewest rows one block holds."""
+        return self.height // self.cluster_size
+
+    @property
+    def block_threads(self) -> int:
+        if self.threads:
+            return self.threads
+        return min(MAX_THREADS, 32 * -(-(self.slab * self.width) // 32))
+
+    @property
     def shared_bytes(self) -> int:
-        return shared_memory_bytes_2d(self.slab, self.width)
+        return shared_memory_bytes_2d(
+            self.slab, self.width, self.group, self.cluster_size
+        )
+
+    @property
+    def admitted(self) -> bool:
+        """Whether the kernel takes the group: one of its instances, and
+        on a cluster at most the fewest rows a block holds (a halo comes
+        from the adjacent blocks only)."""
+        return self.group in GROUP_SIZES and (
+            self.cluster_size == 1 or self.group <= self.min_rows
+        )
 
     @property
     def fits(self) -> bool:
-        """Whether each block's slab fits its shared memory."""
-        return self.shared_bytes <= MAX_SHARED_MEMORY_BYTES
+        """Whether the kernel takes the plan and each block's slab fits its
+        shared memory."""
+        return self.admitted and self.shared_bytes <= MAX_SHARED_MEMORY_BYTES
 
 
-def cluster_plan_2d(
-    height: int, width: int, cluster_size: int
-) -> ClusterPlan2D:
-    """The plan with ``cluster_size`` blocks, whether or not its slabs fit
-    a block's shared memory (the kernel's launch refuses those)."""
+def _check_cluster_size(height: int, cluster_size: int):
     if cluster_size not in CLUSTER_SIZES:
         raise ValueError(
             f"cluster_size must be one of {CLUSTER_SIZES}, got {cluster_size}"
@@ -105,29 +153,73 @@ def cluster_plan_2d(
             f"a height of {height} rows cannot be split among "
             f"{cluster_size} blocks"
         )
-    return ClusterPlan2D(cluster_size, height, width)
 
 
-def make_cluster_plan_2d(height: int, width: int) -> Optional[ClusterPlan2D]:
-    """The smallest cluster (1, 2, 4 or 8 blocks, no more blocks than
-    rows) whose largest slab fits a block's 227 KB of shared memory, or
-    None when none does: at 52 bytes a cell, 17 x 17 takes one block,
-    the example's 101 x 81 two (51 rows, 215,084 B each), and square grids
-    up to 186 x 186 eight."""
+def cluster_plan_2d(
+    height: int,
+    width: int,
+    cluster_size: int,
+    group: Optional[int] = None,
+    threads: int = 0,
+) -> ClusterPlan2D:
+    """The plan with ``cluster_size`` blocks, whether or not its slabs fit
+    a block's shared memory (the kernel's launch refuses those); without
+    ``group``, the largest of :data:`GROUP_SIZES` up to
+    :data:`DEFAULT_GROUP` that fits, else 1."""
+    _check_cluster_size(height, cluster_size)
+    if group is not None:
+        return ClusterPlan2D(cluster_size, height, width, group, threads)
+    for size in reversed(GROUP_SIZES):
+        plan = ClusterPlan2D(cluster_size, height, width, size, threads)
+        if size <= DEFAULT_GROUP and plan.fits:
+            return plan
+    return ClusterPlan2D(cluster_size, height, width, 1, threads)
+
+
+# The plans measured on the card (tools/ns_plan_sweep.py, NVIDIA H100
+# 80GB HBM3 at 700 W): (height, width, batch or None) -> (cluster size,
+# group, threads; 0 for the default). The example's single state, one
+# Parareal iteration's B = 8 fine ends on it, and the JAX tests' 17 x 17.
+_MEASURED_PLANS = {
+    (101, 81, None): (8, 4, 512),
+    (101, 81, 8): (8, 4, 512),
+    (17, 17, None): (1, 3, 0),
+}
+
+
+def make_cluster_plan_2d(
+    height: int, width: int, batch: Optional[int] = None
+) -> Optional[ClusterPlan2D]:
+    """The measured plan of ``_MEASURED_PLANS`` for the shape and batch
+    where there is one and it fits, else the smallest cluster (1, 2, 4 or
+    8 blocks, no more blocks than rows) whose largest slab fits a block's
+    227 KB of shared memory with groups of one sweep, with the group
+    :func:`cluster_plan_2d` gives it; None when none fits. At 48 bytes a
+    slab cell and 42 a guard-row cell, a cluster holds square grids up to
+    192 x 192 on eight blocks (groups of up to 2 at 187 x 187, of 1 past
+    it)."""
     if min(height, width) < 3:
         return None
+    measured = _MEASURED_PLANS.get((height, width, batch)) or (
+        _MEASURED_PLANS.get((height, width, None))
+    )
+    if measured is not None:
+        size, group, threads = measured
+        if size <= height:
+            plan = ClusterPlan2D(size, height, width, group, threads)
+            if plan.fits:
+                return plan
     for size in CLUSTER_SIZES:
         if size > height:
             break
-        plan = ClusterPlan2D(size, height, width)
-        if plan.fits:
-            return plan
+        if ClusterPlan2D(size, height, width).fits:
+            return cluster_plan_2d(height, width, size)
     return None
 
 
 class _NavierStokesConfig(_SystemKernelConfig):
     """K5's configuration of a Navier-Stokes problem with its cluster
-    plan (None where the grid fits no cluster)."""
+    plan for one state (None where the grid fits no cluster)."""
 
     def __init__(
         self,
@@ -207,6 +299,127 @@ def fused_navier_stokes_rk4_step_reference(
     )
 
 
+def _group_schedule_reference(
+    state: torch.Tensor, cfg: _NavierStokesConfig, plan: ClusterPlan2D
+) -> Tuple[torch.Tensor, int, int]:
+    """A plain model of the kernel's Jacobi solve of one step of one
+    ``(H, W, 4)`` state on ``plan``, for the tests: each block of the
+    plan's cluster keeps three stream-function buffers (the state's psi,
+    the stage buffer and D1(psi) in the accumulator, where the solve
+    starts); at a group's start it copies the ``group`` rows of the start
+    buffer S next to its slab from each neighbour (and w's); sweep t of the
+    group covers ``group - 1 - t`` halo rows past each slab edge that has
+    a neighbour, and sums its own rows' squared updates in float64; after
+    the group the blocks' sums are added in rank order and the first
+    sweep at which the norm is at most ``cfg.tol`` stops the solve (a
+    group runs no more sweeps than ``cfg.max_iterations`` leaves); the
+    stopping sweep's psi is taken from its work buffer when it is one of
+    the group's last two sweeps, else replayed from S.
+
+    Rows a block has no data for hold NaN, so a schedule that read one
+    would spoil its result. Each sweep runs the plain version's sweep
+    (:func:`~pararealml_tpu_torch.ops.fused_system._jacobi_sweep_reference`)
+    over the whole grid of the block's buffer and keeps the block's rows:
+    a cell depends on its neighbours only. Returns the solve's psi ``(H,
+    W)``, its sweeps and the sweeps replayed."""
+    constants = cfg.constants(state.device, state.dtype)
+    dir_mask, dir_vals = constants[0], constants[1]
+    height, k, blocks = cfg.height, plan.group, plan.cluster_size
+    rows = [
+        (r * height // blocks, (r + 1) * height // blocks)
+        for r in range(blocks)
+    ]
+    halo = k if blocks > 1 else 0
+
+    def visible(r):
+        # the rows a block keeps: its slab and its halo's rows in the grid
+        begin, end = rows[r]
+        return max(begin - halo, 0), min(end + halo, height)
+
+    def unknown():
+        return torch.full_like(state[..., 0], math.nan)
+
+    w, psi = state[..., 0], state[..., 1]
+    sweeps_of = []
+    # buffers[r][i]: block r's stream-function buffer i (0 the state's psi,
+    # 1 the stage buffer, 2 the accumulator)
+    buffers = []
+    for r, (begin, end) in enumerate(rows):
+        own = [unknown() for _ in range(3)]
+        own[0][begin:end] = psi[begin:end]
+        own[2][begin:end] = torch.where(
+            dir_mask[1], dir_vals[1], psi
+        )[begin:end]
+        buffers.append(own)
+        low, high = visible(r)
+        rhs = unknown()
+        rhs[low:high] = -w[low:high]
+        sweeps_of.append(_jacobi_sweep_reference(cfg, constants, rhs))
+
+    def sweep_rows(r, t):
+        begin, end = rows[r]
+        low = begin - (k - 1 - t) if r > 0 else begin
+        high = end + (k - 1 - t) if r < blocks - 1 else end
+        return low, high
+
+    def run(start, t, r, norm):
+        """Sweep t of a group from buffer ``start`` on block r; returns its
+        own rows' float64 sum of squared updates."""
+        work = ((start + 1) % 3, (start + 2) % 3)
+        source = buffers[r][start if t == 0 else work[(t - 1) & 1]]
+        target = buffers[r][work[t & 1]]
+        swept = sweeps_of[r](source)
+        low, high = sweep_rows(r, t)
+        target[low:high] = swept[low:high]
+        if not norm:
+            return 0.0
+        begin, end = rows[r]
+        change = (swept[begin:end] - source[begin:end]).double()
+        return float((change * change).sum())
+
+    start, result, iterations, replayed = 2, 2, 0, 0
+    while iterations < cfg.max_iterations:
+        group = min(k, cfg.max_iterations - iterations)
+        for r, (begin, end) in enumerate(rows):
+            if r > 0:
+                buffers[r][start][begin - halo: begin] = buffers[r - 1][
+                    start
+                ][begin - halo: begin]
+            if r < blocks - 1:
+                buffers[r][start][end: end + halo] = buffers[r + 1][start][
+                    end: end + halo
+                ]
+        partials = [
+            [run(start, t, r, True) for r in range(blocks)]
+            for t in range(group)
+        ]
+        stop = 0
+        for t in range(group):
+            total = 0.0
+            for partial in partials[t]:
+                total += partial
+            if not math.sqrt(total) > cfg.tol:
+                stop = t + 1
+                break
+        if stop == 0:
+            iterations += group
+            start = (start + 1 + ((group - 1) & 1)) % 3
+            result = start
+            continue
+        iterations += stop
+        if stop < group - 1:
+            for t in range(stop):
+                for r in range(blocks):
+                    run(start, t, r, False)
+            replayed += stop
+        result = (start + 1 + ((stop - 1) & 1)) % 3
+        break
+    solved = torch.cat(
+        [buffers[r][result][begin:end] for r, (begin, end) in enumerate(rows)]
+    )
+    return solved, iterations, replayed
+
+
 # -- kernel wrappers ----------------------------------------------------------
 
 
@@ -214,7 +427,7 @@ def _configure(library: ctypes.CDLL):
     c_int, c_void_p = ctypes.c_int, ctypes.c_void_p
     library.fused_navier_stokes_rk4.argtypes = (
         [c_void_p] * 3
-        + [c_int] * 7
+        + [c_int] * 9
         + [ctypes.c_size_t]
         + [c_void_p] * 6
         + [
@@ -241,7 +454,29 @@ def load_kernels() -> ctypes.CDLL:
     return library
 
 
-def _plan(cfg: _NavierStokesConfig, cluster_size: Optional[int]):
+def _plan(
+    cfg: _NavierStokesConfig,
+    batch: int,
+    cluster_size: Optional[int],
+    plan: Optional[ClusterPlan2D],
+) -> ClusterPlan2D:
+    """The plan given, or one with ``cluster_size`` blocks, or the
+    configuration's measured plan for a batch of ``batch`` states; raises
+    for a plan of another grid or one the kernel does not take."""
+    if plan is not None:
+        if (plan.height, plan.width) != (cfg.height, cfg.width):
+            raise ValueError(
+                f"a plan for {plan.height} x {plan.width} does not fit a "
+                f"{cfg.height} x {cfg.width} grid"
+            )
+        _check_cluster_size(cfg.height, plan.cluster_size)
+        if not plan.admitted:
+            raise ValueError(
+                f"groups of {plan.group} sweeps are not among "
+                f"{GROUP_SIZES} or exceed the fewest rows a block of the "
+                f"plan holds ({plan.min_rows})"
+            )
+        return plan
     if cluster_size is not None:
         return cluster_plan_2d(cfg.height, cfg.width, cluster_size)
     if cfg.plan is None:
@@ -249,7 +484,9 @@ def _plan(cfg: _NavierStokesConfig, cluster_size: Optional[int]):
             f"a {cfg.height} x {cfg.width} Navier-Stokes grid does not fit "
             "a cluster of 8 blocks"
         )
-    return cfg.plan
+    if batch == 1:
+        return cfg.plan
+    return make_cluster_plan_2d(cfg.height, cfg.width, batch)
 
 
 def launch(
@@ -260,6 +497,7 @@ def launch(
     n_steps: int,
     write_trajectory: bool,
     cluster_size: Optional[int] = None,
+    plan: Optional[ClusterPlan2D] = None,
 ):
     """Launches the kernel on ``y``'s device and its current stream for a
     contiguous ``(B, H, W, 4)`` float32 CUDA state (one cluster per state)
@@ -267,7 +505,7 @@ def launch(
     card cannot place, among them one whose slabs overflow a block's
     shared memory. ``sweeps`` ((B,) int64) receives each state's Jacobi
     sweeps."""
-    plan = _plan(cfg, cluster_size)
+    plan = _plan(cfg, y.shape[0], cluster_size, plan)
     if any(t.data_ptr() % 16 for t in (y, out)):
         raise ValueError("the state and output must be 16-byte aligned")
     library = load_kernels()
@@ -290,6 +528,8 @@ def launch(
             int(write_trajectory),
             plan.cluster_size,
             plan.slab,
+            plan.group,
+            plan.block_threads,
             plan.shared_bytes,
             *(c.data_ptr() for c in constants[:6]),
             cfg.coefficient_array(),
@@ -302,12 +542,13 @@ def launch(
         message = library.fused_navier_stokes_error_string(error).decode()
         raise RuntimeError(
             f"fused Navier-Stokes kernel launch failed with a cluster of "
-            f"{plan.cluster_size} blocks of {plan.shared_bytes} bytes of "
-            f"shared memory: {message} ({error})"
+            f"{plan.cluster_size} blocks of {plan.block_threads} threads and "
+            f"{plan.shared_bytes} bytes of shared memory, groups of "
+            f"{plan.group} sweeps: {message} ({error})"
         )
 
 
-def _run(wrapper, y, cfg, n_steps, write_trajectory, cluster_size):
+def _run(wrapper, y, cfg, n_steps, write_trajectory, cluster_size, plan):
     """Launches the kernel over ``y``'s states into a new output, counts
     the launch on ``wrapper`` and keeps the sweeps there."""
     batch = y.reshape((-1,) + cfg.state_shape)
@@ -322,7 +563,10 @@ def _run(wrapper, y, cfg, n_steps, write_trajectory, cluster_size):
     sweeps = torch.zeros(
         batch.shape[0], dtype=torch.int64, device=batch.device
     )
-    launch(batch, out, sweeps, cfg, n_steps, write_trajectory, cluster_size)
+    launch(
+        batch, out, sweeps, cfg, n_steps, write_trajectory, cluster_size,
+        plan,
+    )
     wrapper.launches += 1
     wrapper.sweeps = sweeps.reshape(tuple(y.shape[:-3]))
     return out
@@ -333,11 +577,12 @@ def fused_navier_stokes_rk4_trajectory(
     cfg: _NavierStokesConfig,
     n_steps: int,
     cluster_size: Optional[int] = None,
+    plan: Optional[ClusterPlan2D] = None,
 ) -> torch.Tensor:
     """The trajectory: ``n_steps`` fused steps storing every step, ``(H, W,
     4) -> (n_steps, H, W, 4)`` or ``(B, H, W, 4) -> (B, n_steps, H, W,
-    4)`` (one cluster per state). ``cluster_size`` overrides the plan's
-    (to exercise other splits)."""
+    4)`` (one cluster per state). ``cluster_size`` or ``plan`` overrides
+    the measured plan (to exercise other splits and groups)."""
     wrapper = fused_navier_stokes_rk4_trajectory
     cfg.check_state(y)
     if y.device.type == "cpu":
@@ -345,7 +590,7 @@ def fused_navier_stokes_rk4_trajectory(
             y, cfg, n_steps
         )
         return out
-    out = _run(wrapper, y, cfg, n_steps, True, cluster_size)
+    out = _run(wrapper, y, cfg, n_steps, True, cluster_size, plan)
     return out if y.ndim == 4 else out[0]
 
 
@@ -354,6 +599,7 @@ def fused_navier_stokes_rk4_end(
     cfg: _NavierStokesConfig,
     n_steps: int,
     cluster_size: Optional[int] = None,
+    plan: Optional[ClusterPlan2D] = None,
 ) -> torch.Tensor:
     """The end: ``n_steps`` fused steps returning the end state only, ``(H,
     W, 4) -> (H, W, 4)`` or ``(B, H, W, 4) -> (B, H, W, 4)`` (one cluster
@@ -365,15 +611,16 @@ def fused_navier_stokes_rk4_end(
             y, cfg, n_steps
         )
         return out
-    return _run(wrapper, y, cfg, n_steps, False, cluster_size).reshape(
-        y.shape
-    )
+    return _run(
+        wrapper, y, cfg, n_steps, False, cluster_size, plan
+    ).reshape(y.shape)
 
 
 def fused_navier_stokes_rk4_step(
     y: torch.Tensor,
     cfg: _NavierStokesConfig,
     cluster_size: Optional[int] = None,
+    plan: Optional[ClusterPlan2D] = None,
 ) -> torch.Tensor:
     """One fused step (the trajectory kernel with ``n_steps = 1``), ``(H,
     W, 4) -> (H, W, 4)`` or ``(B, H, W, 4) -> (B, H, W, 4)``."""
@@ -382,7 +629,9 @@ def fused_navier_stokes_rk4_step(
     if y.device.type == "cpu":
         out, wrapper.sweeps = fused_navier_stokes_rk4_step_reference(y, cfg)
         return out
-    return _run(wrapper, y, cfg, 1, True, cluster_size).reshape(y.shape)
+    return _run(wrapper, y, cfg, 1, True, cluster_size, plan).reshape(
+        y.shape
+    )
 
 
 for _wrapper in (

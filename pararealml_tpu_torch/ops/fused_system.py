@@ -62,7 +62,7 @@ cluster per state with the stream function's Jacobi solve inside. Its
 plain step, :func:`_navier_stokes_step_reference`, is here beside the
 other families'. The JAX package admits it on Cartesian meshes within its
 VMEM cap; the port also needs the grid to fit the largest cluster (up to
-186 x 186 for a square grid), and takes the generic path past it
+192 x 192 for a square grid), and takes the generic path past it
 (ROADMAP.md, Queue 3).
 
 ``kernel_storage_dtype`` takes effect where the JAX package's does: past
@@ -742,6 +742,28 @@ def _step_reference(
     return torch.stack(stage(combined, cfg.sixth_d_t), dim=-1)
 
 
+def _jacobi_sweep_reference(cfg: _SystemKernelConfig, constants, rhs):
+    """The Navier-Stokes stream function's Jacobi sweep for ``lap(psi) =
+    rhs`` (``rhs`` is ``-w``): ``psi -> D1(psi + (lap(psi) - rhs) /
+    denominator)`` over ``(..., H, W)`` planes, with the whole-grid
+    helpers and the constraint tensors ``constants``."""
+    dir_mask, dir_vals = constants[0], constants[1]
+    faces = constants[2:6]
+    # a tensor, so that the division is exact on the card too (PyTorch's
+    # CUDA division by a host scalar multiplies by its reciprocal), as the
+    # kernel's and the JAX kernel's are
+    denominator = torch.tensor(
+        cfg.denominator, dtype=rhs.dtype, device=rhs.device
+    )
+
+    def sweep(psi):
+        # one set of helpers per plane: they memoize shifts by plane
+        update = (_Helpers(cfg, faces).laplacian(1, psi) - rhs) / denominator
+        return torch.where(dir_mask[1], dir_vals[1], psi + update)
+
+    return sweep
+
+
 def _navier_stokes_step_reference(
     state: torch.Tensor, cfg: _SystemKernelConfig, constants
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -794,20 +816,8 @@ def _navier_stokes_step_reference(
     u_next = dirichlet(2, h.gradient_1(1, psi))
     v_next = dirichlet(3, -h.gradient_0(1, psi))
 
-    rhs = -w
-    # a tensor, so that the division is exact on the card too (PyTorch's
-    # CUDA division by a host scalar multiplies by its reciprocal), as the
-    # kernel's and the JAX kernel's are
-    denominator = torch.tensor(
-        cfg.denominator, dtype=state.dtype, device=state.device
-    )
-
-    def sweep(psi_):
-        update = (helpers().laplacian(1, psi_) - rhs) / denominator
-        return dirichlet(1, psi_ + update)
-
     psi, sweeps = jacobi(
-        sweep,
+        _jacobi_sweep_reference(cfg, constants, -w),
         dirichlet(1, psi),
         cfg.tol,
         cfg.max_iterations,

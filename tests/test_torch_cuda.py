@@ -901,6 +901,25 @@ def _navier_stokes_states(shape, batch=None, seed=0):
     )
 
 
+def _navier_stokes_plans(height, width):
+    """Every plan the kernel takes on an H x W grid: each cluster size
+    whose slabs fit a block with groups of one sweep, at every group it
+    admits and fits, and the measured plans."""
+    ns = fused_navier_stokes
+    plans = [
+        ns.cluster_plan_2d(height, width, size, group=group)
+        for size in ns.CLUSTER_SIZES
+        if size <= height and ns.cluster_plan_2d(height, width, size, 1).fits
+        for group in ns.GROUP_SIZES
+    ]
+    plans += [
+        ns.make_cluster_plan_2d(height, width, batch)
+        for (h, w, batch) in ns._MEASURED_PLANS
+        if (h, w) == (height, width)
+    ]
+    return [plan for plan in dict.fromkeys(plans) if plan.fits]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("example", [False, True])
 def test_cuda_navier_stokes_kernel_matches_plain_version(
@@ -908,9 +927,11 @@ def test_cuda_navier_stokes_kernel_matches_plain_version(
 ):
     """The Navier-Stokes kernel (trajectory, B = 4 end, step) against its
     plain version on the JAX tests' 17 x 17 problem and the example's
-    101 x 81 at every cluster size whose slabs fit a block (1 to 8 blocks
-    at 17 x 17, 2 to 8 at 101 x 81), over 30 steps that include the first
-    step's long solve; the same Jacobi sweeps in both."""
+    101 x 81 on every plan it takes: every cluster size whose slabs fit a
+    block (1 to 8 blocks at 17 x 17, 2 to 8 at 101 x 81) at every group of
+    sweeps it admits and fits (groups of one included) and the measured
+    plans, over 30 steps that include the first step's long solve; 0.0
+    apart, with the same Jacobi sweeps in both."""
     cp = navier_stokes_problem(vars(torch_pkg), example)
     ns = fused_navier_stokes
     cfg = ns._NavierStokesConfig(cp, 0.05)
@@ -930,42 +951,57 @@ def test_cuda_navier_stokes_kernel_matches_plain_version(
         ns.fused_navier_stokes_rk4_end,
         ns.fused_navier_stokes_rk4_step,
     )
-    sizes = [
-        size
-        for size in ns.CLUSTER_SIZES
-        if ns.cluster_plan_2d(*shape, size).fits
-    ]
+    plans = _navier_stokes_plans(*shape)
+    sizes = sorted({plan.cluster_size for plan in plans})
     assert sizes == ([1, 2, 4, 8] if not example else [2, 4, 8])
-    for cluster_size in sizes:
+    assert {plan.group for plan in plans} == set(ns.GROUP_SIZES)
+    for plan in plans:
         for wrapper, args, (expected, sweeps) in zip(
             wrappers, ((y, cfg, steps), (ys, cfg, steps), (ys, cfg)), plain
         ):
             launches = wrapper.launches
-            _assert_matches(
-                wrapper(*args, cluster_size=cluster_size), expected
-            )
+            kernel = wrapper(*args, plan=plan)
+            torch.cuda.synchronize()
+            assert kernel.shape == expected.shape, plan
+            assert torch.equal(kernel, expected), plan
             assert wrapper.launches == launches + 1
-            assert torch.equal(wrapper.sweeps, sweeps)
+            assert torch.equal(wrapper.sweeps, sweeps), plan
 
 
 @pytest.mark.cuda
 def test_cuda_navier_stokes_kernel_raises_instead_of_falling_back(
     cuda_device,
 ):
-    """One block for the whole 101 x 81 grid (425,684 bytes of shared
-    memory) is a cluster the card cannot place: the kernel's host code
-    refuses it before any launch. The wrappers reject what the kernel
-    does not take."""
+    """One block for the whole 101 x 81 grid (more than 400,000 bytes of
+    shared memory at any group) is a cluster the card cannot place, and
+    2,048 threads a block a launch it does not take: the kernel's host
+    code refuses both before any launch. A group of more sweeps than a
+    block has rows is refused on the host. The wrappers reject what the
+    kernel does not take."""
     ns = fused_navier_stokes
     cp = navier_stokes_problem(vars(torch_pkg), example=True)
     cfg = ns._NavierStokesConfig(cp, 0.05)
-    assert cfg.plan.cluster_size == 2
+    assert cfg.plan == ns.make_cluster_plan_2d(101, 81)
     y = torch.as_tensor(
         _navier_stokes_states((101, 81)), device=cuda_device
     )
     launches = ns.fused_navier_stokes_rk4_end.launches
     with pytest.raises(RuntimeError, match="launch failed"):
         ns.fused_navier_stokes_rk4_end(y, cfg, 2, cluster_size=1)
+    # a plan the card cannot place: one block with groups of 8
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ns.fused_navier_stokes_rk4_end(
+            y, cfg, 2, plan=ns.ClusterPlan2D(1, 101, 81, 8)
+        )
+    # and plans the kernel does not take, refused on the host
+    with pytest.raises(ValueError, match="fewest rows"):
+        ns.fused_navier_stokes_rk4_end(
+            y, cfg, 2, plan=ns.ClusterPlan2D(8, 101, 81, 16)
+        )
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ns.fused_navier_stokes_rk4_end(
+            y, cfg, 2, plan=ns.ClusterPlan2D(2, 101, 81, 4, 2048)
+        )
     assert ns.fused_navier_stokes_rk4_end.launches == launches
     with pytest.raises(TypeError, match="float32"):
         ns.fused_navier_stokes_rk4_end(y.double(), cfg, 2)

@@ -188,7 +188,7 @@ def test_cluster_cap_differs_from_the_jax_vmem_cap(x64_off):
     """A deliberate difference (ROADMAP.md, Queue 3): the JAX package runs
     its Navier-Stokes K5 wherever the grid fits its VMEM budget (93,750
     padded cells for four components); the port needs it to fit a
-    cluster of at most 8 blocks (up to 186 x 186) and takes the
+    cluster of at most 8 blocks (up to 192 x 192) and takes the
     generic path past that. The example's 101 x 81 takes the kernel in
     both; 201 x 201 (40,401 cells) only in the JAX package."""
     for example in (False, True):
@@ -229,20 +229,121 @@ def test_cluster_cap_differs_from_the_jax_vmem_cap(x64_off):
 
 
 def test_cluster_plans():
-    """At 52 bytes a cell and 272 bytes of reduction scratch a block, the
-    smallest cluster whose largest slab fits 227 KB."""
-    assert ns.shared_memory_bytes_2d(51, 81) == 215_084
-    assert ns.make_cluster_plan_2d(17, 17).cluster_size == 1
-    plan = ns.make_cluster_plan_2d(101, 81)
-    assert (plan.cluster_size, plan.slab) == (2, 51)
-    assert ns.make_cluster_plan_2d(186, 186).cluster_size == 8
-    assert ns.make_cluster_plan_2d(187, 187) is None
+    """At 48 bytes a slab cell, 42 a guard-row cell and 272 bytes of
+    reduction scratch a sweep of a group, the measured plans where they
+    fit, else the smallest cluster whose largest slab fits 227 KB with
+    groups of one sweep, with the largest group up to 4 that fits there;
+    a group is at most the fewest rows a block of a cluster holds."""
+    assert ns.shared_memory_bytes_2d(51, 81, 4, 2) == 212_984
+    # one block keeps one guard row of zeros above and below its slab
+    assert ns.shared_memory_bytes_2d(17, 17, 8, 1) == (
+        8 * 34 * 8 + 19 * 17 * 21 + 17 * 17 * 27
+    )
+    for (height, width, batch), measured in ns._MEASURED_PLANS.items():
+        size, group, threads = measured
+        plan = ns.make_cluster_plan_2d(height, width, batch)
+        assert plan == (size, height, width, group, threads) and plan.fits
+    # without the table the example would take 2 blocks of 51 rows
+    assert ns.cluster_plan_2d(101, 81, 2).fits
+    assert ns.cluster_plan_2d(101, 81, 2).slab == 51
+    # past the table: the range of groups of one sweep on 8 blocks, the
+    # group shrinking towards its edge
+    assert ns.make_cluster_plan_2d(186, 186)[:4] == (8, 186, 186, 2)
+    assert ns.make_cluster_plan_2d(192, 192)[:4] == (8, 192, 192, 1)
+    assert ns.make_cluster_plan_2d(193, 193) is None
     assert ns.make_cluster_plan_2d(2, 50) is None
     assert not ns.cluster_plan_2d(101, 81, 1).fits
+    assert ns.cluster_plan_2d(101, 81, 8).group == 4
+    assert ns.cluster_plan_2d(17, 17, 4, group=8).admitted is False
+    assert ns.cluster_plan_2d(17, 17, 1, group=8).fits
+    assert ns.cluster_plan_2d(101, 81, 2, group=5).admitted is False
+    assert ns.ClusterPlan2D(2, 101, 81).block_threads == 1024
+    assert ns.ClusterPlan2D(8, 17, 17).block_threads == 64
     with pytest.raises(ValueError, match="cluster_size"):
         ns.cluster_plan_2d(101, 81, 3)
     with pytest.raises(ValueError, match="cannot be split"):
         ns.cluster_plan_2d(5, 81, 8)
+    cfg = ns._NavierStokesConfig(_problems()[1], D_T)
+    with pytest.raises(ValueError, match="fewest rows"):
+        ns._plan(cfg, 1, None, ns.ClusterPlan2D(4, 17, 17, 8))
+    with pytest.raises(ValueError, match="does not fit"):
+        ns._plan(cfg, 1, None, ns.ClusterPlan2D(2, 101, 81, 4))
+    assert ns._plan(cfg, 1, 4, None) == ns.ClusterPlan2D(4, 17, 17, 4)
+
+
+def _narrow_example_problem():
+    """examples/navier_stokes_fdm.py's problem (Re 5000, d_x 0.05, its
+    faces) on a strip of its width: [-0.5, 0.5] x [0, 4], 21 x 81."""
+    def dirichlet(w, psi):
+        return torch_pkg.DirichletBoundaryCondition(
+            torch_pkg.vectorize_bc_function(
+                lambda x, t: [w, psi, None, None]
+            ),
+            is_static=True,
+        )
+
+    return torch_pkg.ConstrainedProblem(
+        torch_pkg.NavierStokesEquation(5000.0),
+        torch_pkg.Mesh([(-0.5, 0.5), (0.0, 4.0)], [0.05, 0.05]),
+        [
+            (dirichlet(1.0, 0.1), dirichlet(0.0, 0.0)),
+            (dirichlet(0.0, 0.0), dirichlet(0.0, 0.0)),
+        ],
+    )
+
+
+@pytest.mark.parametrize(
+    "shape, scenario, tol, max_iterations",
+    [
+        ((17, 17), "first sweep", 1e6, 100),
+        ((17, 17), "mid-group", 0.1, 100),
+        ((17, 17), "max_iterations", 0.0, 7),
+        ((21, 81), "first sweep", 1e6, 100),
+        ((21, 81), "mid-group", 1.0, 100),
+        ((21, 81), "max_iterations", 0.0, 7),
+    ],
+)
+def test_group_schedule_matches_plain_jacobi(
+    shape, scenario, tol, max_iterations
+):
+    """The kernel's Jacobi schedule in groups (its plain model: slabs,
+    halos shrinking a row a sweep, per-sweep partials over own rows, the
+    stop found after the group, the replay) gives the plain whole-grid
+    solve's psi bit for bit, with the same sweeps, for every group of
+    GROUP_SIZES and 1, 2 or 4 slabs that the plan admits: a stop on the
+    first sweep, one inside a group (17 x 17: 61 sweeps, 21 x 81: 67),
+    and max_iterations 7, no multiple of a group past 1."""
+    cp = (
+        _problems()[1] if shape == (17, 17) else _narrow_example_problem()
+    )
+    cfg = ns._NavierStokesConfig(cp, D_T, tol, max_iterations)
+    assert (cfg.height, cfg.width) == shape
+    y = torch.as_tensor(_state(shape))
+    expected, sweeps = torch_fused._navier_stokes_step_reference(
+        y, cfg, cfg.constants(y.device)
+    )
+    expected_sweeps = {
+        "first sweep": 1,
+        "mid-group": 61 if shape == (17, 17) else 67,
+        "max_iterations": 7,
+    }[scenario]
+    assert int(sweeps) == expected_sweeps
+    replays = {}
+    for group in ns.GROUP_SIZES:
+        for blocks in (1, 2, 4):
+            plan = ns.cluster_plan_2d(*shape, blocks, group=group)
+            if not plan.admitted:
+                assert blocks == 4 and group == 8
+                continue
+            psi, n, replayed = ns._group_schedule_reference(y, cfg, plan)
+            assert n == expected_sweeps, (plan, n)
+            assert torch.equal(psi, expected[..., 1]), plan
+            replays[(group, blocks)] = replayed
+    # the stopping sweep came from its work buffer and from a replay
+    stopped_in_group = scenario != "max_iterations"
+    assert any(replays.values()) == stopped_in_group
+    if stopped_in_group:
+        assert not all(replays[(group, 1)] for group in (2, 3, 4, 8))
 
 
 def test_wrappers_run_the_plain_version_for_cpu_tensors():
