@@ -83,9 +83,12 @@ zero-flux faces, d_t 0.05), on the card by default:
 13. holds the fused 3D kernel (K9: trajectory, single and batched end,
     step) against its plain version for each of its five families with
     all-Neumann faces and with Dirichlet 0.1 lower and Neumann 0.05 upper
-    faces, on an 11 x 7 x 9 volume at every cluster size (1, 2, 4 and 8
-    blocks), and at the main path's shapes on each configuration's own
-    cluster plan;
+    faces, on a 17 x 7 x 9 volume at every forced cluster size (1, 2, 4,
+    8 and 16 blocks) with every cells-a-thread instance that takes it
+    (registers and device memory), at the main path's shapes on the
+    plan the wrappers pick and on 8 and 4 blocks, at every plan of the
+    measured table on its own volume, and at the largest cube of three
+    components the JAX cap admits (48^3, also timed over 20 steps);
 14. runs the path with every counter at 0: 2,000 Burgers steps and the
     example's 3,000 Cahn-Hilliard steps through
     ``FDMOperator.trajectory_function`` (one K9 launch each), a
@@ -243,6 +246,13 @@ card by default:
     load, stages, barriers and store, and K5 on a cluster of 8 on the
     same states) and profiles each timed run on both routes.
 
+37. prints K9's step split (``tools/k9_step_split.py``: cell setup,
+    neighbour loads, face handling, stage arithmetic, the Dirichlet
+    override, barriers, frame stores) on the 21^3 and 31^3 volumes, and
+    times K9's chosen plans against its 8- and 4-block plans in turns on
+    the two trajectories and the B = 8 fine ends
+    (``tools/k9_plan_sweep.py``).
+
 Run it from the repository root with no arguments: ``python3
 chip_smoke.py``. It needs one CUDA card and ``nvcc`` and exits non-zero,
 printing no result, without them. The line before last is the card's
@@ -393,9 +403,30 @@ PARAREAL_3D_TOLERANCE = 1e-6
 # Parareal's trajectory against the fine one: the correction leaves
 # float32 rounding of the two K9 paths (values up to 0.18)
 PARAREAL_3D_GATE = 1e-5
-# the volume every cluster size takes (11 planes: slabs of one and two)
-K9_SMALL_SHAPE = (11, 7, 9)
+# the volume every cluster size takes (17 planes: slabs of one and two
+# at 16 blocks)
+K9_SMALL_SHAPE = (17, 7, 9)
 K9_SMALL_STEPS = 20
+# the largest cube of three components the JAX package's cap admits (its
+# cells in device memory on 16 blocks), its steps held against the plain
+# version and timed
+K9_LARGE_SHAPE = (48, 48, 48)
+K9_LARGE_STEPS = 5
+K9_LARGE_TIMED_STEPS = 20
+# the d_t of the checks at the plan table's volumes, from random states
+K9_TABLE_D_T = 1e-6
+# K9's times before its redesign at the shapes this script times them
+# (PERF.md, sections 5 and 6: this script's earlier runs on an NVIDIA
+# H100 80GB HBM3 at 700 W), printed beside this run's
+K9_BEFORE_REDESIGN_MS = {
+    "fused_system_3d_rk4_trajectory": 8.486,
+    "fused_system_3d_rk4_end": 12.146,
+    "fused_system_3d_rk4_step": 0.132,
+    "coarse end": 0.191,
+    "3d burgers fine": 82.882,
+    "3d cahn-hilliard": 36.883,
+    "3d parareal": 39.882,
+}
 # frames held against the generic path, the generic path's and the plain
 # versions' timed steps, and the kernels' timed shapes
 BURGERS_3D_HEAD_STEPS = 20
@@ -1922,6 +1953,10 @@ def three_d_phases(
             device=device,
         )
 
+    def before(label):
+        ms = K9_BEFORE_REDESIGN_MS.get(label)
+        return "" if ms is None else f" (before the redesign {ms:.3f} ms)"
+
     # -- phase 13: K9 against its plain version --------------------------
     families = (
         "diffusion",
@@ -1944,16 +1979,30 @@ def three_d_phases(
                 (end_name, (ys, cfg, steps), "B=3"),
                 (step_name, (ys, cfg), "B=3"),
             ]
+            # every forced cluster size, each with every cells-a-thread
+            # instance that takes it (registers and device memory)
+            plans = [
+                plan
+                for size in k9.CLUSTER_SIZES
+                for plan in (
+                    k9.cluster_plan_3d(
+                        *K9_SMALL_SHAPE, cfg.n, size, cells, cfg.step_kind
+                    )
+                    for cells in k9.CELLS
+                )
+                if plan.fits
+            ]
             for name, args, what in checks:
                 expected = plain[name](*args)
-                for size in k9.CLUSTER_SIZES:
-                    kernel = wrappers[name](*args, cluster_size=size)
+                for plan in plans:
+                    kernel = wrappers[name](*args, plan=plan)
                     worst = max(
                         worst,
                         check(
                             name,
                             f"{family}, dirichlet={dirichlet}, {what}, "
-                            f"cluster of {size}",
+                            f"cluster of {plan.cluster_size}, "
+                            f"{plan.cells} cells a thread",
                             kernel,
                             expected,
                         ),
@@ -1962,8 +2011,10 @@ def three_d_phases(
         log(
             f"kernels: 3d {family}: {cases} cases (trajectory, single and "
             f"B=3 end, step; Neumann and Dirichlet/Neumann faces; clusters "
-            f"of 1, 2, 4, 8 blocks on {K9_SMALL_SHAPE}) max|d|/max|y| = "
-            f"{worst:.3e}"
+            f"of {', '.join(map(str, k9.CLUSTER_SIZES))} blocks, each with "
+            f"cells a thread {', '.join(map(str, k9.CELLS))} (0: in device "
+            f"memory) where the instances take them, on {K9_SMALL_SHAPE}) "
+            f"max|d|/max|y| = {worst:.3e}"
         )
     burgers_ivp = burgers_3d(prml)
     ch_ivp = cahn_hilliard_3d(torch, prml, CH_3D_STEPS)
@@ -2006,10 +2057,120 @@ def three_d_phases(
             expected = outputs.pop()
             timed[name] = (what, args, plain_ms)
         rel = check(name, what, wrappers[name](*args), expected)
+        batch = args[0].shape[0] if args[0].ndim == 5 else 1
+        plan = k9.launch_plan(args[1], batch, name != end_name)
         log(
-            f"kernels: {name} ({what}, cluster of "
-            f"{args[1].plan.cluster_size}): max|d|/max|y| = {rel:.3e}"
+            f"kernels: {name} ({what}, the plan's cluster of "
+            f"{plan.cluster_size} x {plan.threads} threads, {plan.cells} "
+            f"cells a thread): max|d|/max|y| = {rel:.3e}"
         )
+        if name == step_name:
+            continue
+        # the 8- and 4-block plans that phase 16 times against it
+        for size in (8, 4):
+            other = k9.cluster_plan_3d(
+                *args[1].state_shape[:3],
+                args[1].n,
+                size,
+                step=args[1].step_kind,
+            )
+            rel = check(
+                name,
+                f"{what}, cluster of {size}",
+                wrappers[name](*args, plan=other),
+                expected,
+            )
+            log(
+                f"kernels: {name} ({what}, cluster of {size} x "
+                f"{other.threads} threads, {other.cells} cells a thread): "
+                f"max|d|/max|y| = {rel:.3e}"
+            )
+    # every plan of the measured table, on its own volume (random states
+    # and a step small enough that they stay finite): the trajectory, the
+    # single end, the batched end (B = 2, or the entry's batch) and the
+    # step (B = 2)
+    table_family = {
+        (1, "rk4"): "diffusion",
+        (2, "rk4"): "wave",
+        (2, "cahn-hilliard"): "cahn-hilliard",
+        (3, "rk4"): "burgers",
+    }
+    for (n, step), entries in k9._MEASURED_PLANS_3D.items():
+        for depth, height, width, batch, size, cells in entries:
+            shape = (depth, height, width)
+            cfg = k9._SystemKernelConfig3D(
+                problem_3d(prml, table_family[(n, step)], True, shape),
+                K9_TABLE_D_T,
+            )
+            plan = k9.cluster_plan_3d(*shape, n, size, cells, step)
+            y = states(shape, n)
+            ys = states(shape, n, batch=max(2, batch), seed=1)
+            for name, args, what in (
+                (trajectory_name, (y, cfg, K9_LARGE_STEPS), "single"),
+                (end_name, (y, cfg, K9_LARGE_STEPS), "single"),
+                (end_name, (ys, cfg, K9_LARGE_STEPS), f"B={len(ys)}"),
+                (step_name, (ys[:2].contiguous(), cfg), "B=2"),
+            ):
+                rel = check(
+                    name,
+                    f"table plan {plan}, {what}",
+                    wrappers[name](*args, plan=plan),
+                    plain[name](*args),
+                )
+                log(
+                    f"kernels: {name} (the table's {shape} x {n} "
+                    f"{table_family[(n, step)]}, entry for B={batch}, "
+                    f"{what}, cluster of {size} x {plan.threads} threads, "
+                    f"{plan.cells_per_thread} cells a thread in "
+                    f"{'device memory' if cells == 0 else 'registers'}, "
+                    f"{K9_LARGE_STEPS} steps): max|d|/max|y| = {rel:.3e}"
+                )
+            del y, ys
+    torch.cuda.empty_cache()
+    # the largest three-component cube the JAX cap admits
+    large_cp = problem_3d(prml, "burgers", True, K9_LARGE_SHAPE)
+    assert k9.fused_system_3d_step_applicable(large_cp, RK4())
+    large_cfg = k9._SystemKernelConfig3D(large_cp, 1e-3)
+    large_y = states(K9_LARGE_SHAPE, 3)
+    large_ys = states(K9_LARGE_SHAPE, 3, batch=2, seed=1)
+    for name, args, what in (
+        (trajectory_name, (large_y, large_cfg, K9_LARGE_STEPS), "single"),
+        (end_name, (large_y, large_cfg, K9_LARGE_STEPS), "single"),
+        (end_name, (large_ys, large_cfg, K9_LARGE_STEPS), "B=2"),
+        (step_name, (large_ys, large_cfg), "B=2"),
+    ):
+        rel = check(
+            name,
+            f"{K9_LARGE_SHAPE} x 3 {what}",
+            wrappers[name](*args),
+            plain[name](*args),
+        )
+        batch = args[0].shape[0] if args[0].ndim == 5 else 1
+        plan = k9.launch_plan(large_cfg, batch, name != end_name)
+        log(
+            f"kernels: {name} ({K9_LARGE_SHAPE} x 3 Burgers, {what}, "
+            f"{K9_LARGE_STEPS} steps, cluster of {plan.cluster_size} x "
+            f"{plan.threads} threads, {plan.cells_per_thread} cells a thread "
+            f"in {'device memory' if plan.cells == 0 else 'registers'}): "
+            f"max|d|/max|y| = {rel:.3e}"
+        )
+    large_ms = cuda_ms(
+        torch,
+        lambda: wrappers[trajectory_name](
+            large_y, large_cfg, K9_LARGE_TIMED_STEPS
+        ),
+        reps=3,
+    )
+    large_bound, large_by = k9_bound(
+        "burgers", large_cfg, 1, K9_LARGE_TIMED_STEPS, True
+    )
+    log(
+        f"time: {trajectory_name} ({K9_LARGE_SHAPE} x 3 Burgers, "
+        f"{K9_LARGE_TIMED_STEPS} steps): {large_ms:.3f} ms "
+        f"({1e3 * large_ms / K9_LARGE_TIMED_STEPS:.3f} us a step), bound "
+        f"{large_bound * 1e3:.3f} us ({large_by}) [{card}]"
+    )
+    del large_y, large_ys
     torch.cuda.empty_cache()
     log("phase 3d kernels: ok")
 
@@ -2112,13 +2273,15 @@ def three_d_phases(
         coarse_diff = max(
             coarse_diff, float((coarse_end - fine_end).abs().max())
         )
+    fine_size = k9.launch_plan(fine_cfg, 1, True).cluster_size
+    ch_size = k9.launch_plan(ch_cfg, 1, True).cluster_size
     log(
         f"phase 3d path: Burgers 21^3 x {BURGERS_3D_STEPS} steps (one K9 "
-        f"launch, cluster of {fine_cfg.plan.cluster_size}), first "
+        f"launch, cluster of {fine_size}), first "
         f"{BURGERS_3D_HEAD_STEPS} frames against the generic path max|d| = "
         f"{float(difference.max()):.3e} (atol = rtol = 1e-4); Cahn-Hilliard "
         f"31^3 x {CH_3D_STEPS} steps (one K9 launch, cluster of "
-        f"{ch_cfg.plan.cluster_size}) finite, max|y0| "
+        f"{ch_size}) finite, max|y0| "
         f"{float(ch_last[..., 0].abs().max()):.4f}; solve over "
         f"{CH_3D_SOLVE_STEPS} steps equal to the trajectory's first frames"
     )
@@ -2151,8 +2314,9 @@ def three_d_phases(
         bound_ms, bound_by = k9_bound(family, cfg, 1, steps, True)
         log(
             f"time: {label}, K9 trajectory, {steps} steps: "
-            f"{run_ms[label]:.3f} ms ({1e3 * run_ms[label] / steps:.3f} us a "
-            f"step), bound {bound_ms:.3f} ms ({bound_by}) [{card}]"
+            f"{run_ms[label]:.3f} ms{before(label)} "
+            f"({1e3 * run_ms[label] / steps:.3f} us a step), bound "
+            f"{bound_ms:.3f} ms ({bound_by}) [{card}]"
         )
     for label, cp, cfg, d_t, steps, y in (
         ("3d burgers fine", burgers_cp, fine_cfg, BURGERS_3D_D_T,
@@ -2186,7 +2350,8 @@ def three_d_phases(
     run_ms["3d parareal"] = cuda_ms(torch, runs["3d parareal"])
     log(
         f"time: 3d parareal, {PARAREAL_3D_SLICES} slices: "
-        f"{run_ms['3d parareal']:.3f} ms, speedup vs K9 fine "
+        f"{run_ms['3d parareal']:.3f} ms{before('3d parareal')}, speedup "
+        f"vs K9 fine "
         f"{run_ms['3d burgers fine'] / run_ms['3d parareal']:.3f}x, "
         f"{parareal.last_iterations} iterations [{card}]"
     )
@@ -2213,9 +2378,10 @@ def three_d_phases(
         bound_ms, bound_by = bounds[name]
         kernel_ms = cuda_ms(torch, lambda: wrappers[name](*args))
         log(
-            f"time: {name} ({what}): kernel {kernel_ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms{'' if name == step_name else ' (one run)'}, "
-            f"bound {bound_ms * 1e3:.3f} us ({bound_by}) [{card}]"
+            f"time: {name} ({what}): kernel {kernel_ms:.3f} ms{before(name)}, "
+            f"plain {plain_ms:.3f} ms"
+            f"{'' if name == step_name else ' (one run)'}, bound "
+            f"{bound_ms * 1e3:.3f} us ({bound_by}) [{card}]"
         )
         entries.append(
             {
@@ -2240,7 +2406,8 @@ def three_d_phases(
     )
     log(
         f"time: {end_name} (21^3 x 3, {coarse_steps} coarse steps: one "
-        f"slice of the coarse sweep): kernel {coarse_end_ms:.3f} ms [{card}]"
+        f"slice of the coarse sweep): kernel {coarse_end_ms:.3f} ms"
+        f"{before('coarse end')} [{card}]"
     )
     del slices
     torch.cuda.empty_cache()
@@ -2261,6 +2428,19 @@ def three_d_phases(
             f"{1.0 - busy_ms / run_ms[label]:.3f}; top: {top} [{card}]"
         )
     return entries
+
+
+def k9_split_phase(
+    torch, prml, device, card, cuda_ms, once_ms, device_busy_ms
+):
+    """Phase 37: K9's step split on the main path's two volumes
+    (tools/k9_step_split.py) and its plans in turns: the chosen plan
+    against the 8- and 4-block plans of the same kernel on the 21^3 and
+    31^3 trajectories and the B = 8 fine ends (tools/k9_plan_sweep.py).
+    No kernel entry of its own."""
+    load_tool("k9_step_split").run(device, card, log)
+    load_tool("k9_plan_sweep").turns(device, card, log)
+    return []
 
 
 def wave_example(prml):
@@ -5058,7 +5238,7 @@ def main() -> int:
 
     start = time.perf_counter()
     # one nvcc per source, all started together, the step and sweep
-    # splits' instrumented copies (phases 27, 32 and 36) too
+    # splits' instrumented copies (phases 27, 32, 36 and 37) too
     sources = (
         "fused_diffusion",
         "fused_system",
@@ -5070,7 +5250,12 @@ def main() -> int:
     )
     split_builds = [
         threading.Thread(target=load_tool(name).build_split_library)
-        for name in ("k5_step_split", "k8_step_split", "ns_sweep_split")
+        for name in (
+            "k5_step_split",
+            "k8_step_split",
+            "ns_sweep_split",
+            "k9_step_split",
+        )
     ]
     for thread in split_builds:
         thread.start()
@@ -5344,6 +5529,7 @@ def main() -> int:
         ("25-28", navier_stokes_phases, (cuda_ms, once_ms, device_busy_ms)),
         ("29-32", end_mode_phases, (cuda_ms, once_ms, device_busy_ms)),
         ("33-36", cluster_mode_phases, (cuda_ms, once_ms, device_busy_ms)),
+        ("37", k9_split_phase, (cuda_ms, once_ms, device_busy_ms)),
     ):
         kernels += phases(torch, prml, device, card, *timing)
         log(f"phases {label} done at {time.perf_counter() - start:.1f} s")

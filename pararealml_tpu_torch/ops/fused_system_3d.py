@@ -6,9 +6,13 @@ kernels — the trajectory, the end state (single or batched) and the single
 step — become launches of one hand-written CUDA kernel template for
 Hopper, ``csrc/fused_system_3d.cu`` (see its header for the design). On
 the TPU one core's VMEM held the whole volume; on Hopper one thread block
-cluster does: its blocks split the depth axis (axis 0) into slabs, keep
-them in shared memory for all steps, and read the planes across a slab
-edge from each other's shared memory.
+cluster of up to 16 blocks does: its blocks split the depth axis (axis 0)
+into slabs and ping-pong each stage's input between two sets of slabs in
+shared memory, pushing their edge planes into each other's halo planes
+(or, at the large end of the range, reading the planes across a slab
+edge from each other's shared memory), while each thread keeps its own
+cells' state, accumulator and constraint data in registers (or, at the
+large end, in device memory only it touches).
 
 Each kernel has a wrapper and a plain PyTorch version beside it:
 
@@ -29,15 +33,20 @@ n)`` for a batch (one cluster per state).
 
 Applicability (:func:`fused_system_3d_step_applicable`): one of the five
 exact equation types on a 3D Cartesian mesh with static boundary
-conditions, solved with RK4, in float32, on a volume that a cluster of at
-most 8 blocks holds (:func:`make_cluster_plan_3d`: about 30^3 for three
-components). The JAX package's gate is a VMEM budget instead (about 48^3
-for three components); problems between the two take the generic path.
+conditions, solved with RK4, in float32, on a volume within the JAX
+package's VMEM cap (:func:`fits_reference_vmem_3d`, where the JAX package
+runs its kernel) that a cluster of at most 16 blocks holds
+(:func:`make_cluster_plan_3d`: every cube the cap admits, 76^3 for one
+component, 56^3 for two, 48^3 for three). Volumes the cap admits only
+because it pads W to 128 lanes, such as 40 x 32 x 128 x 3, take the
+generic path. The cluster size and the cells a thread come from a table
+measured on the card (``_MEASURED_PLANS_3D``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -65,32 +74,89 @@ _EQUATION_IDS = {equation: i for i, equation in enumerate(_EQUATION_TYPES_3D)}
 
 # the dynamic shared memory one block can opt into on Hopper (232,448 B)
 MAX_SHARED_MEMORY_BYTES = 227 * 1024
-# the cluster sizes the kernel takes; 8 blocks is the portable limit
-CLUSTER_SIZES = (1, 2, 4, 8)
+# the kernel takes clusters of 1 to 16 blocks (past 8 a non-portable
+# size); the sizes the tests force on it
+MAX_CLUSTER_SIZE = 16
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+# the instances: 1 or 2 cells a thread kept in registers, or (0) the
+# cells kept in device memory, each in blocks of up to 1,024 threads (64
+# registers a thread)
+_MAX_THREADS = 1024
+CELLS = (1, 2, 0)
+# The plan's table, by components and step kind ("rk4", or
+# "cahn-hilliard" for its two-stage step): for each volume and batch
+# measured, its D, H, W, the batch, and the cluster size and cells a
+# thread that ran it fastest (tools/k9_plan_sweep.py, every plan of the
+# instances, on an NVIDIA H100 80GB HBM3 at 700 W). A launch takes the
+# entry of its kind whose cell count is nearest its own on a log scale,
+# and of that volume's entries the one whose batch is nearest its own:
+# the largest valid size up to the entry's that the card holds for the
+# whole batch at once, with the entry's cells a thread where they fit.
+_MEASURED_PLANS_3D = {
+    # diffusion 76^3: 86.800 us a step (the only size that holds it)
+    (1, "rk4"): ((76, 76, 76, 1, 16, 0),),
+    # wave 56^3: 57.310 us (15: 58.715; 16: 59.493)
+    (2, "rk4"): ((56, 56, 56, 1, 14, 0),),
+    # the Cahn-Hilliard example 31^3: 5.757 us (16 x memory: 7.212);
+    # 56^3: 32.078 us (14: 37.672)
+    (2, "cahn-hilliard"): (
+        (31, 31, 31, 1, 16, 2),
+        (56, 56, 56, 1, 16, 0),
+    ),
+    # bench.py's 21^3 Burgers: 12.096 us (14 x 1: 12.235; 16 x memory:
+    # 15.956); the 3D Parareal's fine ends, B = 8 (500 steps): 19.272 us
+    # (7 x 2: 19.726; 9 x 2, the largest size held at once: 19.917; 16 x
+    # 1, two waves: 22.552); 48^3: 82.670 us (14: 100.890)
+    (3, "rk4"): (
+        (21, 21, 21, 1, 16, 1),
+        (21, 21, 21, 8, 8, 2),
+        (48, 48, 48, 1, 16, 0),
+    ),
+}
+# How many clusters of each size of the kernel the card holds at once
+# (cudaOccupancyMaxActiveClusters, tools/k9_plan_sweep.py, NVIDIA H100
+# 80GB HBM3): what the plan assumes where no card is asked (the CPU); on
+# the card the wrappers ask the card itself.
+_MEASURED_ACTIVE_CLUSTERS_3D = {
+    1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15, 9: 9,
+    10: 7, 11: 7, 12: 7, 13: 7, 14: 7, 15: 7, 16: 7,
+}
 
 
 def shared_memory_bytes_3d(
-    planes: int, height: int, width: int, n_components: int
+    planes: int, height: int, width: int, n_components: int, halo: bool
 ) -> int:
-    """The kernel's shared-memory working set for a slab of ``planes``
-    H x W planes of n-component states: five sets of n float slabs
-    (state, two stage buffers, the RK4 accumulator and the Dirichlet
-    values) and the Dirichlet byte masks, in the order the CUDA kernel
-    carves them; the launch passes it to the kernel."""
-    values = planes * height * width * n_components
-    return 4 * 5 * values + values
+    """The kernel's shared memory for a slab of ``planes`` H x W planes of
+    n-component states: the two sets of n float slabs a stage's input
+    ping-pongs between (8n bytes a cell), each with a halo plane before
+    and after the block's planes where ``halo`` (cells in registers);
+    the launch computes the same."""
+    return 8 * (planes + 2 * halo) * height * width * n_components
 
 
 class ClusterPlan3D(NamedTuple):
-    """How one cluster holds a D x H x W volume of n-component states:
-    block r of ``cluster_size`` keeps planes ``[r D // s, (r + 1) D //
-    s)`` of axis 0."""
+    """How one cluster holds a D x H x W volume of n-component states
+    whose step is of kind ``step``: block r of ``cluster_size`` keeps
+    planes ``[r D // s, (r + 1) D // s)`` of axis 0, each thread owning
+    ``cells`` cells in registers (1 or 2), or with ``cells == 0`` its
+    cells in device memory. The plan owns the launch's layout: the kernel
+    takes its slab, threads, cells a thread and shared-memory bytes as
+    they are."""
 
     cluster_size: int
     depth: int
     height: int
     width: int
     n_components: int
+    cells: int = 1
+    step: str = "rk4"
+
+    @property
+    def halo(self) -> bool:
+        """Whether the blocks keep halo planes that their neighbours push
+        their edge planes into: the RK4 families with their cells in
+        registers (csrc/fused_system_3d.cu, HaloVolume)."""
+        return self.step == "rk4" and self.cells != 0
 
     @property
     def slabs(self) -> List[Tuple[int, int]]:
@@ -107,46 +173,202 @@ class ClusterPlan3D(NamedTuple):
         return -(-self.depth // self.cluster_size)
 
     @property
+    def block_cells(self) -> int:
+        return self.slab * self.height * self.width
+
+    @property
+    def threads(self) -> int:
+        """The block's threads, in whole warps: its cells over ``cells``,
+        or with the cells in device memory up to 1,024."""
+        if self.cells == 0:
+            return min(_MAX_THREADS, 32 * -(-self.block_cells // 32))
+        per_thread = -(-self.block_cells // self.cells)
+        return 32 * -(-per_thread // 32)
+
+    @property
+    def cells_per_thread(self) -> int:
+        if self.cells == 0:
+            return -(-self.block_cells // self.threads)
+        return self.cells
+
+    @property
     def shared_bytes(self) -> int:
         return shared_memory_bytes_3d(
-            self.slab, self.height, self.width, self.n_components
+            self.slab,
+            self.height,
+            self.width,
+            self.n_components,
+            self.halo,
+        )
+
+    @property
+    def fits(self) -> bool:
+        """Whether the kernel's instances take the plan: 1 to 16 blocks,
+        each with a plane, their slabs in a block's shared memory, and
+        the block's cells in at most the instance's threads."""
+        return (
+            1 <= self.cluster_size <= min(MAX_CLUSTER_SIZE, self.depth)
+            and min(self.depth, self.height, self.width) >= 2
+            and self.cells in CELLS
+            and self.threads <= _MAX_THREADS
+            and self.shared_bytes <= MAX_SHARED_MEMORY_BYTES
+        )
+
+    def scratch_floats(self, batch: int) -> int:
+        """The device memory the threads' cells take with ``cells == 0``
+        (2 + 6n floats a cell slot), else 0."""
+        if self.cells != 0:
+            return 0
+        return (
+            batch
+            * self.cluster_size
+            * (2 + 6 * self.n_components)
+            * self.threads
+            * self.cells_per_thread
         )
 
 
 def cluster_plan_3d(
-    depth: int, height: int, width: int, n_components: int, cluster_size: int
+    depth: int,
+    height: int,
+    width: int,
+    n_components: int,
+    cluster_size: int,
+    cells: Optional[int] = None,
+    step: str = "rk4",
 ) -> ClusterPlan3D:
-    """The plan with ``cluster_size`` blocks, whether or not its slabs fit
-    a block's shared memory (the kernel's host code refuses those)."""
-    if cluster_size not in CLUSTER_SIZES:
+    """The plan with ``cluster_size`` blocks and ``cells`` cells a thread
+    (by default the fewest in registers that the instances take, else
+    device memory) for a step of kind ``step``, whether or not its slabs
+    fit a block's shared memory (the kernel's host code refuses
+    those)."""
+    if not 1 <= cluster_size <= MAX_CLUSTER_SIZE:
         raise ValueError(
-            f"cluster_size must be one of {CLUSTER_SIZES}, got {cluster_size}"
+            f"cluster_size must be 1 to {MAX_CLUSTER_SIZE}, got "
+            f"{cluster_size}"
         )
     if depth < cluster_size:
         raise ValueError(
             f"a depth of {depth} planes cannot be split among "
             f"{cluster_size} blocks"
         )
-    return ClusterPlan3D(cluster_size, depth, height, width, n_components)
+    if cells is None:
+        for cells in CELLS:
+            plan = ClusterPlan3D(
+                cluster_size, depth, height, width, n_components, cells, step
+            )
+            if plan.threads <= _MAX_THREADS:
+                return plan
+    if cells not in CELLS:
+        raise ValueError(f"cells must be one of {CELLS}, got {cells}")
+    return ClusterPlan3D(
+        cluster_size, depth, height, width, n_components, cells, step
+    )
+
+
+def _measured_active_clusters(plan: ClusterPlan3D) -> int:
+    return _MEASURED_ACTIVE_CLUSTERS_3D.get(plan.cluster_size, 0)
 
 
 def make_cluster_plan_3d(
-    depth: int, height: int, width: int, n_components: int
+    depth: int,
+    height: int,
+    width: int,
+    n_components: int,
+    step: str = "rk4",
+    batch: int = 1,
+    active_clusters=None,
 ) -> Optional[ClusterPlan3D]:
-    """The smallest cluster (1, 2, 4 or 8 blocks, no more blocks than
-    planes) whose largest slab fits a block's 227 KB of shared memory, or
-    None when none does: at 5n floats and n bytes a cell, 21^3 x 3 takes 4
-    blocks (6 planes, 166,698 B each), 31^3 x 2 takes 8 (4 planes,
-    161,448 B), and 31^3 x 3 does not fit."""
+    """Plans K9 for a batch of ``batch`` D x H x W volumes of
+    n-component states, or returns None past its range (no cluster of up
+    to 16 blocks holds the volume's slabs: at 8n bytes a cell, 76^3 x 1,
+    56^3 x 2 and 48^3 x 3 fit). The size is the largest valid one up to
+    the measured table's entry for the volume and batch
+    (``_MEASURED_PLANS_3D``) at which the card holds every state's
+    cluster at once
+    (``active_clusters(plan)``, by default the measured counts of
+    ``_MEASURED_ACTIVE_CLUSTERS_3D``), each thread owning the entry's
+    cells where the size takes them, else the fewest in registers it
+    takes, else its cells in device memory (a size is not traded for
+    more cells a thread, whose blocks would share multiprocessors); where
+    no size is held at once, the smallest valid size (the batch runs in
+    waves)."""
     if min(depth, height, width) < 2:
         return None
-    for size in CLUSTER_SIZES:
-        if size > depth:
-            break
-        plan = ClusterPlan3D(size, depth, height, width, n_components)
-        if plan.shared_bytes <= MAX_SHARED_MEMORY_BYTES:
+    plans = [
+        plan
+        for plan in (
+            ClusterPlan3D(
+                size, depth, height, width, n_components, cells, step
+            )
+            for size in range(1, MAX_CLUSTER_SIZE + 1)
+            for cells in CELLS
+        )
+        if plan.fits
+    ]
+    if not plans:
+        return None
+    entries = _MEASURED_PLANS_3D.get((n_components, step)) or (
+        (depth, height, width, 1, MAX_CLUSTER_SIZE, 1),
+    )
+    cells = depth * height * width
+    *_, preferred, preferred_cells = min(
+        entries,
+        key=lambda entry: (
+            abs(math.log(cells / (entry[0] * entry[1] * entry[2]))),
+            abs(math.log(batch / entry[3])),
+        ),
+    )
+    # one plan a size: the entry's cells a thread where the size takes
+    # them, else the fewest cells in registers it takes, else device
+    # memory (an entry in device memory asks for no more: where registers
+    # hold the cells they were faster, tools/k9_plan_sweep.py)
+    by_size = {}
+    for plan in sorted(
+        plans,
+        key=lambda plan: (
+            plan.cells != preferred_cells or preferred_cells == 0,
+            plan.cells == 0,
+            plan.cells,
+        ),
+    ):
+        by_size.setdefault(plan.cluster_size, plan)
+    smallest = min(by_size)
+    within = [
+        by_size[size]
+        for size in sorted(by_size, reverse=True)
+        if size <= max(preferred, smallest)
+    ]
+    if active_clusters is None:
+        active_clusters = _measured_active_clusters
+    for plan in within:
+        if active_clusters(plan) >= batch:
             return plan
-    return None
+    return within[-1]
+
+
+def _step_kind(equation_type) -> str:
+    return "cahn-hilliard" if equation_type is CahnHilliardEquation else "rk4"
+
+
+def _padded_cells_3d(vertices_shape) -> int:
+    """The JAX package's ``_padded_cells_3d``: the volume with H padded to
+    8 sublanes and W to 128 lanes."""
+    depth, height, width = vertices_shape
+    return depth * (-(-height // 8) * 8) * (-(-width // 128) * 128)
+
+
+def fits_reference_vmem_3d(cp: ConstrainedProblem) -> bool:
+    """Whether the JAX package runs its fused 3D kernel on this problem's
+    volume (its ``_fits_vmem_3d``)."""
+    # liveness model calibrated on hardware: Mosaic's scoped-stack
+    # peak for the 3-component RK4 stage measured ~22 volumes per
+    # component (three axes of concatenate temporaries stay live), and
+    # the kernel raises the scoped limit to 100 MiB (25M f32)
+    n = cp.differential_equation.y_dimension
+    return _padded_cells_3d(cp.mesh.vertices_shape) <= 25_000_000 // (
+        22 * n + 10
+    )
 
 
 def fused_system_3d_step_applicable(
@@ -156,7 +378,8 @@ def fused_system_3d_step_applicable(
 ) -> bool:
     """Whether the fused 3D kernels reproduce the generic path for this
     problem (and, when ``dtype`` is given, for states of that dtype: the
-    kernels are float32 only)."""
+    kernels are float32 only): the JAX package's gate (within its VMEM
+    cap) and a cluster plan for the volume."""
     from pararealml_tpu_torch.operators.fdm.numerical_integrator import RK4
 
     diff_eq = cp.differential_equation
@@ -170,10 +393,15 @@ def fused_system_3d_step_applicable(
         and cp.mesh is not None
         and cp.mesh.coordinate_system_type == CoordinateSystem.CARTESIAN
         and cp.are_all_boundary_conditions_static
+        and fits_reference_vmem_3d(cp)
     ):
         return False
     return (
-        make_cluster_plan_3d(*cp.mesh.vertices_shape, diff_eq.y_dimension)
+        make_cluster_plan_3d(
+            *cp.mesh.vertices_shape,
+            diff_eq.y_dimension,
+            _step_kind(type(diff_eq)),
+        )
         is not None
     )
 
@@ -246,8 +474,8 @@ _CONSTANT_NAMES = (
 class _SystemKernelConfig3D:
     """Static configuration of the fused 3D kernels for one problem:
     volume geometry, the equation and its coefficients, the RK4 step's
-    constants, the cluster plan, and the constraint tensors (copied to
-    each device and dtype a state arrives in, once)."""
+    constants, the single-state cluster plan, and the constraint tensors
+    (copied to each device and dtype a state arrives in, once)."""
 
     def __init__(self, cp: ConstrainedProblem, d_t: float):
         diff_eq = cp.differential_equation
@@ -286,9 +514,17 @@ class _SystemKernelConfig3D:
         self.velocity_mask = sum(
             1 << axis for axis, v in enumerate(self.velocity) if v != 0.0
         )
+        self.step_kind = _step_kind(self.equation_type)
+        # the single-state plan of the measured table (a launch plans its
+        # own batch)
         self.plan = make_cluster_plan_3d(
-            self.depth, self.height, self.width, n
+            self.depth, self.height, self.width, n, self.step_kind
         )
+        # the card's active-cluster counts, by (cluster size, cells, write
+        # trajectory), and the launches' plans, by (batch, write
+        # trajectory)
+        self._active_clusters: Dict[tuple, int] = {}
+        self._launch_plans: Dict[tuple, ClusterPlan3D] = {}
         self._host_constants = {
             name: torch.as_tensor(value)
             for name, value in _component_constraint_tensors_3d(cp, n).items()
@@ -546,12 +782,15 @@ def _configure(library: ctypes.CDLL):
     c_int, c_void_p = ctypes.c_int, ctypes.c_void_p
     library.fused_system_3d_rk4.argtypes = (
         [c_int, c_void_p, c_void_p]
-        + [c_int] * 8
-        + [ctypes.c_size_t]
-        + [c_void_p] * 8
+        + [c_int] * 12
+        + [c_void_p] * 9
         + [ctypes.POINTER(ctypes.c_float), c_int, c_void_p]
     )
     library.fused_system_3d_rk4.restype = c_int
+    library.fused_system_3d_max_active_clusters.argtypes = [c_int] * 11 + [
+        ctypes.POINTER(c_int)
+    ]
+    library.fused_system_3d_max_active_clusters.restype = c_int
     library.fused_system_3d_error_string.argtypes = [c_int]
     library.fused_system_3d_error_string.restype = ctypes.c_char_p
 
@@ -567,17 +806,125 @@ def load_kernels() -> ctypes.CDLL:
     return library
 
 
-def _plan(cfg: _SystemKernelConfig3D, cluster_size: Optional[int]):
-    if cluster_size is not None:
-        return cluster_plan_3d(
-            cfg.depth, cfg.height, cfg.width, cfg.n, cluster_size
+def _raise_launch_error(library: ctypes.CDLL, error: int, plan):
+    if error != 0:
+        message = library.fused_system_3d_error_string(error).decode()
+        raise RuntimeError(
+            f"fused 3D kernel launch failed with a cluster of "
+            f"{plan.cluster_size} blocks of {plan.threads} threads, "
+            f"{plan.cells} cells a thread (0: in device memory), "
+            f"{plan.shared_bytes} bytes of shared memory: {message} "
+            f"({error})"
         )
-    if cfg.plan is None:
+
+
+def card_active_clusters_3d(cfg: _SystemKernelConfig3D, write_trajectory):
+    """``active_clusters(plan)`` for :func:`make_cluster_plan_3d` from the
+    card: how many clusters of the plan's kernel it holds at once
+    (``cudaOccupancyMaxActiveClusters``, the library built on the first
+    question), cached on ``cfg``."""
+    cache = cfg._active_clusters
+
+    def active_clusters(plan: ClusterPlan3D) -> int:
+        key = (plan.cluster_size, plan.cells, bool(write_trajectory))
+        if key not in cache:
+            library = load_kernels()
+            count = ctypes.c_int(0)
+            error = library.fused_system_3d_max_active_clusters(
+                cfg.equation,
+                cfg.depth,
+                cfg.height,
+                cfg.width,
+                int(write_trajectory),
+                *_plan_arguments(plan),
+                ctypes.byref(count),
+            )
+            _raise_launch_error(library, error, plan)
+            cache[key] = count.value
+        return cache[key]
+
+    return active_clusters
+
+
+def launch_plan(
+    cfg: _SystemKernelConfig3D, batch: int = 1, write_trajectory: bool = True
+) -> ClusterPlan3D:
+    """The plan the wrappers launch for ``batch`` states of ``cfg``
+    (trajectory and step kernels with ``write_trajectory``, else the end
+    kernel): :func:`make_cluster_plan_3d`'s, asking the card how many
+    clusters it holds at once (:func:`card_active_clusters_3d`), cached
+    on ``cfg`` (planning takes longer than a short launch). A ValueError,
+    before the library is built, past the kernel's range."""
+    key = (batch, bool(write_trajectory))
+    plan = cfg._launch_plans.get(key)
+    if plan is None:
+        if cfg.plan is None:
+            raise ValueError(
+                f"a {cfg.depth} x {cfg.height} x {cfg.width} volume of "
+                f"{cfg.n}-component states does not fit a cluster of "
+                f"{MAX_CLUSTER_SIZE} blocks"
+            )
+        plan = make_cluster_plan_3d(
+            cfg.depth,
+            cfg.height,
+            cfg.width,
+            cfg.n,
+            cfg.step_kind,
+            batch,
+            card_active_clusters_3d(cfg, write_trajectory),
+        )
+        cfg._launch_plans[key] = plan
+    return plan
+
+
+def _forced_plan(
+    cfg: _SystemKernelConfig3D,
+    cluster_size: Optional[int],
+    plan: Optional[ClusterPlan3D],
+) -> ClusterPlan3D:
+    """A test's plan: ``plan``, or the plan with ``cluster_size`` blocks;
+    a ValueError, on any device and before any launch, when it is not
+    one of this volume's."""
+    if plan is None:
+        plan = cluster_plan_3d(
+            cfg.depth,
+            cfg.height,
+            cfg.width,
+            cfg.n,
+            cluster_size,
+            step=cfg.step_kind,
+        )
+    if (
+        plan.depth,
+        plan.height,
+        plan.width,
+        plan.n_components,
+        plan.step,
+    ) != (
+        cfg.depth,
+        cfg.height,
+        cfg.width,
+        cfg.n,
+        cfg.step_kind,
+    ) or plan.cells not in CELLS:
         raise ValueError(
-            f"a {cfg.depth} x {cfg.height} x {cfg.width} volume of "
-            f"{cfg.n}-component states does not fit a cluster of 8 blocks"
+            f"cluster plan {plan} does not fit this {cfg.depth} x "
+            f"{cfg.height} x {cfg.width} x {cfg.n} problem"
         )
-    return cfg.plan
+    return plan
+
+
+def _plan_arguments(plan: ClusterPlan3D) -> Tuple[int, ...]:
+    """The plan as the library takes it: cluster size, cells a thread
+    (the instance), slab, threads, cells a thread held, shared bytes."""
+    return (
+        plan.cluster_size,
+        plan.cells,
+        plan.slab,
+        plan.threads,
+        plan.cells_per_thread,
+        plan.shared_bytes,
+    )
 
 
 def launch(
@@ -587,17 +934,29 @@ def launch(
     n_steps: int,
     write_trajectory: bool,
     cluster_size: Optional[int] = None,
+    plan: Optional[ClusterPlan3D] = None,
 ):
     """Launches the kernel on ``y``'s device and its current stream for a
     contiguous ``(B, D, H, W, n)`` float32 CUDA state (one cluster per
     state) and raises if the launch is refused: the volume is outside the
-    kernel's range, or the card cannot place one cluster."""
-    plan = _plan(cfg, cluster_size)
+    kernel's range, or the card cannot place one cluster. ``cluster_size``
+    or ``plan`` override the planned cluster (tests)."""
+    batch = y.shape[0]
+    # a volume past the range raises here, before the library is built
+    if plan is None and cluster_size is None:
+        plan = launch_plan(cfg, batch, write_trajectory)
+    else:
+        plan = _forced_plan(cfg, cluster_size, plan)
     library = load_kernels()
     constants = cfg.constants(y.device)
     if any(t.device != y.device for t in (out,) + constants):
         raise ValueError(
             f"the output and constraint tensors must be on {y.device}"
+        )
+    scratch = None
+    if plan.cells == 0:
+        scratch = torch.empty(
+            plan.scratch_floats(batch), dtype=torch.float32, device=y.device
         )
     coefficients = cfg.coefficient_array()
     # the ctypes launch targets the current device: make it y's
@@ -607,27 +966,20 @@ def launch(
             cfg.equation,
             y.data_ptr(),
             out.data_ptr(),
-            y.shape[0],
+            batch,
             cfg.depth,
             cfg.height,
             cfg.width,
             n_steps,
             int(write_trajectory),
-            plan.cluster_size,
-            plan.slab,
-            plan.shared_bytes,
+            *_plan_arguments(plan),
+            None if scratch is None else scratch.data_ptr(),
             *(c.data_ptr() for c in constants),
             coefficients,
             cfg.velocity_mask,
             stream,
         )
-    if error != 0:
-        message = library.fused_system_3d_error_string(error).decode()
-        raise RuntimeError(
-            f"fused 3D kernel launch failed with a cluster of "
-            f"{plan.cluster_size} blocks of {plan.shared_bytes} bytes of "
-            f"shared memory: {message} ({error})"
-        )
+    _raise_launch_error(library, error, plan)
 
 
 def _trajectory_buffer(batch: torch.Tensor, cfg, n_steps: int):
@@ -643,17 +995,18 @@ def fused_system_3d_rk4_trajectory(
     cfg: _SystemKernelConfig3D,
     n_steps: int,
     cluster_size: Optional[int] = None,
+    plan: Optional[ClusterPlan3D] = None,
 ) -> torch.Tensor:
     """K9 trajectory: ``n_steps`` fused steps storing every step, ``(D, H,
     W, n) -> (n_steps, D, H, W, n)`` or ``(B, D, H, W, n) -> (B, n_steps,
-    D, H, W, n)`` (one cluster per state). ``cluster_size`` overrides the
-    plan's (to exercise other splits)."""
+    D, H, W, n)`` (one cluster per state). ``cluster_size`` or ``plan``
+    override the planned cluster (to exercise other splits)."""
     cfg.check_state(y)
     if y.device.type == "cpu":
         return fused_system_3d_rk4_trajectory_reference(y, cfg, n_steps)
     batch = y.reshape((-1,) + cfg.state_shape)
     out = _trajectory_buffer(batch, cfg, n_steps)
-    launch(batch, out, cfg, n_steps, True, cluster_size)
+    launch(batch, out, cfg, n_steps, True, cluster_size, plan)
     fused_system_3d_rk4_trajectory.launches += 1
     return out if y.ndim == 5 else out[0]
 
@@ -663,6 +1016,7 @@ def fused_system_3d_rk4_end(
     cfg: _SystemKernelConfig3D,
     n_steps: int,
     cluster_size: Optional[int] = None,
+    plan: Optional[ClusterPlan3D] = None,
 ) -> torch.Tensor:
     """K9 end: ``n_steps`` fused steps returning the end state only,
     ``(D, H, W, n) -> (D, H, W, n)`` or ``(B, D, H, W, n) -> (B, D, H, W,
@@ -672,7 +1026,7 @@ def fused_system_3d_rk4_end(
         return fused_system_3d_rk4_end_reference(y, cfg, n_steps)
     batch = y.reshape((-1,) + cfg.state_shape)
     out = torch.empty_like(batch)
-    launch(batch, out, cfg, n_steps, False, cluster_size)
+    launch(batch, out, cfg, n_steps, False, cluster_size, plan)
     fused_system_3d_rk4_end.launches += 1
     return out.reshape(y.shape)
 
@@ -681,6 +1035,7 @@ def fused_system_3d_rk4_step(
     y: torch.Tensor,
     cfg: _SystemKernelConfig3D,
     cluster_size: Optional[int] = None,
+    plan: Optional[ClusterPlan3D] = None,
 ) -> torch.Tensor:
     """K9 step: one fused step (the trajectory kernel with ``n_steps =
     1``), ``(D, H, W, n) -> (D, H, W, n)`` or ``(B, D, H, W, n) -> (B, D,
@@ -690,7 +1045,7 @@ def fused_system_3d_rk4_step(
         return fused_system_3d_rk4_step_reference(y, cfg)
     batch = y.reshape((-1,) + cfg.state_shape)
     out = _trajectory_buffer(batch, cfg, 1)
-    launch(batch, out, cfg, 1, True, cluster_size)
+    launch(batch, out, cfg, 1, True, cluster_size, plan)
     fused_system_3d_rk4_step.launches += 1
     return out.reshape(y.shape)
 
@@ -741,7 +1096,7 @@ def build_fused_system_3d_rk4_end(
 ):
     """Builds ``end(y) -> y_final`` advancing ``n_steps`` fused steps
     through the K9 end kernel and returning ONLY the final state, or
-    ``None`` when the volume does not fit a cluster (see
+    ``None`` when the volume does not fit a cluster of 16 blocks (see
     :func:`make_cluster_plan_3d`).
 
     With ``batch=B``, ``end`` maps ``(B, D, H, W, n) -> (B, D, H, W, n)``,

@@ -653,10 +653,12 @@ def test_cuda_large_grid_kernels_agree_and_raise(cuda_device):
 @pytest.mark.parametrize("family", sorted(FAMILIES_3D))
 def test_cuda_3d_kernels_match_plain_versions(family, dirichlet, cuda_device):
     """K9 (trajectory, single and batched end, step) against its plain
-    version on an 11 x 7 x 9 volume at every cluster size: slabs of one
-    and two planes, so that both axis-0 neighbours of a plane may lie in
-    other blocks' shared memory."""
-    shape = (11, 7, 9)
+    version on a 17 x 7 x 9 volume at every forced cluster size (1 to 16
+    blocks: slabs of one and two planes at 16, so that both axis-0
+    neighbours of a plane may lie in other blocks' shared memory), each
+    with every cells-a-thread instance that takes it (in registers and in
+    device memory)."""
+    shape = (17, 7, 9)
     cp = problem_3d(vars(torch_pkg), family, dirichlet, shape)
     cfg = fused_system_3d._SystemKernelConfig3D(cp, 1e-3)
     n = cfg.n
@@ -676,36 +678,80 @@ def test_cuda_3d_kernels_match_plain_versions(family, dirichlet, cuda_device):
         fused_system_3d.fused_system_3d_rk4_end_reference(ys, cfg, 20),
         fused_system_3d.fused_system_3d_rk4_step_reference(ys, cfg),
     )
-    for cluster_size in fused_system_3d.CLUSTER_SIZES:
+    plans = [
+        plan
+        for size in fused_system_3d.CLUSTER_SIZES
+        for plan in (
+            fused_system_3d.cluster_plan_3d(
+                *shape, n, size, cells, step=cfg.step_kind
+            )
+            for cells in fused_system_3d.CELLS
+        )
+        if plan.fits
+    ]
+    assert {plan.cluster_size for plan in plans} == set(
+        fused_system_3d.CLUSTER_SIZES
+    )
+    assert {plan.cells for plan in plans} == set(fused_system_3d.CELLS)
+    for plan in plans:
         kernels = (
-            wrappers[0](y, cfg, 20, cluster_size=cluster_size),
-            wrappers[1](y, cfg, 20, cluster_size=cluster_size),
-            wrappers[1](ys, cfg, 20, cluster_size=cluster_size),
-            wrappers[2](ys, cfg, cluster_size=cluster_size),
+            wrappers[0](y, cfg, 20, plan=plan),
+            wrappers[1](y, cfg, 20, plan=plan),
+            wrappers[1](ys, cfg, 20, plan=plan),
+            wrappers[2](ys, cfg, plan=plan),
         )
         torch.cuda.synchronize()
         for kernel, expected in zip(kernels, plain):
             assert kernel.shape == expected.shape
             scale = float(expected.abs().max())
             assert float((kernel - expected).abs().max()) <= KERNEL_TOL * scale
-    sizes = len(fused_system_3d.CLUSTER_SIZES)
+    # the test-only cluster_size override takes the same route
+    forced = wrappers[1](ys, cfg, 20, cluster_size=16)
+    torch.cuda.synchronize()
+    assert float((forced - plain[2]).abs().max()) <= KERNEL_TOL * float(
+        plain[2].abs().max()
+    )
     assert [w.launches for w in wrappers] == [
-        launches[0] + sizes,
-        launches[1] + 2 * sizes,
-        launches[2] + sizes,
+        launches[0] + len(plans),
+        launches[1] + 2 * len(plans) + 1,
+        launches[2] + len(plans),
     ]
+
+
+@pytest.mark.cuda
+def test_cuda_3d_kernel_at_the_largest_three_component_cube(cuda_device):
+    """The largest cube of three components the JAX package's cap admits,
+    48^3 (its cells in device memory on 16 blocks), over a few steps of
+    the trajectory and the end against the plain version."""
+    shape = (48, 48, 48)
+    cp = problem_3d(vars(torch_pkg), "burgers", True, shape, d_x=0.25)
+    assert fused_system_3d.fused_system_3d_step_applicable(cp, RK4())
+    cfg = fused_system_3d._SystemKernelConfig3D(cp, 1e-3)
+    assert cfg.plan.cells == 0
+    y = torch.as_tensor(states_3d(shape, 3), device=cuda_device)
+    expected = fused_system_3d.fused_system_3d_rk4_trajectory_reference(
+        y, cfg, 3
+    )
+    for kernel, plain in (
+        (fused_system_3d.fused_system_3d_rk4_trajectory(y, cfg, 3), expected),
+        (fused_system_3d.fused_system_3d_rk4_end(y, cfg, 3), expected[-1]),
+    ):
+        torch.cuda.synchronize()
+        assert kernel.shape == plain.shape
+        scale = float(plain.abs().max())
+        assert float((kernel - plain).abs().max()) <= KERNEL_TOL * scale
 
 
 @pytest.mark.cuda
 def test_cuda_3d_kernel_raises_instead_of_falling_back(cuda_device):
     """A cluster whose blocks' slabs exceed a block's shared memory (one
-    block for all 21 planes of 21^3 x 3) is refused by the host code
+    block for all 31 planes of 31^3 x 3) is refused by the host code
     before any launch, and the wrappers reject what the kernel does not
     take."""
-    cp = problem_3d(vars(torch_pkg), "burgers", shape=(21, 21, 21), d_x=0.25)
+    cp = problem_3d(vars(torch_pkg), "burgers", shape=(31, 31, 31), d_x=0.25)
     cfg = fused_system_3d._SystemKernelConfig3D(cp, 1e-2)
-    assert cfg.plan.cluster_size == 4
-    y = torch.as_tensor(states_3d((21, 21, 21), 3), device=cuda_device)
+    assert cfg.plan.cluster_size > 1
+    y = torch.as_tensor(states_3d((31, 31, 31), 3), device=cuda_device)
     launches = fused_system_3d.fused_system_3d_rk4_end.launches
     with pytest.raises(RuntimeError, match="fused 3D kernel launch failed"):
         fused_system_3d.fused_system_3d_rk4_end(y, cfg, 2, cluster_size=1)
@@ -714,7 +760,7 @@ def test_cuda_3d_kernel_raises_instead_of_falling_back(cuda_device):
         fused_system_3d.fused_system_3d_rk4_end(y.double(), cfg, 2)
     with pytest.raises(ValueError, match="contiguous"):
         fused_system_3d.fused_system_3d_rk4_end(
-            torch.zeros((21, 21, 21, 6), device=cuda_device)[..., ::2],
+            torch.zeros((31, 31, 31, 6), device=cuda_device)[..., ::2],
             cfg,
             2,
         )

@@ -123,21 +123,46 @@ def test_end_and_step_equal_the_trajectory_frames():
 
 
 def test_cluster_plan():
-    # the two configurations of the main path take the kernel
+    # the two configurations of the main path take the measured table's
+    # plans: 16 blocks, slabs of one and two planes
     bench = k9.make_cluster_plan_3d(21, 21, 21, 3)
-    assert bench.cluster_size == 4 and bench.slab == 6
-    assert bench.shared_bytes == 166_698
-    example = k9.make_cluster_plan_3d(31, 31, 31, 2)
-    assert example.cluster_size == 8 and example.slab == 4
-    assert example.shared_bytes == 161_448
-    # the smallest cluster that fits is chosen; the limit for three
-    # components is 30^3
-    assert k9.make_cluster_plan_3d(9, 9, 9, 3).cluster_size == 1
-    assert k9.make_cluster_plan_3d(30, 30, 30, 3).cluster_size == 8
-    assert k9.make_cluster_plan_3d(31, 31, 31, 3) is None
+    (*_, batch, size, cells) = k9._MEASURED_PLANS_3D[(3, "rk4")][0]
+    assert batch == 1
+    assert (bench.cluster_size, bench.cells) == (size, cells)
+    assert bench.slab == -(-21 // size)
+    # two sets of slabs, each with two halo planes (the RK4 families'
+    # cells in registers), none for Cahn-Hilliard
+    assert bench.halo
+    assert bench.shared_bytes == 8 * (bench.slab + 2) * 21 * 21 * 3
+    example = k9.make_cluster_plan_3d(31, 31, 31, 2, "cahn-hilliard")
+    (*_, batch, size, cells) = k9._MEASURED_PLANS_3D[(2, "cahn-hilliard")][0]
+    assert batch == 1
+    assert (example.cluster_size, example.cells) == (size, cells)
+    assert not example.halo
+    assert example.shared_bytes == 8 * example.slab * 31 * 31 * 2
+    # the range: every cube of the JAX package's cap, and no larger one,
+    # fits 16 blocks at 8n bytes of shared memory a cell; past what the
+    # threads hold in registers the cells go to device memory
+    for edge, n in ((76, 1), (56, 2), (48, 3)):
+        plan = k9.make_cluster_plan_3d(edge, edge, edge, n)
+        assert plan.fits and plan.cells == 0
+        # no halo planes with the cells in device memory
+        assert plan.shared_bytes == 8 * plan.slab * edge * edge * n
+        assert plan.shared_bytes <= k9.MAX_SHARED_MEMORY_BYTES
+        assert plan.threads == 1024
+        assert plan.threads * plan.cells_per_thread >= plan.block_cells
+        assert plan.scratch_floats(2) == (
+            2
+            * plan.cluster_size
+            * (2 + 6 * n)
+            * plan.threads
+            * plan.cells_per_thread
+        )
+    assert k9.make_cluster_plan_3d(77, 77, 77, 1) is None
+    assert k9.make_cluster_plan_3d(40, 32, 128, 3) is None
     # no more blocks than planes: 3 planes of a wide grid cannot be split
-    # among 8 blocks
-    assert k9.make_cluster_plan_3d(3, 120, 120, 1) is None
+    # among enough blocks
+    assert k9.make_cluster_plan_3d(3, 200, 200, 1) is None
     assert k9.make_cluster_plan_3d(1, 9, 9, 1) is None
     for depth in range(1, 40):
         for size in k9.CLUSTER_SIZES:
@@ -145,15 +170,48 @@ def test_cluster_plan():
                 with pytest.raises(ValueError, match="depth"):
                     k9.cluster_plan_3d(depth, 5, 5, 1, size)
                 continue
-            slabs = k9.cluster_plan_3d(depth, 5, 5, 1, size).slabs
+            plan = k9.cluster_plan_3d(depth, 5, 5, 1, size)
+            slabs = plan.slabs
             # consecutive, non-empty, covering the depth exactly
             assert slabs[0][0] == 0 and slabs[-1][1] == depth
             assert all(a[1] == b[0] for a, b in zip(slabs, slabs[1:]))
             sizes = [end - begin for begin, end in slabs]
             assert min(sizes) >= 1
-            assert max(sizes) == -(-depth // size)
+            assert max(sizes) == plan.slab == -(-depth // size)
+            # the fewest register cells a thread the instances take
+            assert plan.cells == 1 and plan.fits == (depth >= 2)
     with pytest.raises(ValueError, match="cluster_size"):
-        k9.cluster_plan_3d(21, 21, 21, 3, 3)
+        k9.cluster_plan_3d(21, 21, 21, 3, 17)
+    # the instances: 1 or 2 cells a thread in registers, or device memory
+    for cells in (3, 4):
+        with pytest.raises(ValueError, match="cells"):
+            k9.cluster_plan_3d(21, 21, 21, 3, 16, cells)
+
+
+def test_batched_plan_holds_every_cluster_at_once():
+    """On the CPU's table of active clusters, the plan for Parareal's 8
+    fine ends at 21^3 x 3 puts all 8 clusters on the card at once rather
+    than running 16-block clusters in two waves: the measured winner, 8
+    blocks of 2 cells a thread (not the 9 blocks of the largest size held
+    at once, which gives the same largest slab of 3 planes)."""
+    single = k9.make_cluster_plan_3d(21, 21, 21, 3)
+    batched = k9.make_cluster_plan_3d(21, 21, 21, 3, batch=8)
+    assert k9._measured_active_clusters(single) < 8
+    assert k9._measured_active_clusters(batched) >= 8
+    assert (batched.cluster_size, batched.cells) == (8, 2)
+    assert (21, 21, 21, 8, 8, 2) in k9._MEASURED_PLANS_3D[(3, "rk4")]
+    assert batched.fits and batched.slab == 3
+    # a small batch keeps the single state's entry; a batch the entry's
+    # size cannot hold at once takes the largest size that can
+    assert k9.make_cluster_plan_3d(21, 21, 21, 3, batch=2) == single
+    larger = k9.make_cluster_plan_3d(21, 21, 21, 3, batch=16)
+    assert larger.cluster_size == 6
+    assert k9._measured_active_clusters(larger) >= 16
+    # where no size is held at once, the smallest valid size (waves)
+    waves = k9.make_cluster_plan_3d(
+        21, 21, 21, 3, batch=8, active_clusters=lambda plan: 1
+    )
+    assert waves.cluster_size == 1 and waves.fits
 
 
 def test_applicability_matches_jax_below_the_cluster_limit(x64_off):
@@ -175,12 +233,46 @@ def test_applicability_matches_jax_below_the_cluster_limit(x64_off):
     )
 
 
+@pytest.mark.parametrize(
+    "family, shape, admitted",
+    [
+        # the largest cube the JAX package's cap admits, by components
+        ("diffusion", (76, 76, 76), True),
+        ("wave", (56, 56, 56), True),
+        ("cahn_hilliard", (56, 56, 56), True),
+        ("burgers", (48, 48, 48), True),
+        # the next cubes, past the cap
+        ("diffusion", (77, 77, 77), False),
+        ("wave", (57, 57, 57), False),
+        ("burgers", (49, 49, 49), False),
+        # within the port's clusters, but past the cap (W pads to 128)
+        ("burgers", (60, 60, 5), False),
+    ],
+)
+def test_gates_agree_at_the_jax_cap(family, shape, admitted, x64_off):
+    """The port's K9 gate mirrors the JAX package's VMEM cap: both admit
+    the largest cube of each component count and both refuse the next
+    one and 60 x 60 x 5 x 3, which a cluster would hold (gates only, no
+    solve)."""
+    jax_cp, torch_cp = _problems(family, shape=shape, d_x=0.25)
+    assert jax_k9._fits_vmem_3d(jax_cp) == admitted
+    assert k9.fits_reference_vmem_3d(torch_cp) == admitted
+    assert jax_k9.fused_system_3d_step_applicable(jax_cp, JaxRK4()) == admitted
+    assert k9.fused_system_3d_step_applicable(torch_cp, RK4()) == admitted
+    if not admitted and shape == (60, 60, 5):
+        assert k9.make_cluster_plan_3d(*shape, 3) is not None
+
+
 def test_applicability_differs_from_jax_past_the_cluster_limit(x64_off):
-    """A deliberate difference (ROADMAP.md, Queue 3): 31^3 x 3 fits the
-    JAX package's VMEM budget but no cluster of 8 blocks, so the port
-    sends it to the generic path and no kernel is built for it."""
-    jax_cp, torch_cp = _problems("burgers", shape=(31, 31, 31), d_x=0.25)
+    """A deliberate difference (ROADMAP.md, Queue 3): 40 x 32 x 128 x 3
+    fits the JAX package's VMEM budget (W pads to no more than its 128
+    lanes) but no cluster of 16 blocks (three planes a block of 32 x 128
+    cells at 24 bytes a cell), so the port sends it to the generic path
+    and no kernel is built for it."""
+    shape = (40, 32, 128)
+    jax_cp, torch_cp = _problems("burgers", shape=shape, d_x=0.25)
     assert jax_k9.fused_system_3d_step_applicable(jax_cp, JaxRK4())
+    assert k9.fits_reference_vmem_3d(torch_cp)
     assert not k9.fused_system_3d_step_applicable(torch_cp, RK4())
     assert k9.build_fused_system_3d_rk4_end(torch_cp, D_T, 2) is None
     operator = FDMOperator(
@@ -198,7 +290,7 @@ def test_applicability_differs_from_jax_past_the_cluster_limit(x64_off):
     # the launch path raises before it reaches the card rather than
     # picking another route
     with pytest.raises(ValueError, match="cluster"):
-        k9.launch(torch.zeros((1, 31, 31, 31, 3)), None, cfg, 1, False)
+        k9.launch(torch.zeros((1,) + shape + (3,)), None, cfg, 1, False)
 
 
 def test_applicability_rejects_what_the_kernel_does_not_cover(x64_off):
