@@ -10,8 +10,10 @@ d_t 1e-3 to T = 40, tolerance 2.5e-3):
 1. builds the hand-written CUDA kernels from ``pararealml_tpu_torch/csrc``
    (one nvcc per source, all at once) and holds each of the flagship's
    (K1 trajectory, K2 end, K3 step) against its plain PyTorch version on
-   the same CUDA tensors, on three problems, and on the flagship at the
-   shapes and step counts the main path gives K1 and K2;
+   the same CUDA tensors, on three problems and the other grids of K1's
+   measured plan table, at the plan the wrappers pick and at every table
+   plan that covers the grid, and on the flagship at the shapes and step
+   counts the main path gives K1 and K2;
 2. runs the main path with every launch counter at 0: the sequential
    fine solve through ``FDMOperator.solve``, then Parareal with 8 slices
    (coarse d_t 1e-2), 100 slices (coarse d_t 5e-2) and 8 slices with the
@@ -23,7 +25,8 @@ d_t 1e-3 to T = 40, tolerance 2.5e-3):
 3. times each with CUDA events (warm, median of 5);
 4. profiles each run with ``torch.profiler`` and prints the device's
    busy time (the union of its kernel and copy intervals) and idle share
-   (1 - busy / the CUDA-event time of phase 3).
+   (1 - busy / the CUDA-event time of phase 3), then splits a K1 step on
+   the wrappers' plans (``tools/k1_step_split.py``).
 
 The 2D Burgers Parareal with a quadratic ML coarse operator (bench.py's
 ``bench_nonlinear_sml``: Re = 100 on a 21 x 21 grid with zero-flux faces,
@@ -289,6 +292,17 @@ KERNELS = (
 )
 # ported and checked here, but not on the main path (in neither package)
 STEP_KERNEL = "fused_diffusion_rk4_step"
+# K1-K3's times before their redesign, at the shapes phase 3 times them
+# (PERF.md, sections 5 and 6: this script's earlier runs on an NVIDIA H100
+# 80GB HBM3 at 700 W), printed beside this run's
+K1_BEFORE_REDESIGN_MS = {
+    "fine solve": 88.568,
+    "fused_diffusion_rk4_trajectory": 4.481,
+    "fused_diffusion_rk4_end": 1.130,
+    STEP_KERNEL: 0.085,
+    "fused_diffusion_rk4_end B=8": 10.985,
+    "8 slices, coarse d_t 1e-2, linear_propagator=False": 39.185,
+}
 
 # the Burgers path (bench.py:513-545, :594-656)
 BURGERS_T_END = 200.0
@@ -693,6 +707,13 @@ K5_BEFORE_REDESIGN_MS = {
 }
 
 
+def before_k1_redesign(key):
+    """``; before the K1-K3 redesign X ms`` where section 6 of PERF.md
+    has the time of ``key`` before the redesign, else an empty string."""
+    ms = K1_BEFORE_REDESIGN_MS.get(key)
+    return "" if ms is None else f"; before the K1-K3 redesign {ms:.3f} ms"
+
+
 def before_redesign(key, what):
     """``; before the K5 redesign X ms`` where section 6 of PERF.md has
     the time of ``key`` at ``what``, else an empty string."""
@@ -775,6 +796,33 @@ def flagship(prml, t_end=T_END, d_x=0.5, d=1.0):
         cp, [(np.full(2, 5.0), np.eye(2))], [1000.0]
     )
     return prml.InitialValueProblem(cp, (0.0, t_end), ic)
+
+
+def grid_problem(prml, height, width):
+    """A diffusion problem on an H x W grid of spacing 0.25 with the
+    flagship's faces: Dirichlet 1.5 on axis 0, zero flux on axis 1."""
+    bcs = [
+        (
+            prml.DirichletBoundaryCondition(
+                lambda x, t: np.full((len(x), 1), 1.5), is_static=True
+            ),
+        )
+        * 2,
+        (
+            prml.NeumannBoundaryCondition(
+                lambda x, t: np.zeros((len(x), 1)), is_static=True
+            ),
+        )
+        * 2,
+    ]
+    return prml.ConstrainedProblem(
+        prml.DiffusionEquation(2, 0.3),
+        prml.Mesh(
+            [(0.0, 0.25 * (height - 1)), (0.0, 0.25 * (width - 1))],
+            [0.25, 0.25],
+        ),
+        bcs,
+    )
 
 
 def kernel_problems(prml):
@@ -5238,7 +5286,7 @@ def main() -> int:
 
     start = time.perf_counter()
     # one nvcc per source, all started together, the step and sweep
-    # splits' instrumented copies (phases 27, 32, 36 and 37) too
+    # splits' instrumented copies (phases 4, 27, 32, 36 and 37) too
     sources = (
         "fused_diffusion",
         "fused_system",
@@ -5251,6 +5299,7 @@ def main() -> int:
     split_builds = [
         threading.Thread(target=load_tool(name).build_split_library)
         for name in (
+            "k1_step_split",
             "k5_step_split",
             "k8_step_split",
             "ns_sweep_split",
@@ -5284,21 +5333,40 @@ def main() -> int:
     errors = {name: 0.0 for name in names}
 
     # -- phase 1: every kernel against its plain version -----------------
+    # at the plan the wrappers pick and at every plan of the measured
+    # table that covers the grid, on the three problems and on the
+    # table's other grids (3 x 3 among them)
     problems, initial = kernel_problems(prml)
+    rng = np.random.default_rng(0)
+    for height, width in sorted({key[:2] for key in fd._MEASURED_PLANS}):
+        if (height, width) not in ((21, 21), (17, 17)):
+            problems[f"grid {height}x{width}"] = grid_problem(
+                prml, height, width
+            )
     for label, cp in problems.items():
         cfg = fd._KernelConfig(cp, FINE_D_T)
-        y = torch.as_tensor(
-            initial[label].discrete_y_0(True)[..., 0],
-            dtype=torch.float32,
-            device=device,
-        ).contiguous()
+        if label in initial:
+            y = torch.as_tensor(
+                initial[label].discrete_y_0(True)[..., 0],
+                dtype=torch.float32,
+                device=device,
+            ).contiguous()
+        else:
+            y = torch.as_tensor(
+                rng.uniform(0.0, 2.0, (cfg.height, cfg.width)),
+                dtype=torch.float32,
+                device=device,
+            )
         batch = torch.stack(
             [y * (0.5 + 0.125 * i) + 0.1 * i for i in range(8)]
         ).contiguous()
+        # the table's other grids for fewer steps: their plain versions
+        # take up to 3 ms a step
+        steps = 200 if label in initial else 50
         checks = [
-            ("fused_diffusion_rk4_trajectory", y, "200 steps", 200),
-            ("fused_diffusion_rk4_end", y, "single, 200 steps", 200),
-            ("fused_diffusion_rk4_end", batch, "B=8, 200 steps", 200),
+            ("fused_diffusion_rk4_trajectory", y, f"{steps} steps", steps),
+            ("fused_diffusion_rk4_end", y, f"single, {steps} steps", steps),
+            ("fused_diffusion_rk4_end", batch, f"B=8, {steps} steps", steps),
             (STEP_KERNEL, batch, "B=8", None),
         ]
         if label == "flagship":
@@ -5311,23 +5379,38 @@ def main() -> int:
                 ("fused_diffusion_rk4_end", batch, "B=8, 5000 steps", 5000),
                 ("fused_diffusion_rk4_end", y, "single, 500 steps", 500),
             ]
+        table = sorted(
+            {
+                plan
+                for plan in fd._MEASURED_PLANS.values()
+                if plan.covers(cfg.height, cfg.width)
+            },
+            key=str,
+        )
         for name, state, what, n_steps in checks:
             args = (state, cfg) if n_steps is None else (state, cfg, n_steps)
-            kernel = wrappers[name](*args)
             plain = getattr(fd, f"{name}_reference")(*args)
-            torch.cuda.synchronize()
-            assert kernel.shape == plain.shape, (name, what)
-            abs_err = float((kernel - plain).abs().max())
-            rel_err = abs_err / float(plain.abs().max())
-            errors[name] = max(errors[name], abs_err)
-            log(
-                f"kernels: {label:10s} {name} ({what}): "
-                f"max|d|/max|y| = {rel_err:.3e}"
-            )
-            if not rel_err <= KERNEL_REL_TOL:
-                raise AssertionError(
-                    f"{name} disagrees with its plain version on {label}"
+            # the wrappers' own plan, then every table plan (main-path
+            # shapes: the wrappers' plan alone)
+            plans = [None] + (table if n_steps in (None, steps) else [])
+            for plan in plans:
+                kernel = wrappers[name](*args, plan=plan)
+                torch.cuda.synchronize()
+                assert kernel.shape == plain.shape, (name, what)
+                abs_err = float((kernel - plain).abs().max())
+                rel_err = abs_err / float(plain.abs().max())
+                errors[name] = max(errors[name], abs_err)
+                shown = cfg.plan(state.shape[0] if state.ndim == 3 else 1)
+                log(
+                    f"kernels: {label:10s} {name} ({what}) on "
+                    f"{plan if plan is not None else f'its plan, {shown}'}: "
+                    f"max|d|/max|y| = {rel_err:.3e}"
                 )
+                if not rel_err <= KERNEL_REL_TOL:
+                    raise AssertionError(
+                        f"{name} disagrees with its plain version on {label}"
+                        f" ({plan})"
+                    )
     log("phase kernels: ok")
 
     # -- phase 2: the main path, counted ---------------------------------
@@ -5418,12 +5501,13 @@ def main() -> int:
     fine_bound_ms, fine_bound_by = stencil_bound(
         "diffusion", 1, round(T_END / FINE_D_T), 21 * 21, 1, True
     )
+    cfg = fd._KernelConfig(cp, FINE_D_T)
     log(
-        f"time: fine solve, K1 kernel, 40000 steps: {fine_ms:.3f} ms, bound "
+        f"time: fine solve, K1 kernel ({cfg.plan(1)}), 40000 steps: "
+        f"{fine_ms:.3f} ms{before_k1_redesign('fine solve')}, bound "
         f"{fine_bound_ms * 1e3:.3f} us ({fine_bound_by}) [{card}]"
     )
 
-    cfg = fd._KernelConfig(cp, FINE_D_T)
     y_grid = y_0[..., 0].contiguous()
     slice_batch = y_grid.expand(8, 21, 21).contiguous()
     timings = {
@@ -5449,15 +5533,17 @@ def main() -> int:
     for name, (what, kernel, plain) in timings.items():
         kernel_ms[name] = (cuda_ms(torch, kernel), cuda_ms(torch, plain))
         log(
-            f"time: {name} ({what}): kernel {kernel_ms[name][0]:.3f} ms, "
-            f"plain {kernel_ms[name][1]:.3f} ms [{card}]"
+            f"time: {name} ({what}, {cfg.plan(1)}): kernel "
+            f"{kernel_ms[name][0]:.3f} ms{before_k1_redesign(name)}, plain "
+            f"{kernel_ms[name][1]:.3f} ms [{card}]"
         )
     batched_end_ms = cuda_ms(
         torch, lambda: fd.fused_diffusion_rk4_end(slice_batch, cfg, 5000)
     )
     log(
         "time: fused_diffusion_rk4_end (B=8, 5000 steps: one iteration's "
-        f"fine ends): kernel {batched_end_ms:.3f} ms [{card}]"
+        f"fine ends, {cfg.plan(8)}): kernel {batched_end_ms:.3f} ms"
+        f"{before_k1_redesign('fused_diffusion_rk4_end B=8')} [{card}]"
     )
     for (label, parareal), diff in zip(parareals, diffs):
         program, _ = parareal.trajectory_function(cp, (0.0, T_END))
@@ -5466,7 +5552,8 @@ def main() -> int:
         check = float((program(y_0) - fine_device).abs().max())
         assert abs(check - diff) <= 1e-3, (check, diff)
         log(
-            f"time: parareal {label}: {ms:.3f} ms, speedup vs fused fine "
+            f"time: parareal {label}: {ms:.3f} ms"
+            f"{before_k1_redesign(label)}, speedup vs fused fine "
             f"{fine_ms / ms:.3f}x, {parareal.last_iterations} iterations "
             f"[{card}]"
         )
@@ -5512,12 +5599,16 @@ def main() -> int:
                 "bound_by": bound_by,
                 "library_ms": None,
                 "timed": timings[name][0],
+                "plan": str(cfg.plan(1)),
+                "plan_b8": str(cfg.plan(8)),
             }
         )
         log(
             f"bound: {name} ({timings[name][0]}): {bound_ms * 1e3:.3f} us "
             f"({bound_by}) [{card}]"
         )
+    # the split of a K1 step on the wrappers' plans (after the redesign)
+    load_tool("k1_step_split").run(device, card, log)
 
     log(f"phases 1-4 done at {time.perf_counter() - start:.1f} s")
     for label, phases, timing in (

@@ -3,10 +3,13 @@
 Port of the JAX package's ``ops/fused_diffusion.py``. The three Pallas
 TPU kernels there — the trajectory (K1), the end state (K2, single or
 batched over Parareal's slices) and the single step (K3) — become one
-hand-written CUDA kernel template for Hopper, ``csrc/fused_diffusion.cu``
-(see its header for the design). One CTA keeps one state on-chip for all
-steps, so an RK4 solve reads the state once and writes either every step
-or the end state.
+pair of hand-written CUDA kernel templates for Hopper,
+``csrc/fused_diffusion.cu`` (see its header for the design). One CTA
+keeps one state on-chip for all steps, so an RK4 solve reads the state
+once and writes either every step or the end state. How the CTA holds the
+grid is a :class:`K1Plan` (a layout, its threads and the instance's cells
+a thread) that :func:`make_k1_plan` reads from a table measured on the
+card (``_MEASURED_PLANS``, ``tools/k1_plan_sweep.py``).
 
 Each kernel has a wrapper and a plain PyTorch version beside it:
 
@@ -46,7 +49,8 @@ float32 frames.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+import math
+from typing import Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -142,6 +146,208 @@ def fits_one_block(height: int, width: int) -> bool:
     shared memory; larger grids take the resident or the tiled
     trajectory kernel."""
     return shared_memory_bytes(height, width) <= MAX_SHARED_MEMORY_BYTES
+
+
+# -- plans ---------------------------------------------------------------
+
+_MAX_THREADS = 1024
+# the cells layout's instances (cells a thread): csrc/fused_diffusion.cu
+# cells_instance builds the same; each holds 1,024 threads without a
+# spill (ptxas on sm_90a: 36-64 registers a thread, tools/k1_plan_sweep.py
+# prints the card's counts; tests/test_torch_fused_diffusion.py keeps them)
+CELLS_INSTANCES = (1, 2, 4, 8, 11)
+# the strips layout: a warp a row, a lane a column
+STRIPS_MAX_WIDTH = 32
+_LAYOUTS = {"cells": 0, "strips": 1}
+
+
+class K1Plan(NamedTuple):
+    """How one CTA holds an H x W grid (csrc/fused_diffusion.cu):
+
+    - ``cells``: ``threads`` threads, each owning up to ``cells`` cells
+      (an instance of :data:`CELLS_INSTANCES`) of the interior-first
+      order in registers, the stage input in two shared-memory buffers;
+    - ``strips``: ``threads / 32 = H`` warps, each a row, each lane a
+      column of it (W <= 32), everything in registers but each row's
+      copy in a shared-memory halo buffer.
+
+    The plan owns the launch's layout: the kernel takes its threads,
+    instance and shared-memory bytes as they are."""
+
+    layout: str
+    threads: int
+    cells: int = 0
+
+    def shared_bytes(self, height: int, width: int) -> int:
+        """Its dynamic shared memory on an H x W grid; must match
+        ``fused_diffusion_plan_shared_bytes`` in the CUDA source."""
+        if self.layout == "cells":
+            return 4 * (4 * height * width + 4 * width)
+        return 4 * 2 * 32 * height
+
+    def covers(self, height: int, width: int) -> bool:
+        """Whether the plan is a valid launch for an H x W grid (the CUDA
+        source's checks)."""
+        if not (
+            32 <= self.threads <= _MAX_THREADS
+            and self.threads % 32 == 0
+            and self.shared_bytes(height, width) <= MAX_SHARED_MEMORY_BYTES
+            and min(height, width) >= 3
+        ):
+            return False
+        if self.layout == "cells":
+            return (
+                self.cells in CELLS_INSTANCES
+                and self.threads * self.cells >= height * width
+                and height * width < 0x3FFF
+            )
+        return (
+            self.layout == "strips"
+            and self.threads == 32 * height
+            and width <= STRIPS_MAX_WIDTH
+        )
+
+    def __str__(self) -> str:
+        if self.layout == "cells":
+            return f"cells: {self.threads} threads x {self.cells}"
+        return f"strips: {self.threads // 32} rows"
+
+
+def cells_plan(height: int, width: int, threads: int) -> Optional[K1Plan]:
+    """The cells layout on ``threads`` threads with the fewest cells a
+    thread of an instance that covers the grid, or None."""
+    need = -(-height * width // threads)
+    for cells in CELLS_INSTANCES:
+        if cells >= need:
+            plan = K1Plan("cells", threads, cells=cells)
+            return plan if plan.covers(height, width) else None
+    return None
+
+
+def strips_plan(height: int, width: int) -> Optional[K1Plan]:
+    """The strips layout for an H x W grid, or None past 32 x 32."""
+    plan = K1Plan("strips", 32 * height)
+    return plan if plan.covers(height, width) else None
+
+
+def k1_plans(height: int, width: int) -> Iterator[K1Plan]:
+    """Every plan of the kernel's instances for an H x W grid that
+    covers it: the cells layout at each thread count of whole warps, and
+    the strips layout."""
+    for warps in range(1, _MAX_THREADS // 32 + 1):
+        plan = cells_plan(height, width, 32 * warps)
+        if plan is not None:
+            yield plan
+    plan = strips_plan(height, width)
+    if plan is not None:
+        yield plan
+
+
+# The plan that won tools/k1_plan_sweep.py's turns by (height, width,
+# batched): a single-state trajectory of 2,000 steps or, batched, the
+# B = 8 end of one Parareal iteration's fine ends (5,000 steps). In the
+# comments, µs a step as the mean (least-most) of six turns in one call,
+# with the runner-up; NVIDIA H100 80GB HBM3 at 700 W.
+_MEASURED_PLANS: Dict[Tuple[int, int, bool], K1Plan] = {
+    # the flagship's 21 x 21: 0.863 (0.850-0.883); cells 608 x 1 0.984
+    (21, 21, False): K1Plan("strips", 672),
+    # its B = 8 fine ends: 0.774 (0.771-0.780); cells 480 x 1 0.781,
+    # strips 0.819 (0.817-0.820)
+    (21, 21, True): K1Plan("cells", 448, cells=1),
+    # the convection problem's 17 x 17: 0.843 (0.817-0.852); 352 x 1
+    # 0.849 (0.830-0.861), strips 0.945
+    (17, 17, False): K1Plan("cells", 320, cells=1),
+    # 1.177 (1.169-1.191); 704 x 1 1.189
+    (17, 40, False): K1Plan("cells", 800, cells=1),
+    # 0.429 (0.412-0.468); cells 32 x 1 0.927
+    (3, 3, False): K1Plan("strips", 96),
+    # 2.786 (2.766-2.796); 896 x 4 2.797 (2.770-2.814), behind in the
+    # turns of an earlier call too
+    (51, 51, False): K1Plan("cells", 928, cells=4),
+    # the largest square the gate admits: 8.952 (8.922-8.985); 1,024 x
+    # 11 9.157
+    (104, 104, False): K1Plan("cells", 992, cells=11),
+}
+
+
+def make_k1_plan(height: int, width: int, batch: int = 1) -> Optional[K1Plan]:
+    """Plans K1-K3 for a batch of ``batch`` H x W grids (one CTA a
+    state), or returns None for a grid that :func:`fits_one_block` does
+    not admit. A grid of the measured table (``_MEASURED_PLANS``) takes
+    its entry; another takes the layout of the entry nearest in cells
+    (of the same batch class): strips where they cover the grid, else
+    the cells layout with the entry's cells a thread (one for a strips
+    entry), on as few threads as that takes."""
+    if min(height, width) < 3 or not fits_one_block(height, width):
+        return None
+    batched = batch > 1
+    entry = _MEASURED_PLANS.get((height, width, batched))
+    if entry is not None:
+        return entry
+    cells = height * width
+    _, nearest = min(
+        _MEASURED_PLANS.items(),
+        key=lambda item: (
+            item[0][2] != batched,
+            abs(math.log(cells / (item[0][0] * item[0][1]))),
+        ),
+    )
+    target = 1
+    if nearest.layout == "strips":
+        plan = strips_plan(height, width)
+        if plan is not None:
+            return plan
+    else:
+        target = nearest.cells
+    per_thread = -(-cells // target)
+    for threads in range(
+        min(_MAX_THREADS, 32 * -(-per_thread // 32)), _MAX_THREADS + 1, 32
+    ):
+        plan = cells_plan(height, width, threads)
+        if plan is not None:
+            return plan
+    return None
+
+
+def ownership(plan: K1Plan, height: int, width: int):
+    """A plain model of which thread owns which cells on ``plan``, as the
+    kernel deals them: a dict from (thread, slot) to the cell (i, j) it
+    owns, and for the strips layout each band's rows and the rows its
+    halos hold (the row above and the row below the band, None past the
+    grid)."""
+    owners = {}
+    halos = []
+    if plan.layout == "cells":
+        interior_width = width - 2
+        interior = (height - 2) * interior_width
+        faces = (
+            [(0, j) for j in range(width)]
+            + [(height - 1, j) for j in range(width)]
+            + [(i, 0) for i in range(1, height - 1)]
+            + [(i, width - 1) for i in range(1, height - 1)]
+        )
+        for thread in range(plan.threads):
+            for slot in range(plan.cells):
+                q = thread + slot * plan.threads
+                if q >= height * width:
+                    continue
+                if q < interior:
+                    cell = (1 + q // interior_width, 1 + q % interior_width)
+                else:
+                    cell = faces[q - interior]
+                owners[(thread, slot)] = cell
+        return owners, halos
+    for band in range(plan.threads // 32):
+        halos.append(
+            (
+                (band, band + 1),
+                band - 1 if band > 0 else None,
+                band + 1 if band < height - 1 else None,
+            )
+        )
+        for lane in range(min(32, width)):
+            owners[(32 * band + lane, 0)] = (band, lane)
+    return owners, halos
 
 
 def _face_vectors(pair, length: int):
@@ -244,6 +450,8 @@ class _KernelConfig:
         self.two_dx1 = 2.0 * float(d_x1)
         self._host_constants = _constraint_tensors(cp)
         self._constants: Dict[torch.device, Tuple[torch.Tensor, ...]] = {}
+        self._plans: Dict[bool, Optional[K1Plan]] = {}
+        self._arguments: Dict[K1Plan, Tuple[int, ...]] = {}
 
     def constants(self, device: torch.device) -> Tuple[torch.Tensor, ...]:
         """The six constraint tensors on ``device``, in kernel argument
@@ -256,6 +464,28 @@ class _KernelConfig:
             )
             self._constants[device] = constants
         return constants
+
+    def plan(self, batch: int) -> Optional[K1Plan]:
+        """The plan the wrappers launch for a batch of ``batch`` states
+        (:func:`make_k1_plan`, cached by batch class)."""
+        batched = batch > 1
+        if batched not in self._plans:
+            self._plans[batched] = make_k1_plan(self.height, self.width, batch)
+        return self._plans[batched]
+
+    def launch_arguments(self, plan: K1Plan) -> Tuple[int, ...]:
+        """The kernel's plan arguments (layout, threads, cells a thread,
+        shared bytes) for ``plan``, worked out once a plan."""
+        arguments = self._arguments.get(plan)
+        if arguments is None:
+            arguments = (
+                _LAYOUTS[plan.layout],
+                plan.threads,
+                plan.cells,
+                plan.shared_bytes(self.height, self.width),
+            )
+            self._arguments[plan] = arguments
+        return arguments
 
     def check_state(self, y: torch.Tensor):
         """Raises unless ``y`` is a contiguous float32 ``(H, W)`` or
@@ -424,7 +654,7 @@ def _configure(library: ctypes.CDLL):
     c_int, c_float, c_void_p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
     library.fused_diffusion_rk4.argtypes = (
         [c_void_p, c_void_p]
-        + [c_int] * 6
+        + [c_int] * 10
         + [c_void_p] * 6
         + [c_float] * 10
         + [c_void_p]
@@ -432,8 +662,12 @@ def _configure(library: ctypes.CDLL):
     library.fused_diffusion_rk4.restype = c_int
     library.fused_diffusion_error_string.argtypes = [c_int]
     library.fused_diffusion_error_string.restype = ctypes.c_char_p
-    library.fused_diffusion_shared_bytes.argtypes = [c_int, c_int]
-    library.fused_diffusion_shared_bytes.restype = ctypes.c_size_t
+    library.fused_diffusion_plan_shared_bytes.argtypes = [c_int] * 3
+    library.fused_diffusion_plan_shared_bytes.restype = ctypes.c_size_t
+    library.fused_diffusion_instance_attributes.argtypes = [c_int] * 3 + [
+        ctypes.POINTER(c_int)
+    ] * 3
+    library.fused_diffusion_instance_attributes.restype = c_int
 
 
 def load_kernels() -> ctypes.CDLL:
@@ -443,18 +677,48 @@ def load_kernels() -> ctypes.CDLL:
     library = load_library("fused_diffusion")
     if not getattr(library, "_signatures_set", False):
         _configure(library)
-        # the applicability gate sizes the kernel's shared memory in
-        # Python; the kernel carves it in C: both must agree
-        for shape in ((3, 3), (21, 21), (17, 40)):
-            if library.fused_diffusion_shared_bytes(
-                *shape
-            ) != shared_memory_bytes(*shape):
+        # the plans size the kernel's shared memory in Python; the kernel
+        # carves it in C: both must agree, for every table plan and every
+        # plan on a few grids
+        shapes = [(3, 3), (21, 21), (17, 40), (32, 32), (104, 104)]
+        checks = [
+            (plan, key[0], key[1]) for key, plan in _MEASURED_PLANS.items()
+        ]
+        for height, width in shapes:
+            checks += [
+                (plan, height, width) for plan in k1_plans(height, width)
+            ]
+        for plan, height, width in checks:
+            if library.fused_diffusion_plan_shared_bytes(
+                _LAYOUTS[plan.layout], height, width
+            ) != plan.shared_bytes(height, width):
                 raise RuntimeError(
-                    "shared_memory_bytes disagrees with the kernel's "
-                    "fused_diffusion_shared_bytes"
+                    f"K1Plan.shared_bytes disagrees with the kernel's "
+                    f"fused_diffusion_plan_shared_bytes for {plan} on "
+                    f"{height} x {width}"
                 )
         library._signatures_set = True
     return library
+
+
+def instance_attributes(
+    layout: str, cells: int, has_convection: bool
+) -> Tuple[int, int, int]:
+    """(registers a thread, spill bytes a thread, most threads a block)
+    of a built instance (``cells`` a thread; ignored for the strips
+    layout), as the card reports them."""
+    library = load_kernels()
+    values = [ctypes.c_int(), ctypes.c_int(), ctypes.c_int()]
+    error = library.fused_diffusion_instance_attributes(
+        _LAYOUTS[layout],
+        cells,
+        int(has_convection),
+        *(ctypes.byref(value) for value in values),
+    )
+    if error != 0:
+        message = library.fused_diffusion_error_string(error).decode()
+        raise RuntimeError(f"no such K1 instance: {message} ({error})")
+    return tuple(value.value for value in values)
 
 
 def _launch(
@@ -463,10 +727,22 @@ def _launch(
     cfg: _KernelConfig,
     n_steps: int,
     write_trajectory: bool,
+    plan: Optional[K1Plan] = None,
 ):
     """Launches the kernel on ``y``'s device and its current stream for a
-    contiguous ``(B, H, W)`` float32 CUDA state and raises if the launch
-    is refused."""
+    contiguous ``(B, H, W)`` float32 CUDA state on ``plan`` (by default
+    the config's plan for the batch; a given plan the wrapper has checked
+    to cover the grid) and raises if the launch is refused: the CUDA side
+    checks the plan again and refuses one it cannot place before any
+    launch."""
+    if plan is None:
+        plan = cfg.plan(y.shape[0])
+    if plan is None:
+        raise RuntimeError(
+            f"fused diffusion kernel launch failed: no plan for "
+            f"{cfg.height} x {cfg.width}"
+        )
+    arguments = cfg.launch_arguments(plan)
     library = load_kernels()
     constants = cfg.constants(y.device)
     if any(t.device != y.device for t in (out,) + constants):
@@ -485,6 +761,7 @@ def _launch(
             n_steps,
             int(write_trajectory),
             int(cfg.has_convection),
+            *arguments,
             *(c.data_ptr() for c in constants),
             cfg.d,
             cfg.d_t,
@@ -501,17 +778,31 @@ def _launch(
     if error != 0:
         message = library.fused_diffusion_error_string(error).decode()
         raise RuntimeError(
-            f"fused diffusion kernel launch failed: {message} ({error})"
+            f"fused diffusion kernel launch failed on {plan}: {message} "
+            f"({error})"
+        )
+
+
+def _check_plan(cfg: _KernelConfig, plan: Optional[K1Plan]):
+    """Raises for a given plan that does not cover the config's grid, on
+    any device (the CPU runs no plan, but refuses the same ones)."""
+    if plan is not None and not plan.covers(cfg.height, cfg.width):
+        raise ValueError(
+            f"{plan} does not cover a {cfg.height} x {cfg.width} grid"
         )
 
 
 def fused_diffusion_rk4_trajectory(
-    y: torch.Tensor, cfg: _KernelConfig, n_steps: int
+    y: torch.Tensor,
+    cfg: _KernelConfig,
+    n_steps: int,
+    plan: Optional[K1Plan] = None,
 ) -> torch.Tensor:
     """K1: ``n_steps`` fused RK4 steps storing every step,
     ``(H, W) -> (n_steps, H, W)`` or ``(B, H, W) -> (B, n_steps, H, W)``
-    (one CTA per state)."""
+    (one CTA per state, on ``plan`` or the config's)."""
     cfg.check_state(y)
+    _check_plan(cfg, plan)
     if y.device.type == "cpu":
         return fused_diffusion_rk4_trajectory_reference(y, cfg, n_steps)
     batch = y.reshape(-1, cfg.height, cfg.width)
@@ -520,33 +811,39 @@ def fused_diffusion_rk4_trajectory(
         dtype=torch.float32,
         device=y.device,
     )
-    _launch(batch, out, cfg, n_steps, write_trajectory=True)
+    _launch(batch, out, cfg, n_steps, True, plan)
     fused_diffusion_rk4_trajectory.launches += 1
     return out if y.ndim == 3 else out[0]
 
 
 def fused_diffusion_rk4_end(
-    y: torch.Tensor, cfg: _KernelConfig, n_steps: int
+    y: torch.Tensor,
+    cfg: _KernelConfig,
+    n_steps: int,
+    plan: Optional[K1Plan] = None,
 ) -> torch.Tensor:
     """K2: ``n_steps`` fused RK4 steps returning the end state only,
     ``(H, W) -> (H, W)`` or ``(B, H, W) -> (B, H, W)`` (one CTA per
-    state)."""
+    state, on ``plan`` or the config's)."""
     cfg.check_state(y)
+    _check_plan(cfg, plan)
     if y.device.type == "cpu":
         return fused_diffusion_rk4_end_reference(y, cfg, n_steps)
     batch = y.reshape(-1, cfg.height, cfg.width)
     out = torch.empty_like(batch)
-    _launch(batch, out, cfg, n_steps, write_trajectory=False)
+    _launch(batch, out, cfg, n_steps, False, plan)
     fused_diffusion_rk4_end.launches += 1
     return out.reshape(y.shape)
 
 
 def fused_diffusion_rk4_step(
-    y: torch.Tensor, cfg: _KernelConfig
+    y: torch.Tensor, cfg: _KernelConfig, plan: Optional[K1Plan] = None
 ) -> torch.Tensor:
     """K3: one fused RK4 step (the K1 kernel with ``n_steps = 1``),
-    ``(H, W) -> (H, W)`` or ``(B, H, W) -> (B, H, W)``."""
+    ``(H, W) -> (H, W)`` or ``(B, H, W) -> (B, H, W)``, on ``plan`` or
+    the config's."""
     cfg.check_state(y)
+    _check_plan(cfg, plan)
     if y.device.type == "cpu":
         return fused_diffusion_rk4_step_reference(y, cfg)
     batch = y.reshape(-1, cfg.height, cfg.width)
@@ -555,7 +852,7 @@ def fused_diffusion_rk4_step(
         dtype=torch.float32,
         device=y.device,
     )
-    _launch(batch, out, cfg, 1, write_trajectory=True)
+    _launch(batch, out, cfg, 1, True, plan)
     fused_diffusion_rk4_step.launches += 1
     return out.reshape(y.shape)
 

@@ -42,6 +42,25 @@ torch.set_num_threads(1)
 # float32 kernels against float32 plain versions with the same
 # evaluation order: only contraction-free rounding differences remain
 KERNEL_TOL = 1e-5
+# K1-K3: each built instance's registers and spill bytes a thread, by
+# (layout, cells a thread, convection), as the card reports them for the
+# build (cudaFuncGetAttributes, the larger of the trajectory and end
+# kernels: ptxas's counts; tools/k1_plan_sweep.py prints them; NVIDIA
+# H100 80GB HBM3)
+INSTANCE_REGISTERS = {
+    ("cells", 1, False): (36, 0),
+    ("cells", 1, True): (39, 0),
+    ("cells", 2, False): (56, 0),
+    ("cells", 2, True): (52, 0),
+    ("cells", 4, False): (39, 0),
+    ("cells", 4, True): (42, 0),
+    ("cells", 8, False): (55, 0),
+    ("cells", 8, True): (62, 0),
+    ("cells", 11, False): (64, 0),
+    ("cells", 11, True): (63, 0),
+    ("strips", 0, False): (38, 0),
+    ("strips", 0, True): (39, 0),
+}
 # the fitted quadratic coarse model of the Burgers bench (rank 32)
 QUAD_ASSET = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -417,6 +436,107 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda_device):
             cfg,
             2,
         )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", sorted(fused_diffusion._MEASURED_PLANS))
+@pytest.mark.parametrize("convection", [False, True])
+def test_cuda_every_k1_table_plan_matches_plain_version(
+    key, convection, cuda_device
+):
+    """Each plan of K1-K3's measured table on its own grid (Dirichlet
+    rows, Neumann columns with a flux, with and without convection): the
+    trajectory, the end (single and B = 3) and the step against the plain
+    versions, to KERNEL_TOL of max|y| (0.0 is expected)."""
+    height, width, _ = key
+    plan = fused_diffusion._MEASURED_PLANS[key]
+    cp = large_grid_problem(
+        vars(torch_pkg),
+        0.25 * (height - 1),
+        0.25 * (width - 1),
+        0.25,
+        convection,
+        0.2,
+    )
+    cfg = fused_diffusion._KernelConfig(cp, 1e-3)
+    ys = torch.as_tensor(
+        states_2d((height, width), 1, batch=3)[..., 0] + 1.0,
+        device=cuda_device,
+    ).contiguous()
+    checks = [
+        (
+            fused_diffusion.fused_diffusion_rk4_trajectory(
+                ys[0], cfg, 50, plan=plan
+            ),
+            fused_diffusion.fused_diffusion_rk4_trajectory_reference(
+                ys[0], cfg, 50
+            ),
+        ),
+        (
+            fused_diffusion.fused_diffusion_rk4_end(ys, cfg, 50, plan=plan),
+            fused_diffusion.fused_diffusion_rk4_end_reference(ys, cfg, 50),
+        ),
+        (
+            fused_diffusion.fused_diffusion_rk4_step(ys, cfg, plan=plan),
+            fused_diffusion.fused_diffusion_rk4_step_reference(ys, cfg),
+        ),
+    ]
+    torch.cuda.synchronize()
+    for kernel, plain in checks:
+        assert kernel.shape == plain.shape
+        scale = float(plain.abs().max())
+        assert float((kernel - plain).abs().max()) <= KERNEL_TOL * scale
+
+
+@pytest.mark.cuda
+def test_cuda_k1_plan_the_card_cannot_place_raises_before_any_launch(
+    cuda_device,
+):
+    """Plans the card cannot place (2,048 threads; strips on a grid wider
+    than a warp; shared bytes that do not match the layout) are refused
+    before any launch: by the wrappers, and by the CUDA side when handed
+    to it directly (the output stays as it was, no count moves). Every
+    built instance holds 1,024 threads without a spill, as
+    tests/test_torch_fused_diffusion.py records, and the wrappers' own
+    plan then runs."""
+    cp = large_grid_problem(vars(torch_pkg), 12.5, 12.5, 0.25, True, 0.2)
+    cfg = fused_diffusion._KernelConfig(cp, 1e-3)
+    y = torch.ones((1, 51, 51), dtype=torch.float32, device=cuda_device)
+    out = torch.full_like(y, 7.0)
+    launches = fused_diffusion.fused_diffusion_rk4_end.launches
+    for plan in (
+        fused_diffusion.K1Plan("cells", 2048, cells=2),
+        fused_diffusion.K1Plan("strips", 32 * 51),
+    ):
+        assert not plan.covers(51, 51)
+        with pytest.raises(ValueError, match="does not cover"):
+            fused_diffusion.fused_diffusion_rk4_end(y, cfg, 2, plan=plan)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            fused_diffusion._launch(y, out, cfg, 2, False, plan)
+    # a plan that covers the grid, with the other layout's shared bytes
+    cfg._arguments[fused_diffusion.K1Plan("cells", 1024, cells=4)] = (
+        0, 1024, 4, 4 * 2 * 32 * 51
+    )
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fused_diffusion._launch(
+            y, out, cfg, 2, False, fused_diffusion.K1Plan("cells", 1024, 4)
+        )
+    torch.cuda.synchronize()
+    assert bool((out == 7.0).all())
+    assert fused_diffusion.fused_diffusion_rk4_end.launches == launches
+    for cells in fused_diffusion.CELLS_INSTANCES + (0,):
+        layout = "cells" if cells else "strips"
+        for convection in (False, True):
+            registers, spills, most = fused_diffusion.instance_attributes(
+                layout, cells, convection
+            )
+            assert (registers, spills) == INSTANCE_REGISTERS[
+                (layout, cells, convection)
+            ]
+            assert most == 1024
+    end = fused_diffusion.fused_diffusion_rk4_end(y, cfg, 2)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(end).all())
 
 
 @pytest.mark.cuda

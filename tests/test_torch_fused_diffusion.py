@@ -23,7 +23,7 @@ from pararealml_tpu_torch.operators.fdm import ForwardEulerMethod, RK4
 from pararealml_tpu_torch.ops import fused_diffusion as torch_fused
 from pararealml_tpu_torch.ops import resident_diffusion as torch_resident
 from pararealml_tpu_torch.ops import tiled_diffusion as torch_tiled
-from tests.test_torch_cuda import PROBLEMS
+from tests.test_torch_cuda import INSTANCE_REGISTERS, PROBLEMS
 
 torch.set_num_threads(1)
 
@@ -309,3 +309,142 @@ def test_batched_k1_and_k2_serve_the_packed_diffusion_kernel(x64_off):
     )(torch.as_tensor(ys))
     _assert_close(trajectory, expected)
     _assert_close(end, expected[:, -1])
+
+
+# -- K1-K3's plans: plain Python, no kernel and no Pallas call -------------
+
+# the plan make_k1_plan picks for each grid the plan sweep measured
+# (tools/k1_plan_sweep.py) and for grids between them (the rule: the
+# layout of the entry nearest in cells), by (height, width, batch)
+EXPECTED_PLANS = {
+    (21, 21, 1): "strips: 21 rows",
+    (21, 21, 8): "cells: 448 threads x 1",
+    (17, 17, 1): "cells: 320 threads x 1",
+    (17, 40, 1): "cells: 800 threads x 1",
+    (3, 3, 1): "strips: 3 rows",
+    (51, 51, 1): "cells: 928 threads x 4",
+    (104, 104, 1): "cells: 992 threads x 11",
+    # between the entries: 5 x 5 takes the 3 x 3 entry's strips, 17 x 17
+    # slices the B = 8 entry's one cell a thread, 41 x 41 and 90 x 90 the
+    # 51 x 51 and 104 x 104 entries' four and eleven cells a thread
+    (5, 5, 1): "strips: 5 rows",
+    (17, 17, 8): "cells: 320 threads x 1",
+    (41, 41, 1): "cells: 448 threads x 4",
+    (90, 90, 1): "cells: 768 threads x 11",
+}
+
+
+@pytest.mark.parametrize("key", sorted(EXPECTED_PLANS))
+def test_make_k1_plan_picks_the_measured_plan(key):
+    height, width, batch = key
+    assert str(torch_fused.make_k1_plan(height, width, batch)) == (
+        EXPECTED_PLANS[key]
+    )
+
+
+def test_table_plans_fit_the_card():
+    """Every table plan covers its grid within 1,024 threads and a
+    block's 232,448 B of shared memory, and every instance the source
+    builds (the cells a thread its registers are compiled for) holds
+    1,024 threads without a spill, with and without convection."""
+    for (height, width, _), plan in torch_fused._MEASURED_PLANS.items():
+        assert plan.covers(height, width), plan
+        assert plan.threads <= 1024
+        assert plan.shared_bytes(height, width) <= 232_448
+    instances = [("cells", c) for c in torch_fused.CELLS_INSTANCES]
+    for layout, cells in instances + [("strips", 0)]:
+        for convection in (False, True):
+            registers, spills = INSTANCE_REGISTERS[
+                (layout, cells, convection)
+            ]
+            assert 1024 * registers <= 65_536, (layout, cells)
+            assert spills == 0, (layout, cells)
+    assert len(INSTANCE_REGISTERS) == 2 * len(instances) + 2
+
+
+def _admitted_shapes():
+    """Grids the one-CTA gate admits: for each height, the widest it
+    admits and a few narrower ones, and the narrowest and tallest."""
+    shapes = set()
+    for height in list(range(3, 40)) + list(range(40, 3300, 37)):
+        if not torch_fused.fits_one_block(height, 3):
+            break
+        width = 3
+        step = 1024
+        while step:
+            if torch_fused.fits_one_block(height, width + step):
+                width += step
+            else:
+                step //= 2
+        shapes |= {(height, width), (height, 3), (height, max(3, width // 2))}
+        if height < 40:
+            shapes |= {(height, w) for w in range(3, min(width, 40) + 1)}
+    return sorted(shapes)
+
+
+def test_every_admitted_grid_has_a_plan():
+    shapes = _admitted_shapes()
+    assert (104, 104) in shapes or any(h * w >= 10_816 for h, w in shapes)
+    for height, width in shapes:
+        for batch in (1, 8):
+            plan = torch_fused.make_k1_plan(height, width, batch)
+            assert plan is not None, (height, width, batch)
+            assert plan.covers(height, width), (plan, height, width)
+    # and nothing past the gate
+    assert torch_fused.make_k1_plan(129, 129) is None
+
+
+@pytest.mark.parametrize(
+    "shape", [(21, 21), (17, 17), (17, 40), (3, 3), (51, 51), (104, 104)]
+)
+def test_ownership_covers_every_cell_once(shape):
+    """The plain model of the layouts' ownership: on the chosen plan, the
+    strips plan and a few cells plans of the grid, every cell is owned
+    exactly once, and each band's halo rows are the rows next to it, which
+    its neighbours own."""
+    height, width = shape
+    chosen = torch_fused.make_k1_plan(height, width)
+    plans = [chosen] + [
+        plan
+        for plan in torch_fused.k1_plans(height, width)
+        if plan.layout == "strips" or plan.threads in (32, 1024)
+    ]
+    for plan in plans:
+        owners, halos = torch_fused.ownership(plan, height, width)
+        cells = list(owners.values())
+        assert len(cells) == len(set(cells)) == height * width, plan
+        if plan.layout == "cells":
+            # interior cells first: a thread's cells past the interior
+            # count are face cells
+            interior = (height - 2) * (width - 2)
+            for (thread, slot), (i, j) in owners.items():
+                q = thread + slot * plan.threads
+                on_face = i in (0, height - 1) or j in (0, width - 1)
+                assert on_face == (q >= interior)
+            continue
+        assert len(halos) == plan.threads // 32 == height
+        bands = {}
+        for (thread, _), (i, _) in owners.items():
+            bands.setdefault(thread // 32, set()).add(i)
+        for band, ((first, end), above, below) in enumerate(halos):
+            assert bands[band] == set(range(first, end)) == {band}
+            assert above == (first - 1 if band else None)
+            assert below == (end if band < height - 1 else None)
+            if above is not None:
+                assert above in bands[band - 1]
+            if below is not None:
+                assert below in bands[band + 1]
+
+
+def test_wrappers_refuse_a_plan_that_does_not_cover_the_grid():
+    _, cp = _problems("flagship")
+    cfg = torch_fused._KernelConfig(cp, D_T)
+    y = torch.zeros(cp.mesh.vertices_shape, dtype=torch.float32)
+    # too few threads for the instance's cells, and strips of 8 rows for
+    # 21 rows
+    for plan in (
+        torch_fused.K1Plan("cells", 32, cells=1),
+        torch_fused.K1Plan("strips", 256),
+    ):
+        with pytest.raises(ValueError, match="does not cover"):
+            torch_fused.fused_diffusion_rk4_end(y, cfg, 2, plan=plan)
