@@ -21,6 +21,7 @@ from pararealml_tpu_torch.initial_value_problem import (
     TemporalDomainInterval,
 )
 from pararealml_tpu_torch.solution import Solution
+from pararealml_tpu_torch.utils import tracing
 
 
 class Operator:
@@ -138,3 +139,28 @@ def discretize_time_domain(
     t_0 = float(t[0])
     steps = int(round((t[1] - t_0) / d_t))
     return np.linspace(t_0, t_0 + steps * d_t, steps + 1)
+
+
+def materialize_solution(
+    ivp: InitialValueProblem,
+    t_coordinates: np.ndarray,
+    ys: torch.Tensor,
+    vertex_oriented: Optional[bool],
+    d_t: float,
+) -> Solution:
+    """The :class:`Solution` of a trajectory on the device: ``ys`` in
+    float64 on the host (span ``solve.to_host``), then the ``Solution``
+    built from it (span ``solution.build``), which copies it; the host
+    intermediate is freed inside the latter span."""
+    with tracing.span("solve.to_host", bytes=ys.numel() * 8):
+        host = ys.to(torch.float64).cpu().numpy()
+    with tracing.span("solution.build"):
+        solution = Solution(
+            ivp,
+            t_coordinates,
+            host,
+            vertex_oriented=vertex_oriented,
+            d_t=d_t,
+        )
+        del host
+    return solution

@@ -54,6 +54,7 @@ from pararealml_tpu_torch.initial_value_problem import InitialValueProblem
 from pararealml_tpu_torch.operator import (
     TorchOperator,
     discretize_time_domain,
+    materialize_solution,
 )
 from pararealml_tpu_torch.operators.fdm.fdm_symbol_mapper import (
     FDMSymbolMapArg,
@@ -68,6 +69,7 @@ from pararealml_tpu_torch.operators.fdm.numerical_integrator import (
     NumericalIntegrator,
 )
 from pararealml_tpu_torch.solution import Solution
+from pararealml_tpu_torch.utils import tracing
 
 
 def _require_static(cp: ConstrainedProblem):
@@ -163,42 +165,41 @@ class FDMOperator(TorchOperator):
     def solve(
         self, ivp: InitialValueProblem, parallel_enabled: bool = True
     ) -> Solution:
-        cp = ivp.constrained_problem
-        _require_static(cp)
-        t = discretize_time_domain(ivp.t_interval, self._d_t)
-        steps = len(t) - 1
-        if steps < 1:
-            raise ValueError(
-                "time interval must span at least one full time step"
-            )
+        with tracing.span("fdm.solve"):
+            cp = ivp.constrained_problem
+            _require_static(cp)
+            t = discretize_time_domain(ivp.t_interval, self._d_t)
+            steps = len(t) - 1
+            if steps < 1:
+                raise ValueError(
+                    "time interval must span at least one full time step"
+                )
 
-        dtype, device = self.dtype, self.device
-        y_0 = torch.as_tensor(
-            ivp.initial_condition.discrete_y_0(True),
-            dtype=dtype,
-            device=device,
-        )
-        # the cached problem object is stored alongside the built
-        # function, both to pin its id (CPython may otherwise reuse the
-        # address for a new problem, silently returning a stale solver)
-        # and to guard against id collisions explicitly
-        cache_key = (id(cp), steps, dtype, device)
-        entry = self._compiled_cache.get(cache_key)
-        if entry is None or entry[0] is not cp:
-            entry = (
-                cp,
-                self._build_trajectory_fn(cp, steps, dtype=dtype),
-            )
-            self._compiled_cache[cache_key] = entry
+            dtype, device = self.dtype, self.device
+            with tracing.span("solve.initial_state"):
+                y_0 = torch.as_tensor(
+                    ivp.initial_condition.discrete_y_0(True),
+                    dtype=dtype,
+                    device=device,
+                )
+            # the cached problem object is stored alongside the built
+            # function, both to pin its id (CPython may otherwise reuse
+            # the address for a new problem, silently returning a stale
+            # solver) and to guard against id collisions explicitly
+            cache_key = (id(cp), steps, dtype, device)
+            entry = self._compiled_cache.get(cache_key)
+            if entry is None or entry[0] is not cp:
+                entry = (
+                    cp,
+                    self._build_trajectory_fn(cp, steps, dtype=dtype),
+                )
+                self._compiled_cache[cache_key] = entry
 
-        ys = entry[1](y_0, float(t[0]))
-        return Solution(
-            ivp,
-            t[1:],
-            ys.to(torch.float64).cpu().numpy(),
-            vertex_oriented=True,
-            d_t=self._d_t,
-        )
+            with tracing.span("solve.trajectory"):
+                ys = entry[1](y_0, float(t[0]))
+            return materialize_solution(
+                ivp, t[1:], ys, vertex_oriented=True, d_t=self._d_t
+            )
 
     def trajectory_function(
         self,

@@ -44,8 +44,10 @@ from pararealml_tpu_torch.operator import (
     Operator,
     TorchOperator,
     discretize_time_domain,
+    materialize_solution,
 )
 from pararealml_tpu_torch.solution import Solution
+from pararealml_tpu_torch.utils import tracing
 
 
 def _not_ported(feature: str, where: str = "slice 3") -> NotImplementedError:
@@ -137,22 +139,27 @@ class SupervisedMLOperator(TorchOperator):
     ) -> Solution:
         if self._model is None:
             raise ValueError("operator has no model")
-        cp = ivp.constrained_problem
-        t = discretize_time_domain(ivp.t_interval, self._d_t)
-        trajectory, _ = self.trajectory_function(cp, ivp.t_interval)
-        y_0 = torch.as_tensor(
-            ivp.initial_condition.discrete_y_0(self._vertex_oriented),
-            dtype=self.dtype,
-            device=self.device,
-        )
-        ys = trajectory(y_0, float(t[0]))
-        return Solution(
-            ivp,
-            t[1:],
-            ys.to(torch.float64).cpu().numpy(),
-            vertex_oriented=self._vertex_oriented,
-            d_t=self._d_t,
-        )
+        with tracing.span("supervised_ml.solve"):
+            cp = ivp.constrained_problem
+            t = discretize_time_domain(ivp.t_interval, self._d_t)
+            trajectory, _ = self.trajectory_function(cp, ivp.t_interval)
+            with tracing.span("solve.initial_state"):
+                y_0 = torch.as_tensor(
+                    ivp.initial_condition.discrete_y_0(
+                        self._vertex_oriented
+                    ),
+                    dtype=self.dtype,
+                    device=self.device,
+                )
+            with tracing.span("solve.trajectory"):
+                ys = trajectory(y_0, float(t[0]))
+            return materialize_solution(
+                ivp,
+                t[1:],
+                ys,
+                vertex_oriented=self._vertex_oriented,
+                d_t=self._d_t,
+            )
 
     def _build_apply_model(self, cp):
         """Resolves the per-step model application ``apply_model(y_flat,

@@ -46,8 +46,10 @@ from pararealml_tpu_torch.operator import (
     Operator,
     TorchOperator,
     discretize_time_domain,
+    materialize_solution,
 )
 from pararealml_tpu_torch.solution import Solution
+from pararealml_tpu_torch.utils import tracing
 
 TerminationCondition = Union[
     float, Sequence[float], Callable[[np.ndarray, np.ndarray], bool]
@@ -221,23 +223,28 @@ class PararealOperator(TorchOperator):
         if not parallel_enabled:
             return self._f.solve(ivp)
 
-        cp = ivp.constrained_problem
-        t_interval = ivp.t_interval
-        program = self._program_for(cp, t_interval)
-        y_0 = torch.as_tensor(
-            ivp.initial_condition.discrete_y_0(self._vertex_oriented),
-            dtype=self.dtype,
-            device=self.device,
-        )
-        y_fine = program(y_0, float(t_interval[0]))
-        t = discretize_time_domain(t_interval, self._f.d_t)[1:]
-        return Solution(
-            ivp,
-            t,
-            y_fine.to(torch.float64).cpu().numpy(),
-            vertex_oriented=self._vertex_oriented,
-            d_t=self._f.d_t,
-        )
+        with tracing.span("parareal.solve"):
+            cp = ivp.constrained_problem
+            t_interval = ivp.t_interval
+            program = self._program_for(cp, t_interval)
+            with tracing.span("solve.initial_state"):
+                y_0 = torch.as_tensor(
+                    ivp.initial_condition.discrete_y_0(
+                        self._vertex_oriented
+                    ),
+                    dtype=self.dtype,
+                    device=self.device,
+                )
+            with tracing.span("solve.trajectory"):
+                y_fine = program(y_0, float(t_interval[0]))
+            t = discretize_time_domain(t_interval, self._f.d_t)[1:]
+            return materialize_solution(
+                ivp,
+                t,
+                y_fine,
+                vertex_oriented=self._vertex_oriented,
+                d_t=self._f.d_t,
+            )
 
     def trajectory_function(
         self,
@@ -474,69 +481,84 @@ class PararealOperator(TorchOperator):
             ).reshape((n,) + (1,) * len(y_shape))
 
             # initial coarse sweep
-            if affine_sweep is not None:
-                # corrections-free special case of the corrective sweep
-                y_borders, coarse_ends = affine_sweep(
-                    0,
-                    torch.cat(
-                        [
-                            y_init[None],
-                            y_init.new_zeros((n,) + tuple(y_shape)),
-                        ]
-                    ),
-                    y_init.new_zeros((n,) + tuple(y_shape)),
-                )
-            else:
-                if coarse_whole_fn is not None:
-                    coarse_ends = coarse_whole_fn(y_init, t_0)[
-                        coarse_steps_per_slice - 1:: coarse_steps_per_slice
-                    ]
+            with tracing.span("parareal.coarse_sweep"):
+                if affine_sweep is not None:
+                    # corrections-free special case of the corrective
+                    # sweep
+                    y_borders, coarse_ends = affine_sweep(
+                        0,
+                        torch.cat(
+                            [
+                                y_init[None],
+                                y_init.new_zeros((n,) + tuple(y_shape)),
+                            ]
+                        ),
+                        y_init.new_zeros((n,) + tuple(y_shape)),
+                    )
                 else:
-                    y = y_init
-                    pieces = []
-                    for j in range(n):
-                        y = coarse_end(y, slice_starts[j])
-                        pieces.append(y)
-                    coarse_ends = torch.stack(pieces)
-                y_borders = torch.cat([y_init[None], coarse_ends])
+                    if coarse_whole_fn is not None:
+                        coarse_ends = coarse_whole_fn(y_init, t_0)[
+                            coarse_steps_per_slice - 1::
+                            coarse_steps_per_slice
+                        ]
+                    else:
+                        y = y_init
+                        pieces = []
+                        for j in range(n):
+                            y = coarse_end(y, slice_starts[j])
+                            pieces.append(y)
+                        coarse_ends = torch.stack(pieces)
+                    y_borders = torch.cat([y_init[None], coarse_ends])
 
             i = 0
             converged = False
             while i < iterations and not converged:
-                # every slice's fine solve in one batched call
-                fine_ends = fine_end(y_borders[:-1], slice_times)
-                corrections = fine_ends - coarse_ends
-                old_ends = y_borders[1:].clone()
-                if affine_sweep is not None:
-                    # log-depth doubling scan instead of n dependent
-                    # coarse solves
-                    y_borders, coarse_ends = affine_sweep(
-                        i, y_borders, corrections
-                    )
-                else:
-                    y_borders = y_borders.clone()
-                    coarse_ends = coarse_ends.clone()
-                    # slices before the iteration index are already
-                    # exact; border i + 1 keeps the carried coarse end
-                    for j in range(i, n):
-                        if j > i:
-                            coarse_ends[j] = coarse_end(
-                                y_borders[j], slice_starts[j]
+                with tracing.span("parareal.iteration", i=i):
+                    # every slice's fine solve in one batched call
+                    with tracing.span("parareal.fine_ends"):
+                        fine_ends = fine_end(y_borders[:-1], slice_times)
+                    with tracing.span("parareal.correction"):
+                        corrections = fine_ends - coarse_ends
+                        old_ends = y_borders[1:].clone()
+                        if affine_sweep is not None:
+                            # log-depth doubling scan instead of n
+                            # dependent coarse solves
+                            y_borders, coarse_ends = affine_sweep(
+                                i, y_borders, corrections
                             )
-                        y_borders[j + 1] = coarse_ends[j] + corrections[j]
-                # the early exit is decided on the host
-                converged = bool(termination(old_ends, y_borders[1:]))
+                        else:
+                            y_borders = y_borders.clone()
+                            coarse_ends = coarse_ends.clone()
+                            # slices before the iteration index are
+                            # already exact; border i + 1 keeps the
+                            # carried coarse end
+                            for j in range(i, n):
+                                if j > i:
+                                    coarse_ends[j] = coarse_end(
+                                        y_borders[j], slice_starts[j]
+                                    )
+                                y_borders[j + 1] = (
+                                    coarse_ends[j] + corrections[j]
+                                )
+                    # the early exit is decided on the host
+                    with tracing.span("parareal.termination"):
+                        converged = bool(
+                            termination(old_ends, y_borders[1:])
+                        )
                 i += 1
             self.last_iterations = i
 
             # materialize the fine trajectories once, from the FINAL
             # borders, in one batched call; then shift each onto its
             # corrected end border (the reference's final shift)
-            sub_y_fine = fine_expand(y_borders[:-1], slice_times)
-            last = (slice(None), -1) + (slice(None),) * len(y_shape)
-            shifts = y_borders[1:] - sub_y_fine[last]
-            sub_y_fine = sub_y_fine + shifts[:, None]
-            return sub_y_fine.reshape((n * fine_steps,) + tuple(y_shape))
+            with tracing.span("parareal.expand"):
+                sub_y_fine = fine_expand(y_borders[:-1], slice_times)
+                last = (slice(None), -1) + (slice(None),) * len(y_shape)
+                shifts = y_borders[1:] - sub_y_fine[last]
+                sub_y_fine = sub_y_fine + shifts[:, None]
+                return sub_y_fine.reshape(
+                    (n * fine_steps,) + tuple(y_shape)
+                )
 
         return program
 

@@ -61,6 +61,7 @@ from pararealml_tpu_torch.differential_equation import (
     DiffusionEquation,
 )
 from pararealml_tpu_torch.mesh import CoordinateSystem
+from pararealml_tpu_torch.utils import tracing
 
 # the dynamic shared memory one CTA can opt into on Hopper (232,448 B)
 MAX_SHARED_MEMORY_BYTES = 227 * 1024
@@ -792,6 +793,14 @@ def _check_plan(cfg: _KernelConfig, plan: Optional[K1Plan]):
         )
 
 
+def _count_steps(y: torch.Tensor, cfg: _KernelConfig, n_steps: int):
+    """Adds the RK4 steps of a call, its states times ``n_steps``, to the
+    innermost span's ``rk4_state_steps``."""
+    tracing.count(
+        "rk4_state_steps", y.numel() // (cfg.height * cfg.width) * n_steps
+    )
+
+
 def fused_diffusion_rk4_trajectory(
     y: torch.Tensor,
     cfg: _KernelConfig,
@@ -804,7 +813,9 @@ def fused_diffusion_rk4_trajectory(
     cfg.check_state(y)
     _check_plan(cfg, plan)
     if y.device.type == "cpu":
-        return fused_diffusion_rk4_trajectory_reference(y, cfg, n_steps)
+        out = fused_diffusion_rk4_trajectory_reference(y, cfg, n_steps)
+        _count_steps(y, cfg, n_steps)
+        return out
     batch = y.reshape(-1, cfg.height, cfg.width)
     out = torch.empty(
         (batch.shape[0], n_steps, cfg.height, cfg.width),
@@ -813,6 +824,7 @@ def fused_diffusion_rk4_trajectory(
     )
     _launch(batch, out, cfg, n_steps, True, plan)
     fused_diffusion_rk4_trajectory.launches += 1
+    _count_steps(y, cfg, n_steps)
     return out if y.ndim == 3 else out[0]
 
 
@@ -828,11 +840,14 @@ def fused_diffusion_rk4_end(
     cfg.check_state(y)
     _check_plan(cfg, plan)
     if y.device.type == "cpu":
-        return fused_diffusion_rk4_end_reference(y, cfg, n_steps)
+        out = fused_diffusion_rk4_end_reference(y, cfg, n_steps)
+        _count_steps(y, cfg, n_steps)
+        return out
     batch = y.reshape(-1, cfg.height, cfg.width)
     out = torch.empty_like(batch)
     _launch(batch, out, cfg, n_steps, False, plan)
     fused_diffusion_rk4_end.launches += 1
+    _count_steps(y, cfg, n_steps)
     return out.reshape(y.shape)
 
 
@@ -845,7 +860,9 @@ def fused_diffusion_rk4_step(
     cfg.check_state(y)
     _check_plan(cfg, plan)
     if y.device.type == "cpu":
-        return fused_diffusion_rk4_step_reference(y, cfg)
+        out = fused_diffusion_rk4_step_reference(y, cfg)
+        _count_steps(y, cfg, 1)
+        return out
     batch = y.reshape(-1, cfg.height, cfg.width)
     out = torch.empty(
         (batch.shape[0], 1, cfg.height, cfg.width),
@@ -854,6 +871,7 @@ def fused_diffusion_rk4_step(
     )
     _launch(batch, out, cfg, 1, True, plan)
     fused_diffusion_rk4_step.launches += 1
+    _count_steps(y, cfg, 1)
     return out.reshape(y.shape)
 
 

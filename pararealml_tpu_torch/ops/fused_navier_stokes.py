@@ -58,6 +58,7 @@ from pararealml_tpu_torch.ops.fused_system import (
     _SystemKernelConfig,
     states,
 )
+from pararealml_tpu_torch.utils import tracing
 
 CLUSTER_SIZES = (1, 2, 4, 8)
 # the Jacobi sweeps a group runs between cluster barriers: the kernel's
@@ -569,7 +570,15 @@ def _run(wrapper, y, cfg, n_steps, write_trajectory, cluster_size, plan):
     )
     wrapper.launches += 1
     wrapper.sweeps = sweeps.reshape(tuple(y.shape[:-3]))
+    _count_steps(y, cfg, n_steps)
     return out
+
+
+def _count_steps(y: torch.Tensor, cfg: _NavierStokesConfig, n_steps: int):
+    """Adds the RK4 steps of a call, its states times ``n_steps``, to the
+    innermost span's ``rk4_state_steps``."""
+    states = y.numel() // math.prod(cfg.state_shape)
+    tracing.count("rk4_state_steps", states * n_steps)
 
 
 def fused_navier_stokes_rk4_trajectory(
@@ -589,6 +598,7 @@ def fused_navier_stokes_rk4_trajectory(
         out, wrapper.sweeps = fused_navier_stokes_rk4_trajectory_reference(
             y, cfg, n_steps
         )
+        _count_steps(y, cfg, n_steps)
         return out
     out = _run(wrapper, y, cfg, n_steps, True, cluster_size, plan)
     return out if y.ndim == 4 else out[0]
@@ -610,6 +620,7 @@ def fused_navier_stokes_rk4_end(
         out, wrapper.sweeps = fused_navier_stokes_rk4_end_reference(
             y, cfg, n_steps
         )
+        _count_steps(y, cfg, n_steps)
         return out
     return _run(
         wrapper, y, cfg, n_steps, False, cluster_size, plan
@@ -628,6 +639,7 @@ def fused_navier_stokes_rk4_step(
     cfg.check_state(y)
     if y.device.type == "cpu":
         out, wrapper.sweeps = fused_navier_stokes_rk4_step_reference(y, cfg)
+        _count_steps(y, cfg, 1)
         return out
     return _run(wrapper, y, cfg, 1, True, cluster_size, plan).reshape(
         y.shape
