@@ -148,19 +148,41 @@ def materialize_solution(
     vertex_oriented: Optional[bool],
     d_t: float,
 ) -> Solution:
-    """The :class:`Solution` of a trajectory on the device: ``ys`` in
-    float64 on the host (span ``solve.to_host``), then the ``Solution``
-    built from it (span ``solution.build``), which copies it; the host
-    intermediate is freed inside the latter span."""
+    """The :class:`Solution` of a trajectory: ``ys`` in float64 on the
+    host (span ``solve.to_host``), then the ``Solution`` built from it
+    (span ``solution.build``).
+
+    A trajectory on the card is widened there and crosses to the host
+    once, into page-locked memory from torch's caching host allocator
+    (count ``to_host_pinned``), which the ``Solution`` adopts as its own
+    array: the block returns to the allocator's cache when the
+    ``Solution`` is freed. Where the host cannot lock more memory, the
+    trajectory lands in a new pageable array, adopted the same way. A
+    trajectory on the CPU may be the operator's own tensor, so the
+    ``Solution`` copies it."""
     with tracing.span("solve.to_host", bytes=ys.numel() * 8):
-        host = ys.to(torch.float64).cpu().numpy()
+        on_host = ys.device.type == "cpu"
+        wide = ys.to(torch.float64)
+        host = wide.numpy() if on_host else _page_locked_copy(wide)
     with tracing.span("solution.build"):
-        solution = Solution(
+        build = Solution if on_host else Solution._adopt
+        return build(
             ivp,
             t_coordinates,
             host,
             vertex_oriented=vertex_oriented,
             d_t=d_t,
         )
-        del host
-    return solution
+
+
+def _page_locked_copy(wide: torch.Tensor) -> np.ndarray:
+    """A new host copy of the device tensor ``wide``, in page-locked
+    memory where the host can lock it and in pageable memory otherwise;
+    complete when this returns."""
+    try:
+        host = torch.empty(wide.shape, dtype=wide.dtype, pin_memory=True)
+    except RuntimeError:
+        return wide.cpu().numpy()
+    host.copy_(wide)
+    tracing.count("to_host_pinned", 1)
+    return host.numpy()

@@ -3,9 +3,12 @@
 Capability match for PararealML's solution.py:25-336: holds
 the discrete trajectory, supports spatial interpolation, orientation
 resampling and cross-solution differencing at matching time points.
-Trajectories live as host NumPy arrays (solvers transfer their device
-output once). Plot generation is not ported yet (ROADMAP.md, Queue 1,
-slice 8).
+Trajectories live as float64 host NumPy arrays. A solve on the card
+copies its trajectory to the host once, into page-locked memory that the
+``Solution`` adopts without a copy (``Solution._adopt``, used by
+``operator.materialize_solution``); a ``Solution`` built by its
+constructor copies the array it is given. Plot generation is not ported
+yet (ROADMAP.md, Queue 1, slice 8).
 """
 
 from __future__ import annotations
@@ -35,6 +38,29 @@ class Solution:
         vertex_oriented: Optional[bool] = None,
         d_t: Optional[float] = None,
     ):
+        self._build(
+            ivp, t_coordinates, discrete_y, vertex_oriented, d_t, copy=True
+        )
+
+    @classmethod
+    def _adopt(
+        cls, ivp: InitialValueProblem,
+        t_coordinates: np.ndarray, discrete_y: np.ndarray,
+        vertex_oriented: Optional[bool] = None,
+        d_t: Optional[float] = None,
+    ) -> "Solution":
+        """A solution that takes the float64 array ``discrete_y`` as its
+        own trajectory, with the constructor's checks and without its
+        copy: the caller gives the array up."""
+        solution = cls.__new__(cls)
+        solution._build(
+            ivp, t_coordinates, discrete_y, vertex_oriented, d_t, copy=False
+        )
+        return solution
+
+    def _build(
+        self, ivp, t_coordinates, discrete_y, vertex_oriented, d_t, copy
+    ):
         times = np.asarray(t_coordinates, dtype=float)
         trajectory = np.asarray(discrete_y, dtype=float)
 
@@ -60,7 +86,7 @@ class Solution:
 
         self._problem = ivp
         self._times = times.copy()
-        self._trajectory = trajectory.copy()
+        self._trajectory = trajectory.copy() if copy else trajectory
         self._on_vertices = vertex_oriented
         self._times.setflags(write=False)
 

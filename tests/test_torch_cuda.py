@@ -3,10 +3,12 @@ builders the port's tests share.
 
 The tests here are marked ``cuda`` and skip where
 ``torch.cuda.is_available()`` is false: they hold each CUDA kernel
-against its plain PyTorch version on the same CUDA tensors, and the
-slice's Parareal on the card against the same solve on the CPU. This
-file imports no JAX, so it runs on a GPU machine without JAX or the JAX
-package (the suite's conftest imports JAX, hence ``--noconftest``)::
+against its plain PyTorch version on the same CUDA tensors, the
+slice's Parareal on the card against the same solve on the CPU, and the
+trajectory's one page-locked copy to the host that a ``Solution``
+adopts. This file imports no JAX, so it runs on a GPU machine without JAX
+or the JAX package (the suite's conftest imports JAX, hence
+``--noconftest``)::
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda.py
@@ -17,9 +19,11 @@ import os
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 import pararealml_tpu_torch as torch_pkg
 from bench import build_problem
+from pararealml_tpu_torch.operator import materialize_solution
 from pararealml_tpu_torch.operators.fdm import (
     RK4,
     FDMOperator,
@@ -35,7 +39,7 @@ from pararealml_tpu_torch.ops import fused_system
 from pararealml_tpu_torch.ops import fused_system_3d, packed_system
 from pararealml_tpu_torch.ops import resident_diffusion, tiled_diffusion
 from pararealml_tpu_torch.ops import tiled_system
-from pararealml_tpu_torch.utils import load_pytree
+from pararealml_tpu_torch.utils import load_pytree, tracing
 
 torch.set_num_threads(1)
 
@@ -1453,3 +1457,103 @@ def test_cuda_cluster_mode_refuses_and_never_falls_back(
     torch.cuda.synchronize()
     assert torch.equal(end, frames[:, -1])
     assert fused_system.cluster_system_rk4_trajectory.launches == launches + 1
+
+
+def _bits(array):
+    """A float64 array's bit patterns, to compare bit for bit."""
+    return np.ascontiguousarray(array).view(np.uint64)
+
+
+def _to_host_counts(solve):
+    """``solve()`` under a CPU-only profile, and the counts of its
+    ``solve.to_host`` spans."""
+    tracing.clear()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            result = solve()
+        return result, [
+            r.counts for r in tracing.spans() if r.name == "solve.to_host"
+        ]
+    finally:
+        tracing.clear()
+
+
+@pytest.mark.cuda
+def test_cuda_solution_adopts_one_page_locked_copy(cuda_device):
+    """A float32 trajectory on the card reaches the ``Solution`` as one
+    page-locked float64 host array, C-contiguous and bit for bit
+    ``ys.to(torch.float64).cpu().numpy()``, counted once in
+    ``solve.to_host``; the array outlives the device trajectory, the
+    device cache and a second trajectory of the same shape (which reuses
+    no live block)."""
+    ivp = build_problem(vars(torch_pkg), 1.0, d_x=1.0)
+    times = 0.025 * np.arange(1, 41)
+    shape = (40,) + tuple(ivp.constrained_problem.y_shape(True))
+    rng = np.random.default_rng(0)
+    ys = torch.as_tensor(
+        rng.uniform(-1.0, 1.0, shape).astype(np.float32), device=cuda_device
+    )
+    expected = ys.to(torch.float64).cpu().numpy()
+    solution, counts = _to_host_counts(
+        lambda: materialize_solution(ivp, times, ys, True, 0.025)
+    )
+    assert counts == [{"to_host_pinned": 1}]
+    array = solution._trajectory
+    assert array.dtype == np.float64 and array.flags["C_CONTIGUOUS"]
+    assert isinstance(array.base, torch.Tensor) and array.base.is_pinned()
+    assert np.array_equal(_bits(array), _bits(expected))
+
+    del ys
+    torch.cuda.empty_cache()
+    other = materialize_solution(
+        ivp, times, torch.zeros(shape, device=cuda_device), True, 0.025
+    )
+    assert not np.shares_memory(other._trajectory, array)
+    assert np.array_equal(_bits(solution.discrete_y()), _bits(expected))
+    assert not other.discrete_y().any()
+
+
+@pytest.mark.cuda
+def test_cuda_navier_stokes_solve_equals_the_pageable_path(
+    cuda_device, monkeypatch
+):
+    """The example's 101 x 81 Navier-Stokes problem, 20 steps on the
+    card: the solve through the page-locked copy gives the same float64
+    trajectory, bit for bit, before and after a solve of another IVP,
+    and as the same solve when the host refuses to lock memory and the
+    trajectory takes a pageable copy (the path before the page-locked
+    one), which counts no ``to_host_pinned``."""
+    cp = navier_stokes_problem(vars(torch_pkg), example=True)
+
+    def ivp(seed):
+        ic = torch_pkg.DiscreteInitialCondition(
+            cp, _navier_stokes_states((101, 81), seed=seed), True
+        )
+        return torch_pkg.InitialValueProblem(cp, (0.0, 1.0), ic)
+
+    operator = FDMOperator(
+        RK4(), ThreePointCentralDifferenceMethod(), 0.05, dtype=torch.float32
+    )
+    first, counts = _to_host_counts(lambda: operator.solve(ivp(0)))
+    assert counts == [{"to_host_pinned": 1}]
+    expected = first.discrete_y()
+    assert expected.shape == (20, 101, 81, 4)
+    assert np.isfinite(expected).all()
+    operator.solve(ivp(1))
+    again = operator.solve(ivp(0))
+    assert np.array_equal(_bits(again.discrete_y()), _bits(expected))
+
+    empty = torch.empty
+
+    def no_page_locking(*args, pin_memory=False, **kwargs):
+        if pin_memory:
+            raise RuntimeError("the host cannot lock more memory")
+        return empty(*args, **kwargs)
+
+    monkeypatch.setattr(torch, "empty", no_page_locking)
+    pageable, counts = _to_host_counts(lambda: operator.solve(ivp(0)))
+    assert counts == [{}]
+    base = pageable._trajectory.base
+    assert not (isinstance(base, torch.Tensor) and base.is_pinned())
+    assert np.array_equal(_bits(pageable.discrete_y()), _bits(expected))
+    assert np.array_equal(_bits(first.discrete_y()), _bits(expected))

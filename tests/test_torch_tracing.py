@@ -115,6 +115,17 @@ def test_fdm_solve_gives_one_root_with_its_layers():
     _check_no_program_event(prof, records)
 
 
+def test_a_cpu_solve_counts_no_page_locked_copy():
+    """The CPU trajectory is copied into the ``Solution``: no
+    ``to_host_pinned`` count anywhere in the solve."""
+    ivp = build_problem(vars(torch_pkg), T_END, d_x=1.0)
+    _, _, records = _profiled(lambda: _fdm(FINE_D_T).solve(ivp))
+    assert [r.name for r in records if r.name == "solve.to_host"] == [
+        "solve.to_host"
+    ]
+    assert not any("to_host_pinned" in r.counts for r in records)
+
+
 def test_parareal_solve_gives_one_root_with_the_schedule_inside():
     ivp = build_problem(vars(torch_pkg), T_END, d_x=1.0)
     operator = PararealOperator(

@@ -12,8 +12,12 @@ the best of three passes).
 beside the idle device time by innermost program span (seconds over the
 window and ms a solve), the spans a solve, the median and 99th percentile
 of the anchor residuals (how much later than its ``bench.solve`` each
-solve's root span opened, after the clocks' offset is taken out), and the
-idle time the pieces add up to against ``window_s - busy_s``.
+solve's root span opened, after the clocks' offset is taken out), the
+idle time the pieces add up to against ``window_s - busy_s``, each
+span's median duration, the ``to_host_pinned`` count a solve
+(trajectories that reached the host in page-locked memory) and torch's
+page-locked host memory statistics after the window
+(``torch.cuda.host_memory_stats()``).
 
 Run it from the repository root; ``results.json`` gets the same object
 the last line prints.
@@ -88,6 +92,9 @@ def cell(workload: str, seed: int, seconds: float) -> dict:
 
     def capture(names, state):
         captured["run"] = state
+        # the page-locked host memory after the window, the sampled
+        # solutions still held
+        captured["host_memory"] = torch.cuda.host_memory_stats()
         return metric_values(names, state)
 
     run.metric_values = capture
@@ -105,6 +112,7 @@ def cell(workload: str, seed: int, seconds: float) -> dict:
         "metrics": {k: v["value"] for k, v in result["metrics"].items()},
         "device": result["device"],
         "breakdown": result.get("breakdown"),
+        "host_memory": captured["host_memory"],
     }
     if found is None:
         report["spans"] = None
@@ -132,6 +140,17 @@ def cell(workload: str, seed: int, seconds: float) -> dict:
         "window_less_busy_s": expected_s,
         "closure": pieces_s / expected_s - 1.0 if expected_s else None,
         "steps": found.steps,
+        "span_us_median": {
+            name: statistics.median(
+                (r.end_ns - r.start_ns) / 1e3
+                for r in records
+                if r.name == name and r.end_ns is not None
+            )
+            for name in sorted({r.name for r in records})
+        },
+        "to_host_pinned_a_solve": sum(
+            r.counts.get("to_host_pinned", 0) for r in records
+        ) / found.solves,
     }
     return report
 
