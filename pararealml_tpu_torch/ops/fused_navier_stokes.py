@@ -53,12 +53,12 @@ from pararealml_tpu_torch.differential_equation import NavierStokesEquation
 from pararealml_tpu_torch.mesh import CoordinateSystem
 from pararealml_tpu_torch.ops.fused_system import (
     MAX_SHARED_MEMORY_BYTES,
+    _count_steps,
     _jacobi_sweep_reference,
     _navier_stokes_step_reference,
     _SystemKernelConfig,
     states,
 )
-from pararealml_tpu_torch.utils import tracing
 
 CLUSTER_SIZES = (1, 2, 4, 8)
 # the Jacobi sweeps a group runs between cluster barriers: the kernel's
@@ -572,13 +572,6 @@ def _run(wrapper, y, cfg, n_steps, write_trajectory, cluster_size, plan):
     wrapper.sweeps = sweeps.reshape(tuple(y.shape[:-3]))
     _count_steps(y, cfg, n_steps)
     return out
-
-
-def _count_steps(y: torch.Tensor, cfg: _NavierStokesConfig, n_steps: int):
-    """Adds the RK4 steps of a call, its states times ``n_steps``, to the
-    innermost span's ``rk4_state_steps``."""
-    states = y.numel() // math.prod(cfg.state_shape)
-    tracing.count("rk4_state_steps", states * n_steps)
 
 
 def fused_navier_stokes_rk4_trajectory(

@@ -32,7 +32,10 @@ Each kernel has a wrapper and a plain PyTorch version beside it:
   ``fused_system_rk4_step`` check their input, and launch the kernel for
   a CUDA tensor or run the plain version for a CPU tensor. There is no
   fallback: on a CUDA tensor the kernel runs or the wrapper raises. Each
-  counts its kernel launches in a plain integer attribute, ``launches``.
+  counts its kernel launches in a plain integer attribute, ``launches``,
+  and its states times steps, on the card and in its plain version alike,
+  in the innermost span's ``rk4_state_steps`` (``utils/tracing.py``). So
+  do the cluster-resident mode's wrappers.
 - ``fused_system_rk4_{trajectory,end,step}_reference`` are the plain
   versions, following the JAX package's ``_make_rhs_builder``,
   ``_make_step_factory`` and ``_StencilHelpers`` term for term, the polar
@@ -93,6 +96,7 @@ from pararealml_tpu_torch.operators.fdm.numerical_differentiator import (
     jacobi,
 )
 from pararealml_tpu_torch.ops.fused_diffusion import padded_cells
+from pararealml_tpu_torch.utils import tracing
 
 # the dynamic shared memory one CTA can opt into on Hopper (232,448 B)
 MAX_SHARED_MEMORY_BYTES = 227 * 1024
@@ -1031,6 +1035,13 @@ def trajectory_buffer(
     )
 
 
+def _count_steps(y: torch.Tensor, cfg: _SystemKernelConfig, n_steps: int):
+    """Adds the RK4 steps of a call, its states times ``n_steps``, to the
+    innermost span's ``rk4_state_steps``."""
+    states = y.numel() // math.prod(cfg.state_shape)
+    tracing.count("rk4_state_steps", states * n_steps)
+
+
 def fused_system_rk4_trajectory(
     y: torch.Tensor, cfg: _SystemKernelConfig, n_steps: int
 ) -> torch.Tensor:
@@ -1039,11 +1050,14 @@ def fused_system_rk4_trajectory(
     n_steps, H, W, n)`` (one CTA per state)."""
     cfg.check_state(y)
     if y.device.type == "cpu":
-        return fused_system_rk4_trajectory_reference(y, cfg, n_steps)
+        out = fused_system_rk4_trajectory_reference(y, cfg, n_steps)
+        _count_steps(y, cfg, n_steps)
+        return out
     batch = y.reshape((-1,) + cfg.state_shape)
     out = trajectory_buffer(batch, cfg, n_steps)
     launch(batch, out, cfg, n_steps, write_trajectory=True)
     fused_system_rk4_trajectory.launches += 1
+    _count_steps(y, cfg, n_steps)
     return out if y.ndim == 4 else out[0]
 
 
@@ -1055,11 +1069,14 @@ def fused_system_rk4_end(
     CTA per state)."""
     cfg.check_state(y)
     if y.device.type == "cpu":
-        return fused_system_rk4_end_reference(y, cfg, n_steps)
+        out = fused_system_rk4_end_reference(y, cfg, n_steps)
+        _count_steps(y, cfg, n_steps)
+        return out
     batch = y.reshape((-1,) + cfg.state_shape)
     out = torch.empty_like(batch)
     launch(batch, out, cfg, n_steps, write_trajectory=False)
     fused_system_rk4_end.launches += 1
+    _count_steps(y, cfg, n_steps)
     return out.reshape(y.shape)
 
 
@@ -1071,11 +1088,14 @@ def fused_system_rk4_step(
     n)``."""
     cfg.check_state(y)
     if y.device.type == "cpu":
-        return fused_system_rk4_step_reference(y, cfg)
+        out = fused_system_rk4_step_reference(y, cfg)
+        _count_steps(y, cfg, 1)
+        return out
     batch = y.reshape((-1,) + cfg.state_shape)
     out = trajectory_buffer(batch, cfg, 1)
     launch(batch, out, cfg, 1, write_trajectory=True)
     fused_system_rk4_step.launches += 1
+    _count_steps(y, cfg, 1)
     return out.reshape(y.shape)
 
 
@@ -1490,14 +1510,17 @@ def cluster_system_rk4_trajectory(
     batch = y.reshape((-1,) + cfg.state_shape)
     if y.device.type == "cpu":
         cluster_plan(cfg, batch.shape[0], plan)
-        return cluster_system_rk4_trajectory_reference(
+        out = cluster_system_rk4_trajectory_reference(
             y, cfg, n_steps, frame_dtype
         )
+        _count_steps(y, cfg, n_steps)
+        return out
     if plan is not None:
         cluster_plan(cfg, batch.shape[0], plan)
     out = trajectory_buffer(batch, cfg, n_steps, frame_dtype)
     launch_cluster(batch, out, cfg, n_steps, True, plan)
     cluster_system_rk4_trajectory.launches += 1
+    _count_steps(y, cfg, n_steps)
     return out if y.ndim == 4 else out[0]
 
 
@@ -1516,12 +1539,15 @@ def cluster_system_rk4_end(
     batch = y.reshape((-1,) + cfg.state_shape)
     if y.device.type == "cpu":
         cluster_plan(cfg, batch.shape[0], plan)
-        return fused_system_rk4_end_reference(y, cfg, n_steps)
+        out = fused_system_rk4_end_reference(y, cfg, n_steps)
+        _count_steps(y, cfg, n_steps)
+        return out
     if plan is not None:
         cluster_plan(cfg, batch.shape[0], plan)
     out = torch.empty_like(batch)
     launch_cluster(batch, out, cfg, n_steps, False, plan)
     cluster_system_rk4_end.launches += 1
+    _count_steps(y, cfg, n_steps)
     return out.reshape(y.shape)
 
 

@@ -5,8 +5,11 @@ root span with the tree of their layers, every child within its parent
 and every span sharing its root; the fused RK4 wrappers count states
 times steps on their plain versions; and the profiler's own trace holds
 no program span. Small problems: the flagship diffusion at d_x 1.0 (11 x
-11) and the 17 x 17 Navier-Stokes problem of tests/test_torch_cuda.py."""
+11), the 17 x 17 Navier-Stokes problem and the 17 x 33 wave problem of
+tests/test_torch_cuda.py; and examples/wave_2d_fdm.py's 101 x 101 wave for
+three steps, which takes the cluster-resident mode."""
 
+import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -21,8 +24,9 @@ from pararealml_tpu_torch.operators.fdm import (
 from pararealml_tpu_torch.operators.parareal import PararealOperator
 from pararealml_tpu_torch.ops import fused_diffusion
 from pararealml_tpu_torch.ops import fused_navier_stokes as ns
+from pararealml_tpu_torch.ops import fused_system
 from pararealml_tpu_torch.utils import tracing
-from tests.test_torch_cuda import navier_stokes_problem
+from tests.test_torch_cuda import navier_stokes_problem, system_problem
 
 torch.set_num_threads(1)
 
@@ -196,6 +200,84 @@ def test_wrappers_count_states_times_steps():
     assert [r.counts for r in records] == [
         {"rk4_state_steps": steps} for _, steps in calls
     ]
+
+
+SYSTEM_WRAPPERS = {
+    "k5_trajectory": (
+        lambda y, cfg: fused_system.fused_system_rk4_trajectory(y, cfg, 4),
+        4,
+    ),
+    "k5_end": (lambda y, cfg: fused_system.fused_system_rk4_end(y, cfg, 5), 5),
+    "k5_step": (lambda y, cfg: fused_system.fused_system_rk4_step(y, cfg), 1),
+    "mode_trajectory": (
+        lambda y, cfg: fused_system.cluster_system_rk4_trajectory(y, cfg, 3),
+        3,
+    ),
+    "mode_end": (
+        lambda y, cfg: fused_system.cluster_system_rk4_end(y, cfg, 2), 2
+    ),
+}
+
+
+@pytest.mark.parametrize("wrapper", sorted(SYSTEM_WRAPPERS))
+def test_system_wrappers_count_states_times_steps(wrapper):
+    """K5's and the cluster-resident mode's wrappers, plain versions: a
+    batch of three states, then one state alone, each call counted under
+    the innermost open span."""
+    call, steps = SYSTEM_WRAPPERS[wrapper]
+    cp = system_problem(vars(torch_pkg), "wave")
+    cfg = fused_system._SystemKernelConfig(cp, FINE_D_T)
+    ys = torch.ones((3,) + cfg.state_shape)
+
+    def run():
+        with tracing.span("outer"):
+            with tracing.span("batch"):
+                call(ys, cfg)
+            with tracing.span("single"):
+                call(ys[0], cfg)
+
+    _, _, records = _profiled(run)
+    assert [(r.name, r.counts) for r in records] == [
+        ("outer", {}),
+        ("batch", {"rk4_state_steps": 3 * steps}),
+        ("single", {"rk4_state_steps": steps}),
+    ]
+
+
+def test_fdm_solve_of_the_wave_example_counts_the_modes_steps(monkeypatch):
+    """examples/wave_2d_fdm.py's 101 x 101 problem, three steps: the solve
+    takes the cluster-resident mode's trajectory once and counts its steps
+    under ``solve.trajectory`` inside ``fdm.solve``."""
+    zero = torch_pkg.DirichletBoundaryCondition(
+        lambda x, t: np.zeros((len(x), 2)), is_static=True
+    )
+    cp = torch_pkg.ConstrainedProblem(
+        torch_pkg.WaveEquation(2),
+        torch_pkg.Mesh([(-5.0, 5.0), (-5.0, 5.0)], [0.1, 0.1]),
+        [(zero, zero)] * 2,
+    )
+    ic = torch_pkg.GaussianInitialCondition(
+        cp, [(np.array([0.0, 2.5]), 0.1 * np.eye(2))] * 2, [3.0, 0.0]
+    )
+    ivp = torch_pkg.InitialValueProblem(cp, (0.0, 0.03), ic)
+    calls = []
+    mode = fused_system.cluster_system_rk4_trajectory
+
+    def counted(*args, **kwargs):
+        calls.append(args[2])
+        return mode(*args, **kwargs)
+
+    monkeypatch.setattr(
+        fused_system, "cluster_system_rk4_trajectory", counted
+    )
+    _, _, records = _profiled(lambda: _fdm(0.01).solve(ivp))
+    _check_tree(records)
+    assert records[0].name == "fdm.solve"
+    children = _children(records, 0)
+    assert [r.name for r in children] == SOLVE_CHILDREN
+    assert calls == [3]
+    assert children[1].counts == {"rk4_state_steps": 3}
+    assert _steps(records) == 3
 
 
 def test_a_failed_span_closes_and_a_full_recorder_drops(monkeypatch):
