@@ -188,9 +188,9 @@ d_t 0.05 to T = 100), on the card by default:
     its plain version on the JAX tests' 17 x 17 problem (one block, 20
     steps) and over the example's first 50 steps, the first step's
     700-sweep solve included, on its measured plan, that plan with
-    groups of one Jacobi sweep, and every cluster size whose slabs fit a
-    block (2, 4 and 8) at its default group, 0.0 apart with the Jacobi
-    sweeps each counted equal;
+    groups of one Jacobi sweep, and every cluster size whose blocks an
+    instance covers (2, 4 and 8) at its default group and cells a thread,
+    0.0 apart with the Jacobi sweeps each counted equal;
 26. runs the path with every counter at 0: the example's
     ``FDMOperator.solve`` (2,000 steps, one launch, no generic step
     built) and an 8-slice Parareal over its first 3.2 time units (coarse
@@ -4102,8 +4102,9 @@ def navier_stokes_phases(
         log(
             f"kernels: navier-stokes 101 x 81 (the example), a cluster of "
             f"{plan.cluster_size} blocks ({plan.slab} rows and "
-            f"{plan.block_threads} threads a block), groups of "
-            f"{plan.group} sweeps: trajectory over {NS_PREFIX_STEPS} steps "
+            f"{plan.block_threads} threads of {plan.block_cells} cells a "
+            f"block), groups of {plan.group} sweeps: trajectory over "
+            f"{NS_PREFIX_STEPS} steps "
             f"from rest max|d|/max|y| = {rel:.3e}, Jacobi sweeps kernel "
             f"{kernel_sweeps}, plain {int(prefix_sweeps)}; B=4 end over "
             f"{NS_PREFIX_STEPS} steps {rel_end:.3e}, sweeps {end_sweeps[0]} "
@@ -4260,8 +4261,8 @@ def navier_stokes_phases(
     scaled_ms = generic_ms * steps / NS_GENERIC_TIMED_STEPS
     solve_ms = run_ms["navier-stokes solve"]
     log(
-        f"time: navier-stokes 101 x 81 x 4 solve, one cluster of "
-        f"{cfg.plan.cluster_size} blocks, {steps} steps: {solve_ms:.3f} ms "
+        f"time: navier-stokes 101 x 81 x 4 solve, one cluster ({cfg.plan}), "
+        f"{steps} steps: {solve_ms:.3f} ms "
         f"({1e3 * solve_ms / steps:.3f} us a step, "
         f"{1e3 * solve_ms / (solve_sweeps + 4 * steps):.3f} us a sweep or "
         f"stage), bound {solve_bound[0] * 1e3:.3f} us ({solve_bound[1]}, "
@@ -4346,6 +4347,7 @@ def navier_stokes_phases(
                 "sweeps": kernel_sweeps,
                 "plain_sweeps": int(plain_sweeps.sum()),
                 "timed": what,
+                "plan": str(ns._plan(cfg, state_batch, None, None)),
             }
         )
     # the measured plans against the same plans with groups of one sweep

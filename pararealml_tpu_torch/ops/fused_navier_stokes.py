@@ -8,8 +8,9 @@ system on Cartesian meshes. Its three Pallas TPU kernels become launches
 of one hand-written CUDA kernel for Hopper, ``csrc/fused_navier_stokes.cu``
 (see its header for the design): one thread block cluster of 1, 2, 4 or 8
 blocks holds one state for the whole solve, each block a slab of rows in
-shared memory, with the stream function's Jacobi solve inside the kernel,
-its sweeps in groups between cluster barriers.
+shared memory and each thread fixed cells of it (:func:`ownership` models
+which), with the stream function's Jacobi solve inside the kernel, its
+sweeps in groups between cluster barriers.
 
 Each kernel has a wrapper and a plain PyTorch version beside it:
 
@@ -67,29 +68,39 @@ GROUP_SIZES = (1, 2, 3, 4, 8)
 # a plan's group where the measured table has no entry: the largest of
 # GROUP_SIZES up to it that the plan admits
 DEFAULT_GROUP = 4
-MAX_THREADS = 1024
-# the kernel's shared-memory reduction scratch, as doubles: two sets of
-# one slot a sweep of a group, and each of at most 32 warps' sum of each
+# the cells a thread of the kernel's instances, each with the most threads
+# a block of it takes (its launch bound, which sets its registers: 80, 96
+# and 128 a thread)
+CELLS_INSTANCES = {1: 768, 3: 640, 10: 512}
+# the kernel's shared-memory reduction scratch, as doubles a sweep of a
+# group: two sets of one slot, each of at most 32 warps' sum, and each
+# thread's sum of squares
 _REDUCTION_DOUBLES_A_SWEEP = 2 + 32
 
 
 def shared_memory_bytes_2d(
-    rows: int, width: int, group: int = 1, cluster_size: int = 1
+    rows: int,
+    height: int,
+    width: int,
+    group: int,
+    cluster_size: int,
+    threads: int,
 ) -> int:
     """The kernel's shared-memory working set for a slab of ``rows`` rows
-    of ``width`` cells with groups of ``group`` sweeps, in the order the
-    CUDA kernel carves it (its ``shared_bytes_2d``): the reduction's
-    doubles; five float planes of the slab and its guard rows (``group``
-    above and below it on a cluster, one for a single block: the three
-    stream-function buffers, w and psi's Dirichlet values); six float
-    planes of the slab (u, v, a stage buffer, the Dirichlet values of w, u
-    and v); psi's Dirichlet byte mask with the guard rows and the three
-    others of the slab. The launch passes it to the kernel."""
+    of an H x W grid with groups of ``group`` sweeps on ``threads``
+    threads, in the order the CUDA kernel carves it (its
+    ``shared_bytes_2d``): the reduction's doubles; the three
+    stream-function buffers, each the slab and its guard rows (``group``
+    above and below it on a cluster, one for a single block); w and a
+    stage buffer, each the slab and a row above and below it; six float
+    planes of the slab (u, v and the four components' Dirichlet values);
+    the Neumann faces' float values and byte masks of w and psi. The
+    launch passes it to the kernel."""
     guard = group if cluster_size > 1 else 1
     return (
-        8 * _REDUCTION_DOUBLES_A_SWEEP * group
-        + (rows + 2 * guard) * width * (5 * 4 + 1)
-        + rows * width * (6 * 4 + 3)
+        8 * (_REDUCTION_DOUBLES_A_SWEEP + threads) * group
+        + 4 * width * (3 * (rows + 2 * guard) + 2 * (rows + 2) + 6 * rows)
+        + 5 * 2 * 2 * (height + width)
     )
 
 
@@ -97,14 +108,16 @@ class ClusterPlan2D(NamedTuple):
     """How one cluster holds an H x W grid: block r of ``cluster_size``
     keeps rows ``[r H // s, (r + 1) H // s)`` and runs the Jacobi sweeps
     in groups of ``group`` between cluster barriers, with ``threads``
-    threads (0: as many as the largest slab has cells, up to 1,024, in
-    whole warps)."""
+    threads of ``cells`` cells each (0: the fewest cells a thread of
+    :data:`CELLS_INSTANCES` whose instance covers the block's cells, and
+    as few whole warps as cover them)."""
 
     cluster_size: int
     height: int
     width: int
     group: int = 1
     threads: int = 0
+    cells: int = 0
 
     @property
     def slab(self) -> int:
@@ -116,16 +129,56 @@ class ClusterPlan2D(NamedTuple):
         """The fewest rows one block holds."""
         return self.height // self.cluster_size
 
+    def rows(self, rank: int) -> Tuple[int, int]:
+        """Block ``rank``'s rows ``[begin, end)``."""
+        size = self.cluster_size
+        return rank * self.height // size, (rank + 1) * self.height // size
+
+    def halo(self, rank: int) -> Tuple[int, int]:
+        """The halo rows block ``rank``'s sweeps reach above and below its
+        slab: ``group - 1`` past each edge that has a neighbour."""
+        reach = self.group - 1 if self.cluster_size > 1 else 0
+        return (
+            reach if rank > 0 else 0,
+            reach if rank < self.cluster_size - 1 else 0,
+        )
+
+    @property
+    def range_cells(self) -> int:
+        """The most cells one block's sweeps cover: its rows and its halo
+        rows."""
+        most = 0
+        for rank in range(self.cluster_size):
+            begin, end = self.rows(rank)
+            most = max(most, (end - begin + sum(self.halo(rank))) * self.width)
+        return most
+
+    @property
+    def block_cells(self) -> int:
+        if self.cells:
+            return self.cells
+        for cells, most in CELLS_INSTANCES.items():
+            threads = self.threads or most
+            if threads <= most and cells * threads >= self.range_cells:
+                return cells
+        # none covers the block: the launch refuses the plan
+        return max(CELLS_INSTANCES)
+
     @property
     def block_threads(self) -> int:
         if self.threads:
             return self.threads
-        return min(MAX_THREADS, 32 * -(-(self.slab * self.width) // 32))
+        return 32 * -(-self.range_cells // (32 * self.block_cells))
 
     @property
     def shared_bytes(self) -> int:
         return shared_memory_bytes_2d(
-            self.slab, self.width, self.group, self.cluster_size
+            self.slab,
+            self.height,
+            self.width,
+            self.group,
+            self.cluster_size,
+            self.block_threads,
         )
 
     @property
@@ -138,10 +191,33 @@ class ClusterPlan2D(NamedTuple):
         )
 
     @property
+    def covers(self) -> bool:
+        """Whether the threads and cells are an instance's and cover the
+        most cells a block's sweeps reach."""
+        cells, threads = self.block_cells, self.block_threads
+        return (
+            cells in CELLS_INSTANCES
+            and 32 <= threads <= CELLS_INSTANCES[cells]
+            and threads % 32 == 0
+            and cells * threads >= self.range_cells
+        )
+
+    @property
     def fits(self) -> bool:
-        """Whether the kernel takes the plan and each block's slab fits its
-        shared memory."""
-        return self.admitted and self.shared_bytes <= MAX_SHARED_MEMORY_BYTES
+        """Whether the kernel takes the plan, its threads and cells cover
+        each block's cells and each block's working set fits its shared
+        memory."""
+        return (
+            self.admitted
+            and self.covers
+            and self.shared_bytes <= MAX_SHARED_MEMORY_BYTES
+        )
+
+    def __str__(self) -> str:
+        return (
+            f"{self.cluster_size} blocks x {self.block_threads} threads x "
+            f"{self.block_cells} cells, groups of {self.group}"
+        )
 
 
 def _check_cluster_size(height: int, cluster_size: int):
@@ -162,29 +238,72 @@ def cluster_plan_2d(
     cluster_size: int,
     group: Optional[int] = None,
     threads: int = 0,
+    cells: int = 0,
 ) -> ClusterPlan2D:
-    """The plan with ``cluster_size`` blocks, whether or not its slabs fit
-    a block's shared memory (the kernel's launch refuses those); without
-    ``group``, the largest of :data:`GROUP_SIZES` up to
-    :data:`DEFAULT_GROUP` that fits, else 1."""
+    """The plan with ``cluster_size`` blocks, whether or not it fits (the
+    kernel's launch refuses those); without ``group``, the largest of
+    :data:`GROUP_SIZES` up to :data:`DEFAULT_GROUP` that fits, else 1."""
     _check_cluster_size(height, cluster_size)
     if group is not None:
-        return ClusterPlan2D(cluster_size, height, width, group, threads)
+        return ClusterPlan2D(
+            cluster_size, height, width, group, threads, cells
+        )
     for size in reversed(GROUP_SIZES):
-        plan = ClusterPlan2D(cluster_size, height, width, size, threads)
+        plan = ClusterPlan2D(cluster_size, height, width, size, threads, cells)
         if size <= DEFAULT_GROUP and plan.fits:
             return plan
-    return ClusterPlan2D(cluster_size, height, width, 1, threads)
+    return ClusterPlan2D(cluster_size, height, width, 1, threads, cells)
+
+
+def ownership(plan: ClusterPlan2D, rank: int):
+    """A plain model of which thread owns which cells of block ``rank`` on
+    ``plan``, as the kernel deals them: a dict from (thread, slot) to the
+    cell's (row, column, reach, own row, interior), with slot s of thread
+    t the list's cell t + s * threads. The list holds the slab's interior
+    cells row by row, the halo rows' interior cells (the nearest rows
+    first, the upper before the lower), the slab's top face, its side
+    faces row by row, its bottom face, and the halo rows' side faces in the
+    halo's order; a cell's reach is the sweeps of a group that cover its
+    row (the group for the slab's rows, ``group - d`` for a halo row ``d``
+    rows past the slab)."""
+    height, width, k = plan.height, plan.width, plan.group
+    begin, end = plan.rows(rank)
+    above, below = plan.halo(rank)
+    halo_rows = []
+    for d in range(1, max(above, below) + 1):
+        if d <= above:
+            halo_rows.append(begin - d)
+        if d <= below:
+            halo_rows.append(end - 1 + d)
+    inner_rows = range(max(begin, 1), min(end, height - 1))
+    inner = range(1, width - 1)
+    cells = [(i, j, True) for i in inner_rows for j in inner]
+    cells += [(i, j, True) for i in halo_rows for j in inner]
+    if begin == 0:
+        cells += [(0, j, False) for j in range(width)]
+    cells += [(i, j, False) for i in inner_rows for j in (0, width - 1)]
+    if end == height:
+        cells += [(height - 1, j, False) for j in range(width)]
+    cells += [(i, j, False) for i in halo_rows for j in (0, width - 1)]
+    threads = plan.block_threads
+    owners = {}
+    for q, (i, j, interior) in enumerate(cells):
+        own = begin <= i < end
+        distance = begin - i if i < begin else i - end + 1
+        reach = k if own else k - distance
+        owners[(q % threads, q // threads)] = (i, j, reach, own, interior)
+    return owners
 
 
 # The plans measured on the card (tools/ns_plan_sweep.py, NVIDIA H100
 # 80GB HBM3 at 700 W): (height, width, batch or None) -> (cluster size,
-# group, threads; 0 for the default). The example's single state, one
-# Parareal iteration's B = 8 fine ends on it, and the JAX tests' 17 x 17.
+# group, threads, cells a thread; 0 for the default). The example's single
+# state, one Parareal iteration's B = 8 fine ends on it, and the JAX
+# tests' 17 x 17.
 _MEASURED_PLANS = {
-    (101, 81, None): (8, 4, 512),
-    (101, 81, 8): (8, 4, 512),
-    (17, 17, None): (1, 3, 0),
+    (101, 81, None): (8, 4, 544, 3),
+    (101, 81, 8): (8, 4, 544, 3),
+    (17, 17, None): (1, 2, 320, 1),
 }
 
 
@@ -193,21 +312,21 @@ def make_cluster_plan_2d(
 ) -> Optional[ClusterPlan2D]:
     """The measured plan of ``_MEASURED_PLANS`` for the shape and batch
     where there is one and it fits, else the smallest cluster (1, 2, 4 or
-    8 blocks, no more blocks than rows) whose largest slab fits a block's
-    227 KB of shared memory with groups of one sweep, with the group
-    :func:`cluster_plan_2d` gives it; None when none fits. At 48 bytes a
-    slab cell and 42 a guard-row cell, a cluster holds square grids up to
-    192 x 192 on eight blocks (groups of up to 2 at 187 x 187, of 1 past
-    it)."""
+    8 blocks, no more blocks than rows) that fits with groups of one
+    sweep, with the group :func:`cluster_plan_2d` gives it; None when none
+    fits. At 44 bytes a slab cell, 12 a guard-row cell, 20 a row and a
+    column for the faces and 8 a thread a sweep of a group, and at most
+    10 x 512 cells a block, a cluster holds square grids up to 193 x 193
+    on eight blocks (groups of up to 2 at 192 x 192, of 1 past it)."""
     if min(height, width) < 3:
         return None
     measured = _MEASURED_PLANS.get((height, width, batch)) or (
         _MEASURED_PLANS.get((height, width, None))
     )
     if measured is not None:
-        size, group, threads = measured
+        size, group, threads, cells = measured
         if size <= height:
-            plan = ClusterPlan2D(size, height, width, group, threads)
+            plan = ClusterPlan2D(size, height, width, group, threads, cells)
             if plan.fits:
                 return plan
     for size in CLUSTER_SIZES:
@@ -428,7 +547,7 @@ def _configure(library: ctypes.CDLL):
     c_int, c_void_p = ctypes.c_int, ctypes.c_void_p
     library.fused_navier_stokes_rk4.argtypes = (
         [c_void_p] * 3
-        + [c_int] * 9
+        + [c_int] * 10
         + [ctypes.c_size_t]
         + [c_void_p] * 6
         + [
@@ -442,6 +561,10 @@ def _configure(library: ctypes.CDLL):
     library.fused_navier_stokes_rk4.restype = c_int
     library.fused_navier_stokes_error_string.argtypes = [c_int]
     library.fused_navier_stokes_error_string.restype = ctypes.c_char_p
+    library.fused_navier_stokes_instance_attributes.argtypes = [c_int] * 2 + [
+        ctypes.POINTER(c_int)
+    ] * 3
+    library.fused_navier_stokes_instance_attributes.restype = c_int
 
 
 def load_kernels() -> ctypes.CDLL:
@@ -453,6 +576,23 @@ def load_kernels() -> ctypes.CDLL:
         _configure(library)
         library._signatures_set = True
     return library
+
+
+def instance_attributes(group: int, cells: int) -> Tuple[int, int, int]:
+    """(registers a thread, spill bytes a thread, most threads a block)
+    of the built instance for groups of ``group`` sweeps and ``cells``
+    cells a thread, as the card reports them."""
+    library = load_kernels()
+    values = [ctypes.c_int(), ctypes.c_int(), ctypes.c_int()]
+    error = library.fused_navier_stokes_instance_attributes(
+        group, cells, *(ctypes.byref(value) for value in values)
+    )
+    if error != 0:
+        message = library.fused_navier_stokes_error_string(error).decode()
+        raise RuntimeError(
+            f"no such Navier-Stokes instance: {message} ({error})"
+        )
+    return tuple(value.value for value in values)
 
 
 def _plan(
@@ -531,6 +671,7 @@ def launch(
             plan.slab,
             plan.group,
             plan.block_threads,
+            plan.block_cells,
             plan.shared_bytes,
             *(c.data_ptr() for c in constants[:6]),
             cfg.coefficient_array(),
@@ -543,9 +684,10 @@ def launch(
         message = library.fused_navier_stokes_error_string(error).decode()
         raise RuntimeError(
             f"fused Navier-Stokes kernel launch failed with a cluster of "
-            f"{plan.cluster_size} blocks of {plan.block_threads} threads and "
-            f"{plan.shared_bytes} bytes of shared memory, groups of "
-            f"{plan.group} sweeps: {message} ({error})"
+            f"{plan.cluster_size} blocks of {plan.block_threads} threads of "
+            f"{plan.block_cells} cells and {plan.shared_bytes} bytes of "
+            f"shared memory, groups of {plan.group} sweeps: {message} "
+            f"({error})"
         )
 
 

@@ -65,7 +65,7 @@ cluster per state with the stream function's Jacobi solve inside. Its
 plain step, :func:`_navier_stokes_step_reference`, is here beside the
 other families'. The JAX package admits it on Cartesian meshes within its
 VMEM cap; the port also needs the grid to fit the largest cluster (up to
-192 x 192 for a square grid), and takes the generic path past it
+193 x 193 for a square grid), and takes the generic path past it
 (ROADMAP.md, Queue 3).
 
 ``kernel_storage_dtype`` takes effect where the JAX package's does: past

@@ -47,7 +47,8 @@ torch.set_num_threads(1)
 # evaluation order: only contraction-free rounding differences remain
 KERNEL_TOL = 1e-5
 # K1-K3: each built instance's registers and spill bytes a thread, by
-# (layout, cells a thread, convection), as the card reports them for the
+# (layout, cells a thread, convection), and the Navier-Stokes kernel's
+# (below), as the card reports them for the
 # build (cudaFuncGetAttributes, the larger of the trajectory and end
 # kernels: ptxas's counts; tools/k1_plan_sweep.py prints them; NVIDIA
 # H100 80GB HBM3)
@@ -64,6 +65,24 @@ INSTANCE_REGISTERS = {
     ("cells", 11, True): (63, 0),
     ("strips", 0, False): (38, 0),
     ("strips", 0, True): (39, 0),
+    # the Navier-Stokes kernel's, by (group of sweeps, cells a thread),
+    # each at its most threads (ops/fused_navier_stokes.py
+    # instance_attributes and CELLS_INSTANCES)
+    ("navier_stokes", 1, 1): (72, 0),
+    ("navier_stokes", 1, 3): (96, 0),
+    ("navier_stokes", 1, 10): (107, 0),
+    ("navier_stokes", 2, 1): (80, 0),
+    ("navier_stokes", 2, 3): (78, 0),
+    ("navier_stokes", 2, 10): (118, 0),
+    ("navier_stokes", 3, 1): (80, 0),
+    ("navier_stokes", 3, 3): (78, 0),
+    ("navier_stokes", 3, 10): (114, 0),
+    ("navier_stokes", 4, 1): (80, 0),
+    ("navier_stokes", 4, 3): (76, 0),
+    ("navier_stokes", 4, 10): (117, 0),
+    ("navier_stokes", 8, 1): (80, 0),
+    ("navier_stokes", 8, 3): (85, 0),
+    ("navier_stokes", 8, 10): (124, 0),
 }
 # the fitted quadratic coarse model of the Burgers bench (rank 32)
 QUAD_ASSET = os.path.join(
@@ -1073,14 +1092,16 @@ def _navier_stokes_states(shape, batch=None, seed=0):
 
 def _navier_stokes_plans(height, width):
     """Every plan the kernel takes on an H x W grid: each cluster size
-    whose slabs fit a block with groups of one sweep, at every group it
-    admits and fits, and the measured plans."""
+    whose blocks an instance covers with groups of one sweep, at every
+    group it admits and every instance's cells that cover its blocks and
+    fit, and the measured plans."""
     ns = fused_navier_stokes
     plans = [
-        ns.cluster_plan_2d(height, width, size, group=group)
+        ns.cluster_plan_2d(height, width, size, group=group, cells=cells)
         for size in ns.CLUSTER_SIZES
         if size <= height and ns.cluster_plan_2d(height, width, size, 1).fits
         for group in ns.GROUP_SIZES
+        for cells in ns.CELLS_INSTANCES
     ]
     plans += [
         ns.make_cluster_plan_2d(height, width, batch)
@@ -1097,11 +1118,13 @@ def test_cuda_navier_stokes_kernel_matches_plain_version(
 ):
     """The Navier-Stokes kernel (trajectory, B = 4 end, step) against its
     plain version on the JAX tests' 17 x 17 problem and the example's
-    101 x 81 on every plan it takes: every cluster size whose slabs fit a
-    block (1 to 8 blocks at 17 x 17, 2 to 8 at 101 x 81) at every group of
-    sweeps it admits and fits (groups of one included) and the measured
-    plans, over 30 steps that include the first step's long solve; 0.0
-    apart, with the same Jacobi sweeps in both."""
+    101 x 81 on every plan it takes: every cluster size whose blocks an
+    instance covers (1 to 8 blocks at 17 x 17, 2 to 8 at 101 x 81) at
+    every group of sweeps it admits and fits (groups of one included),
+    every instance's cells that cover its blocks (one, three or ten
+    cells a thread; 101 x 81 has no block of at most 1,024 cells) and the
+    measured plans, over 30 steps that include the first step's long
+    solve; 0.0 apart, with the same Jacobi sweeps in both."""
     cp = navier_stokes_problem(vars(torch_pkg), example)
     ns = fused_navier_stokes
     cfg = ns._NavierStokesConfig(cp, 0.05)
@@ -1125,6 +1148,9 @@ def test_cuda_navier_stokes_kernel_matches_plain_version(
     sizes = sorted({plan.cluster_size for plan in plans})
     assert sizes == ([1, 2, 4, 8] if not example else [2, 4, 8])
     assert {plan.group for plan in plans} == set(ns.GROUP_SIZES)
+    assert {plan.block_cells for plan in plans} == (
+        set(ns.CELLS_INSTANCES) - ({1} if example else set())
+    )
     for plan in plans:
         for wrapper, args, (expected, sweeps) in zip(
             wrappers, ((y, cfg, steps), (ys, cfg, steps), (ys, cfg)), plain
@@ -1142,12 +1168,17 @@ def test_cuda_navier_stokes_kernel_matches_plain_version(
 def test_cuda_navier_stokes_kernel_raises_instead_of_falling_back(
     cuda_device,
 ):
-    """One block for the whole 101 x 81 grid (more than 400,000 bytes of
-    shared memory at any group) is a cluster the card cannot place, and
-    2,048 threads a block a launch it does not take: the kernel's host
-    code refuses both before any launch. A group of more sweeps than a
-    block has rows is refused on the host. The wrappers reject what the
-    kernel does not take."""
+    """One block for the whole 101 x 81 grid (8,181 cells, more than any
+    instance's threads and cells hold), 2,048 threads a block, a block's
+    1,539 cells on 512 threads of three cells, more threads than the
+    three-cell instance takes and four cells a thread (no instance) are
+    launches the kernel does not take: its host code refuses each before
+    any launch. Two blocks of 51 rows with groups of 8 on 512 threads of
+    ten cells cover every block but need more shared memory than a block
+    has: the card refuses them, before any launch too. A group of more sweeps than a block has rows is refused on
+    the host. The wrappers reject what the kernel does not take. Every
+    built instance holds its most threads without a spill, as
+    ``INSTANCE_REGISTERS`` records."""
     ns = fused_navier_stokes
     cp = navier_stokes_problem(vars(torch_pkg), example=True)
     cfg = ns._NavierStokesConfig(cp, 0.05)
@@ -1158,7 +1189,7 @@ def test_cuda_navier_stokes_kernel_raises_instead_of_falling_back(
     launches = ns.fused_navier_stokes_rk4_end.launches
     with pytest.raises(RuntimeError, match="launch failed"):
         ns.fused_navier_stokes_rk4_end(y, cfg, 2, cluster_size=1)
-    # a plan the card cannot place: one block with groups of 8
+    # one block with groups of 8
     with pytest.raises(RuntimeError, match="launch failed"):
         ns.fused_navier_stokes_rk4_end(
             y, cfg, 2, plan=ns.ClusterPlan2D(1, 101, 81, 8)
@@ -1168,10 +1199,25 @@ def test_cuda_navier_stokes_kernel_raises_instead_of_falling_back(
         ns.fused_navier_stokes_rk4_end(
             y, cfg, 2, plan=ns.ClusterPlan2D(8, 101, 81, 16)
         )
+    for threads, cells in ((2048, 0), (512, 3), (800, 3), (416, 4)):
+        plan = ns.ClusterPlan2D(8, 101, 81, 4, threads, cells)
+        assert not plan.covers, plan
+        with pytest.raises(RuntimeError, match="launch failed"):
+            ns.fused_navier_stokes_rk4_end(y, cfg, 2, plan=plan)
+    # threads and cells that cover the blocks, slabs that do not fit a
+    # block's shared memory: refused by the card, not by the coverage check
+    plan = ns.ClusterPlan2D(2, 101, 81, 8, 512, 10)
+    assert plan.covers and plan.admitted, plan
+    assert plan.shared_bytes > ns.MAX_SHARED_MEMORY_BYTES, plan
     with pytest.raises(RuntimeError, match="launch failed"):
-        ns.fused_navier_stokes_rk4_end(
-            y, cfg, 2, plan=ns.ClusterPlan2D(2, 101, 81, 4, 2048)
-        )
+        ns.fused_navier_stokes_rk4_end(y, cfg, 2, plan=plan)
+    for group in ns.GROUP_SIZES:
+        for cells, most in ns.CELLS_INSTANCES.items():
+            registers, spills, threads = ns.instance_attributes(group, cells)
+            assert (registers, spills) == INSTANCE_REGISTERS[
+                ("navier_stokes", group, cells)
+            ]
+            assert threads == most
     assert ns.fused_navier_stokes_rk4_end.launches == launches
     with pytest.raises(TypeError, match="float32"):
         ns.fused_navier_stokes_rk4_end(y.double(), cfg, 2)

@@ -359,7 +359,8 @@ def test_table_plans_fit_the_card():
             ]
             assert 1024 * registers <= 65_536, (layout, cells)
             assert spills == 0, (layout, cells)
-    assert len(INSTANCE_REGISTERS) == 2 * len(instances) + 2
+    k1_keys = [key for key in INSTANCE_REGISTERS if key[0] != "navier_stokes"]
+    assert len(k1_keys) == 2 * len(instances) + 2
 
 
 def _admitted_shapes():

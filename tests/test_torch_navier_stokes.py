@@ -35,7 +35,7 @@ from pararealml_tpu_torch.operators.parareal import PararealOperator
 from pararealml_tpu_torch.ops import fused_navier_stokes as ns
 from pararealml_tpu_torch.ops import fused_system as torch_fused
 from pararealml_tpu_torch.ops import packed_system as torch_packed
-from tests.test_torch_cuda import navier_stokes_problem
+from tests.test_torch_cuda import INSTANCE_REGISTERS, navier_stokes_problem
 
 torch.set_num_threads(1)
 
@@ -188,7 +188,7 @@ def test_cluster_cap_differs_from_the_jax_vmem_cap(x64_off):
     """A deliberate difference (ROADMAP.md, Queue 3): the JAX package runs
     its Navier-Stokes K5 wherever the grid fits its VMEM budget (93,750
     padded cells for four components); the port needs it to fit a
-    cluster of at most 8 blocks (up to 192 x 192) and takes the
+    cluster of at most 8 blocks (up to 193 x 193) and takes the
     generic path past that. The example's 101 x 81 takes the kernel in
     both; 201 x 201 (40,401 cells) only in the JAX package."""
     for example in (False, True):
@@ -229,36 +229,64 @@ def test_cluster_cap_differs_from_the_jax_vmem_cap(x64_off):
 
 
 def test_cluster_plans():
-    """At 48 bytes a slab cell, 42 a guard-row cell and 272 bytes of
-    reduction scratch a sweep of a group, the measured plans where they
-    fit, else the smallest cluster whose largest slab fits 227 KB with
-    groups of one sweep, with the largest group up to 4 that fits there;
-    a group is at most the fewest rows a block of a cluster holds."""
-    assert ns.shared_memory_bytes_2d(51, 81, 4, 2) == 212_984
+    """Three stream-function buffers with their guard rows, w and a stage
+    buffer with a row above and below, six planes of the slab, the Neumann
+    faces of w and psi (20 bytes a row and a column), and 272 bytes of
+    reduction scratch and 8 bytes a thread a sweep of a group; the
+    measured plans where they fit, else the smallest cluster whose
+    blocks' cells an instance covers with groups of one sweep, with the
+    largest group up to 4 that fits there; a group is at most the fewest
+    rows a block of a cluster holds, and a plan's threads and cells cover
+    the most cells a block's sweeps reach."""
+    assert ns.shared_memory_bytes_2d(51, 101, 81, 4, 2, 704) == (
+        8 * (34 + 704) * 4
+        + 4 * 81 * (3 * 59 + 2 * 53 + 6 * 51)
+        + 20 * (101 + 81)
+    )
     # one block keeps one guard row of zeros above and below its slab
-    assert ns.shared_memory_bytes_2d(17, 17, 8, 1) == (
-        8 * 34 * 8 + 19 * 17 * 21 + 17 * 17 * 27
+    assert ns.shared_memory_bytes_2d(17, 17, 17, 8, 1, 320) == (
+        8 * (34 + 320) * 8
+        + 4 * 17 * (3 * 19 + 2 * 19 + 6 * 17)
+        + 20 * (17 + 17)
     )
     for (height, width, batch), measured in ns._MEASURED_PLANS.items():
-        size, group, threads = measured
+        size, group, threads, cells = measured
         plan = ns.make_cluster_plan_2d(height, width, batch)
-        assert plan == (size, height, width, group, threads) and plan.fits
-    # without the table the example would take 2 blocks of 51 rows
+        assert plan == (size, height, width, group, threads, cells)
+        assert plan.fits
+    # without the table the example would take 2 blocks of 51 rows, ten
+    # cells a thread
     assert ns.cluster_plan_2d(101, 81, 2).fits
     assert ns.cluster_plan_2d(101, 81, 2).slab == 51
+    assert ns.ClusterPlan2D(2, 101, 81).block_cells == 10
+    assert ns.ClusterPlan2D(2, 101, 81).block_threads == 416
+    assert ns.ClusterPlan2D(8, 17, 17).block_threads == 64
+    # an interior block of 8 reaches 13 + 2 x 3 rows of 81 with groups of
+    # 4: 1,539 cells, one more than 512 threads of three cells hold
+    eight = ns.ClusterPlan2D(8, 101, 81, 4)
+    assert eight.range_cells == 1539
+    assert (eight.block_threads, eight.block_cells) == (544, 3)
+    assert not eight._replace(threads=512, cells=3).covers
+    assert eight._replace(threads=544, cells=3).fits
+    # more threads than the instance takes, or no such instance
+    assert not eight._replace(threads=800, cells=3).covers
+    assert not eight._replace(threads=416, cells=4).covers
+    # threads and cells that cover the blocks, slabs past a block's shared
+    # memory
+    deep = ns.ClusterPlan2D(2, 101, 81, 8, 512, 10)
+    assert deep.covers and deep.admitted and not deep.fits
     # past the table: the range of groups of one sweep on 8 blocks, the
     # group shrinking towards its edge
     assert ns.make_cluster_plan_2d(186, 186)[:4] == (8, 186, 186, 2)
-    assert ns.make_cluster_plan_2d(192, 192)[:4] == (8, 192, 192, 1)
-    assert ns.make_cluster_plan_2d(193, 193) is None
+    assert ns.make_cluster_plan_2d(192, 192)[:4] == (8, 192, 192, 2)
+    assert ns.make_cluster_plan_2d(193, 193)[:4] == (8, 193, 193, 1)
+    assert ns.make_cluster_plan_2d(194, 194) is None
     assert ns.make_cluster_plan_2d(2, 50) is None
     assert not ns.cluster_plan_2d(101, 81, 1).fits
     assert ns.cluster_plan_2d(101, 81, 8).group == 4
     assert ns.cluster_plan_2d(17, 17, 4, group=8).admitted is False
     assert ns.cluster_plan_2d(17, 17, 1, group=8).fits
     assert ns.cluster_plan_2d(101, 81, 2, group=5).admitted is False
-    assert ns.ClusterPlan2D(2, 101, 81).block_threads == 1024
-    assert ns.ClusterPlan2D(8, 17, 17).block_threads == 64
     with pytest.raises(ValueError, match="cluster_size"):
         ns.cluster_plan_2d(101, 81, 3)
     with pytest.raises(ValueError, match="cannot be split"):
@@ -269,6 +297,91 @@ def test_cluster_plans():
     with pytest.raises(ValueError, match="does not fit"):
         ns._plan(cfg, 1, None, ns.ClusterPlan2D(2, 101, 81, 4))
     assert ns._plan(cfg, 1, 4, None) == ns.ClusterPlan2D(4, 17, 17, 4)
+
+
+def _ownership_plans():
+    """Every plan the kernel takes on 17 x 17, the example's 101 x 81 and
+    the 192 x 192 edge: each cluster size, each group it admits and each
+    instance's cells at the threads that cover a block, and the measured
+    plans."""
+    plans = [
+        ns.cluster_plan_2d(*shape, size, group, cells=cells)
+        for shape in ((17, 17), (101, 81), (192, 192))
+        for size in ns.CLUSTER_SIZES
+        if size <= shape[0]
+        for group in ns.GROUP_SIZES
+        for cells in ns.CELLS_INSTANCES
+    ]
+    plans += [
+        ns.make_cluster_plan_2d(height, width, batch)
+        for height, width, batch in ns._MEASURED_PLANS
+    ]
+    return [plan for plan in dict.fromkeys(plans) if plan.fits]
+
+
+@pytest.mark.parametrize(
+    "plan",
+    _ownership_plans(),
+    ids=lambda plan: (
+        f"{plan.height}x{plan.width}-{plan.cluster_size}x"
+        f"{plan.block_threads}x{plan.block_cells}-g{plan.group}"
+    ),
+)
+def test_ownership_covers_every_cell_once(plan):
+    """The plain model of the kernel's cell ownership: on every block of
+    the plan, the cells whose reach is past t are sweep t's rows (the slab
+    and group - 1 - t halo rows past each edge that has a neighbour), each
+    owned once; the own-row cells, which the stages run, are the slab's,
+    each once; interior cells come before face cells in the block's list,
+    and no thread holds more cells than its instance."""
+    height, width, k = plan.height, plan.width, plan.group
+    threads, cells = plan.block_threads, plan.block_cells
+    for rank in range(plan.cluster_size):
+        owners = ns.ownership(plan, rank)
+        begin, end = plan.rows(rank)
+        above, below = plan.halo(rank)
+        assert all(t < threads and s < cells for t, s in owners)
+        for t in range(k):
+            swept = [
+                (i, j)
+                for i, j, reach, _, _ in owners.values()
+                if reach > t
+            ]
+            rows = range(begin - max(above - t, 0), end + max(below - t, 0))
+            assert len(swept) == len(set(swept)), (rank, t)
+            assert set(swept) == {
+                (i, j) for i in rows for j in range(width)
+            }, (rank, t)
+        own = [(i, j) for i, j, _, mine, _ in owners.values() if mine]
+        assert sorted(own) == [
+            (i, j) for i in range(begin, end) for j in range(width)
+        ], rank
+        listed = sorted(
+            owners.items(), key=lambda item: item[0][0] + item[0][1] * threads
+        )
+        interior = [cell[4] for _, cell in listed]
+        assert interior == sorted(interior, reverse=True), rank
+        for _, (i, j, _, _, inside) in listed:
+            assert inside == (0 < i < height - 1 and 0 < j < width - 1)
+
+
+def test_instances_hold_their_threads_without_a_spill():
+    """Every instance the kernel's source builds (a group of sweeps and
+    the cells a thread) holds its most threads (its launch bound) in the
+    registers the card reports for it, without a spill
+    (``INSTANCE_REGISTERS``, read on the card by
+    tests/test_torch_cuda.py)."""
+    keys = [
+        ("navier_stokes", group, cells)
+        for group in ns.GROUP_SIZES
+        for cells in ns.CELLS_INSTANCES
+    ]
+    for key in keys:
+        registers, spills = INSTANCE_REGISTERS[key]
+        assert ns.CELLS_INSTANCES[key[2]] * registers <= 65_536, key
+        assert spills == 0, key
+    built = [key for key in INSTANCE_REGISTERS if key[0] == "navier_stokes"]
+    assert sorted(built) == sorted(keys)
 
 
 def _narrow_example_problem():

@@ -1,12 +1,14 @@
 """Measures the Navier-Stokes kernel's plan table on the card: times the
 kernel (``csrc/fused_navier_stokes.cu``) at every plan it takes on three
-cases and prints the fastest, whose cluster size, group and threads
-``_MEASURED_PLANS`` of ``ops/fused_navier_stokes.py`` records.
+cases and prints the fastest, whose cluster size, group, threads and
+cells a thread ``_MEASURED_PLANS`` of ``ops/fused_navier_stokes.py``
+records.
 
-A plan is a cluster size (1, 2, 4 or 8 blocks whose slabs fit a block's
-shared memory), a group of Jacobi sweeps between cluster barriers (every
-one of ``GROUP_SIZES`` the plan admits and fits) and the threads a block
-(as many as the slab has cells up to 1,024, and half that). For each case
+A plan is a cluster size (1, 2, 4 or 8 blocks that an instance covers),
+a group of Jacobi sweeps between cluster barriers (every one of
+``GROUP_SIZES`` the plan admits and fits) and the cells a thread (every
+one of ``CELLS_INSTANCES`` that covers a block's cells, on as few whole
+warps as hold them). For each case
 the tool first holds every plan's output over a few steps against the
 plain version (0.0 apart, the same sweeps), then times the case's run at
 each plan (CUDA events, the median of three after a warm run).
@@ -51,12 +53,12 @@ def plans(height, width):
         ).fits:
             continue
         for group in ns.GROUP_SIZES:
-            plan = ns.cluster_plan_2d(height, width, size, group)
-            if not plan.fits:
-                continue
-            half = 32 * -(-plan.block_threads // 64)
-            for threads in dict.fromkeys((0, half)):
-                found.append(plan._replace(threads=threads))
+            for cells in ns.CELLS_INSTANCES:
+                plan = ns.cluster_plan_2d(
+                    height, width, size, group, cells=cells
+                )
+                if plan.fits:
+                    found.append(plan)
     return found
 
 
@@ -134,24 +136,23 @@ def run(device, card, log=print):
                     cluster_size=plan.cluster_size,
                     group=plan.group,
                     threads=plan.block_threads,
-                    default_threads=plan.threads == 0,
+                    cells=plan.block_cells,
                     shared_bytes=plan.shared_bytes,
                     ms=ms,
                     sweeps=sweeps,
                 )
             )
             log(
-                f"ns plans: {label}: {plan.cluster_size} blocks x "
-                f"{plan.block_threads} threads, groups of {plan.group}: "
-                f"{ms:.3f} ms, {sweeps} sweeps [{card}]"
+                f"ns plans: {label}: {plan}: {ms:.3f} ms, {sweeps} sweeps "
+                f"[{card}]"
             )
         best = min(rows, key=lambda row: row["ms"])
         log(
             f"ns plans: {label}: fastest {best['cluster_size']} blocks x "
-            f"{best['threads']} threads, groups of {best['group']}: "
-            f"{best['ms']:.3f} ms (table entry ({cfg.height}, {cfg.width}, "
-            f"{batch}): ({best['cluster_size']}, {best['group']}, "
-            f"{0 if best['default_threads'] else best['threads']})) [{card}]"
+            f"{best['threads']} threads x {best['cells']} cells, groups of "
+            f"{best['group']}: {best['ms']:.3f} ms (table entry "
+            f"({cfg.height}, {cfg.width}, {batch}): ({best['cluster_size']}, "
+            f"{best['group']}, {best['threads']}, {best['cells']})) [{card}]"
         )
         results.append(
             dict(

@@ -144,11 +144,7 @@ def plans(cfg):
     schedule of the kernel before its groups)."""
     for group in dict.fromkeys((cfg.plan.group, 1)):
         plan = cfg.plan._replace(group=group)
-        yield (
-            f"{plan.cluster_size} blocks x {plan.block_threads} threads, "
-            f"groups of {group}",
-            {"plan": plan},
-        )
+        yield str(plan), {"plan": plan}
 
 
 def run(device, card, log=print):
