@@ -277,6 +277,10 @@ import time
 
 import numpy as np
 
+# the card's peaks, and the bounds they give with the Navier-Stokes
+# operation counts, shared with the benchmark
+from benchmark.roofline import PEAK_BYTES_PER_S, bound, navier_stokes_bound
+
 
 T_END = 40.0
 FINE_D_T = 1e-3
@@ -587,15 +591,6 @@ NS_KERNELS = (
     ("fused_navier_stokes_rk4_step",
      "pararealml_tpu/ops/fused_system.py:1098"),
 )
-# float32 operations a cell, counted from the kernel's arithmetic as
-# FLOPS_PER_CELL_STEP below: a step's four vorticity right-hand sides (a
-# Laplacian and its coefficient 9, two gradient terms 4 each: 17), w's 13
-# stage updates and the two velocities (5): 4 x 17 + 13 + 5 = 86; a Jacobi
-# sweep's Laplacian (8), -w, the difference, the division and the sum
-# (4), and the norm's difference, square and sum (3): 15
-NS_FLOPS_PER_CELL_STEP = 86
-NS_FLOPS_PER_CELL_SWEEP = 15
-
 # the end modes past one CTA: an 8-slice Parareal over
 # examples/wave_2d_fdm.py's problem (101^2, past one CTA; fine d_t 0.01,
 # the example's own, coarse d_t 0.05), its fine ends through the batched
@@ -622,11 +617,6 @@ END_REPLACES = {
     "resident_diffusion_rk4_end": "pararealml_tpu/ops/fused_diffusion.py:538",
 }
 
-# the card's published peaks (NVIDIA H100 SXM data sheet, at the 700 W
-# power limit): HBM bytes per second and float32 operations per second
-# outside the tensor cores
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_FLOPS = 67e12
 # float32 operations one RK4 step does per grid cell, counted from the
 # kernels' arithmetic: diffusion (K1-K3) evaluates a 10-operation
 # right-hand side and 5 stage updates per stage. The 2D systems (K4, K5,
@@ -719,17 +709,6 @@ def before_redesign(key, what):
     the time of ``key`` at ``what``, else an empty string."""
     ms = K5_BEFORE_REDESIGN_MS.get((key, what))
     return "" if ms is None else f"; before the K5 redesign {ms:.3f} ms"
-
-
-def bound(bytes_moved: float, flops: float):
-    """(bound_ms, bound_by): the least time the card could take for the
-    work, the larger of its bytes over the memory rate and its
-    operations over the float32 rate."""
-    bytes_ms = 1e3 * bytes_moved / PEAK_BYTES_PER_S
-    flops_ms = 1e3 * flops / PEAK_FP32_FLOPS
-    if bytes_ms >= flops_ms:
-        return bytes_ms, "bytes"
-    return flops_ms, "operations"
 
 
 def stencil_bound(
@@ -3912,22 +3891,6 @@ def polar_phases(
             f"{1.0 - busy_ms / run_ms[label]:.3f}; top: {top} [{card}]"
         )
     return entries
-
-
-def navier_stokes_bound(cells, batch, n_steps, sweeps, trajectory):
-    """The bound of a Navier-Stokes kernel run: each state and the
-    Dirichlet grids (a float value and a byte mask a value) read once,
-    every frame or the end state written once, against the operations of
-    its steps and of the Jacobi sweeps it counted (``sweeps``, summed over
-    the batch)."""
-    values = 4 * cells
-    read = 4 * batch * values + 5 * values
-    written = 4 * batch * values * (n_steps if trajectory else 1)
-    flops = cells * (
-        NS_FLOPS_PER_CELL_STEP * batch * n_steps
-        + NS_FLOPS_PER_CELL_SWEEP * sweeps
-    )
-    return bound(read + written, flops)
 
 
 @contextlib.contextmanager

@@ -100,19 +100,21 @@ class TorchOperator(Operator):
         time_parallel: bool = False,
         dtype: Optional[torch.dtype] = None,
         device=None,
+        batch: Optional[int] = None,
     ) -> Tuple[Callable[..., torch.Tensor], np.ndarray]:
         """Returns ``(fn, t_coordinates)`` where ``fn(y_0, t_0)`` maps
         the initial state (``y_shape``, optionally with leading batch
-        axes) and the interval start time to the trajectory of shape
-        ``batch + (len(t_coordinates),) + y_shape``.
+        axes ``lead``) and the interval start time to the trajectory of
+        shape ``lead + (len(t_coordinates),) + y_shape``.
 
         ``t_coordinates`` are the output times relative to
         ``t_interval[0]`` (excluding the initial time).
 
         The function carries tags callers dispatch on: ``vmappable``
         (any leading batch axes are mapped elementwise on the generic
-        path), ``fused`` (a hand-written kernel runs it),
-        ``end_function`` and ``affine_slice_map`` (affine propagators).
+        path), ``fused`` (a hand-written kernel runs it), ``batched``
+        (it takes exactly ``batch`` states), ``end_function`` and
+        ``affine_slice_map`` (affine propagators).
 
         :param allow_fused: whether hand-written kernels may be used
         :param time_parallel: whether the caller is a parallel-in-time
@@ -127,8 +129,27 @@ class TorchOperator(Operator):
             as propagator matrices) are built (defaults to the
             operator's); a state on another device wins, and the
             constants follow it
+        :param batch: the number of states the caller stacks along one
+            leading axis (Parareal's slices), or None; the operator may
+            then return a function of exactly that batch (tagged
+            ``batched``), such as a kernel that runs the states side by
+            side, and otherwise ignores it
         """
         raise NotImplementedError
+
+    def ends_function(
+        self,
+        cp,
+        t_interval: TemporalDomainInterval,
+        allow_fused: bool = True,
+        batch: Optional[int] = None,
+        dtype: Optional[torch.dtype] = None,
+    ) -> Optional[Callable[..., torch.Tensor]]:
+        """An ends-only solver ``fn(y_0, t_0) -> y_end`` for the interval,
+        tagged as :meth:`trajectory_function`'s functions are, with
+        ``batch`` meaning what it means there; or None (the default),
+        in which case callers take the trajectory's last frame."""
+        return None
 
 
 def discretize_time_domain(

@@ -21,13 +21,21 @@ chosen when it is built:
   :mod:`pararealml_tpu_torch.ops.fused_navier_stokes` (K5's
   Navier-Stokes family, grids that fit one thread block cluster),
   :mod:`pararealml_tpu_torch.ops.fused_system_3d` (K9, volumes that fit
-  one thread block cluster), or their plain PyTorch versions for CPU
-  tensors;
+  one thread block cluster), and, for callers that pass a batch of
+  states (Parareal's slices), :mod:`pararealml_tpu_torch.ops.packed_system`
+  (K4, one CTA per state, on Cartesian 2D systems that fit one CTA), or
+  their plain PyTorch versions for CPU tensors;
 - otherwise a Python loop over the generic step, which evaluates the
   symbolic right-hand side with stencils on tensors, with the metric
   terms of polar, cylindrical and spherical meshes, and solves
   ``Y_LAPLACIAN`` left-hand sides with the differentiator's
   anti-Laplacian (Jacobi or BiCGStab).
+
+Kernel choice has two levels. :class:`FDMOperator` picks the
+formulation, the fused family (diffusion, 2D systems or 3D) and K4, in
+one place for trajectories, end states and steps; each family's builders
+then pick its kernel by grid size. Callers such as the Parareal schedule
+ask for a batch through the operator contract and never name a kernel.
 
 Static boundary conditions become constant dense constraint tensors. All
 functions accept states with leading batch axes.
@@ -40,7 +48,8 @@ domain decomposition (slice 7).
 from __future__ import annotations
 
 import warnings
-from typing import Callable, Optional, Tuple
+from functools import partial
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -81,6 +90,17 @@ def _require_static(cp: ConstrainedProblem):
             "dynamic boundary conditions are not ported to PyTorch yet "
             "(ROADMAP.md, Queue 1, slice 1b)"
         )
+
+
+class _FusedFamily(NamedTuple):
+    """A fused family's builders for one problem: ``trajectory(steps)``,
+    ``end(steps, batch=None)`` (None where the family has no end kernel
+    for the grid) and ``step()``, each returning a function of the
+    state."""
+
+    trajectory: Callable
+    end: Callable
+    step: Callable
 
 
 class FDMOperator(TorchOperator):
@@ -209,6 +229,7 @@ class FDMOperator(TorchOperator):
         time_parallel: bool = False,
         dtype: Optional[torch.dtype] = None,
         device=None,
+        batch: Optional[int] = None,
     ) -> Tuple[Callable, np.ndarray]:
         _require_static(cp)
         t = discretize_time_domain(t_interval, self._d_t)
@@ -220,6 +241,7 @@ class FDMOperator(TorchOperator):
             time_parallel=time_parallel,
             dtype=dtype,
             device=device,
+            batch=batch,
         )
         return trajectory, t[1:]
 
@@ -258,11 +280,11 @@ class FDMOperator(TorchOperator):
         (the state on-chip for the whole solve), and past one CTA the end
         modes of K7 (diffusion) and K8 (2D systems); ``batch=B`` builds
         the batched variant mapping ``(B, ...) -> (B, ...)`` (tagged
-        ``batched``), otherwise it maps one state. On the generic path
-        the solve is a carry-only loop that never stacks per-step states,
-        and the function takes any leading batch axes (tagged
-        ``vmappable``; ``batch`` is ignored). Returns None for dynamic
-        boundary conditions.
+        ``batched``; K4 where it applies), otherwise it maps one state.
+        On the generic path the solve is a carry-only loop that never
+        stacks per-step states, and the function takes any leading batch
+        axes (tagged ``vmappable``; ``batch`` is ignored). Returns None
+        for dynamic boundary conditions.
         """
         if (
             cp.differential_equation.x_dimension
@@ -272,20 +294,13 @@ class FDMOperator(TorchOperator):
         dtype = self.dtype if dtype is None else dtype
         t = discretize_time_domain(t_interval, self._d_t)
         steps = len(t) - 1
-
-        if self._fused_kernels and allow_fused:
-            fused_end = self._build_fused_end_fn(cp, steps, batch, dtype)
-            if fused_end is not None:
-
-                def fused_ends(y_init, t_start=None):
-                    # the fused family is autonomous with static
-                    # constraints, so the start time is irrelevant
-                    return fused_end(y_init)
-
-                fused_ends.vmappable = False
-                fused_ends.fused = True
-                fused_ends.batched = batch is not None
-                return fused_ends
+        fused = (
+            self._fused_solve(cp, steps, batch, dtype, end=True)
+            if allow_fused
+            else None
+        )
+        if fused is not None:
+            return fused
 
         step_fn = self._build_step_function(cp, allow_fused=False)
         d_t = self._d_t
@@ -312,141 +327,184 @@ class FDMOperator(TorchOperator):
         eq_sys = cp.differential_equation.symbolic_equation_system
         return not eq_sys.equation_indices_by_type(LHS.Y_LAPLACIAN)
 
-    def _anti_laplacian(self) -> dict:
-        """The differentiator's anti-Laplacian settings, as the fused
-        system builders take them."""
-        return dict(
-            anti_laplacian_tol=self._differentiator._tol,
-            anti_laplacian_max_iterations=(
-                self._differentiator._max_iterations
-            ),
-        )
+    # -- kernel choice -----------------------------------------------------
 
-    def _build_fused_end_fn(
-        self, cp, steps: int, batch: Optional[int], dtype: torch.dtype
-    ) -> Optional[Callable]:
-        """The fused end kernel for this problem (K2, or K7's end mode
-        past one CTA, for the diffusion family; the K5 end, or K8's end
-        mode past one CTA, for 2D systems, Cartesian or polar; the K9 end
-        in 3D), or None when none applies (its ends then take the generic
-        carry-only loop)."""
-        from pararealml_tpu_torch.ops.fused_diffusion import (
-            build_fused_diffusion_rk4_end,
-            fused_diffusion_step_applicable,
-        )
-        from pararealml_tpu_torch.ops.fused_system import (
-            build_fused_system_rk4_end,
-            fused_system_step_applicable,
-        )
-        from pararealml_tpu_torch.ops.fused_system_3d import (
-            build_fused_system_3d_rk4_end,
-            fused_system_3d_step_applicable,
-        )
+    def _fused_family(
+        self, cp: ConstrainedProblem, dtype: torch.dtype
+    ) -> Optional[_FusedFamily]:
+        """The builders of the fused family that covers this problem and
+        states of ``dtype``, bound to the step size and this operator's
+        settings, or None when fused kernels are off or no family
+        applies. The families are tried in this order: diffusion and
+        convection-diffusion (K1-K3 on grids that fit one CTA, K7 and K6
+        past it), 2D systems (K5, the cluster-resident mode, K8 and the
+        Navier-Stokes kernel), 3D (K9); each family's builders pick its
+        kernel by grid size."""
+        if not self._fused_kernels:
+            return None
+        from pararealml_tpu_torch.ops import fused_diffusion as diffusion
+        from pararealml_tpu_torch.ops import fused_system as system
+        from pararealml_tpu_torch.ops import fused_system_3d as system_3d
 
-        if fused_diffusion_step_applicable(cp, self._integrator, dtype):
-            return build_fused_diffusion_rk4_end(
-                cp, self._d_t, steps, batch=batch
+        d_t, integrator = self._d_t, self._integrator
+        if diffusion.fused_diffusion_step_applicable(cp, integrator, dtype):
+            return _FusedFamily(
+                partial(self._fused_diffusion_trajectory, cp),
+                partial(diffusion.build_fused_diffusion_rk4_end, cp, d_t),
+                partial(diffusion.build_fused_diffusion_rk4_step, cp, d_t),
             )
-        if fused_system_step_applicable(
-            cp, self._integrator, dtype
+        if system.fused_system_step_applicable(
+            cp, integrator, dtype
         ) and self._fused_anti_laplacian_compatible(cp):
-            return build_fused_system_rk4_end(
-                cp, self._d_t, steps, batch=batch, **self._anti_laplacian()
-            )
-        if fused_system_3d_step_applicable(cp, self._integrator, dtype):
-            return build_fused_system_3d_rk4_end(
-                cp, self._d_t, steps, batch=batch
-            )
-        return None
-
-    def _build_fused_trajectory_fn(
-        self, cp, steps: int, dtype: torch.dtype
-    ) -> Optional[Callable]:
-        """The fused trajectory kernel for this problem (K1, K7 or K6
-        for the diffusion family, by grid size; the K5 or K8 trajectory
-        for 2D systems, by grid size; the K9 trajectory in 3D), or None
-        when none applies."""
-        from pararealml_tpu_torch.ops.fused_diffusion import (
-            build_fused_diffusion_rk4_trajectory,
-            fused_diffusion_step_applicable,
-        )
-        from pararealml_tpu_torch.ops.fused_system import (
-            build_fused_system_rk4_trajectory,
-            fused_system_step_applicable,
-        )
-        from pararealml_tpu_torch.ops.fused_system_3d import (
-            build_fused_system_3d_rk4_trajectory,
-            fused_system_3d_step_applicable,
-        )
-
-        if fused_diffusion_step_applicable(cp, self._integrator, dtype):
-            from pararealml_tpu_torch.ops.fused_diffusion import (
-                past_reference_vmem,
-            )
-            from pararealml_tpu_torch.ops.tiled_diffusion import (
-                resolve_temporal_block,
-                takes_streaming_path,
-            )
-
-            # the knobs take effect past the JAX package's VMEM cap only:
-            # below it, its whole-grid kernel ignores them
-            if past_reference_vmem(cp):
-                storage_dtype = self._kernel_storage_dtype
-                traj_dtype = self._kernel_traj_dtype
-                requested_block = self._kernel_temporal_block
-            else:
-                storage_dtype = traj_dtype = None
-                requested_block = 1
-            temporal_block = resolve_temporal_block(
-                cp,
-                steps,
-                requested_block,
-                storage_dtype=storage_dtype,
-                traj_dtype=traj_dtype,
-            )
-            if (
-                temporal_block == 1
-                and traj_dtype is not None
-                and traj_dtype != storage_dtype
-                and takes_streaming_path(cp)
-            ):
-                # a split frame dtype needs the blocked pipeline; falling
-                # back to the state dtype silently would yield
-                # differently-rounded trajectories per solve
-                warnings.warn(
-                    f"kernel_traj_dtype={traj_dtype} "
-                    "dropped: no even temporal block <= "
-                    f"{requested_block} divides this "
-                    f"solve's {steps} steps with a feasible tile "
-                    "plan, so snapshots keep the storage dtype",
-                    stacklevel=4,
-                )
-            return build_fused_diffusion_rk4_trajectory(
-                cp,
-                self._d_t,
-                steps,
-                storage_dtype=storage_dtype,
-                traj_dtype=(
-                    traj_dtype if temporal_block > 1 else storage_dtype
+            knobs = dict(
+                anti_laplacian_tol=self._differentiator._tol,
+                anti_laplacian_max_iterations=(
+                    self._differentiator._max_iterations
                 ),
-                temporal_block=temporal_block,
             )
-        if fused_system_step_applicable(
-            cp, self._integrator, dtype
-        ) and self._fused_anti_laplacian_compatible(cp):
             # kernel_traj_dtype and kernel_temporal_block do not reach
             # the system kernels, and kernel_storage_dtype only past the
             # JAX package's VMEM cap, as in the JAX package
-            return build_fused_system_rk4_trajectory(
-                cp,
-                self._d_t,
-                steps,
-                storage_dtype=self._kernel_storage_dtype,
-                **self._anti_laplacian(),
+            return _FusedFamily(
+                partial(
+                    system.build_fused_system_rk4_trajectory,
+                    cp,
+                    d_t,
+                    storage_dtype=self._kernel_storage_dtype,
+                    **knobs,
+                ),
+                partial(system.build_fused_system_rk4_end, cp, d_t, **knobs),
+                partial(system.build_fused_system_rk4_step, cp, d_t, **knobs),
             )
-        if fused_system_3d_step_applicable(cp, self._integrator, dtype):
-            return build_fused_system_3d_rk4_trajectory(cp, self._d_t, steps)
+        if system_3d.fused_system_3d_step_applicable(cp, integrator, dtype):
+            return _FusedFamily(
+                *(
+                    partial(builder, cp, d_t)
+                    for builder in (
+                        system_3d.build_fused_system_3d_rk4_trajectory,
+                        system_3d.build_fused_system_3d_rk4_end,
+                        system_3d.build_fused_system_3d_rk4_step,
+                    )
+                )
+            )
         return None
+
+    def _fused_diffusion_trajectory(self, cp, steps: int) -> Callable:
+        """The diffusion family's trajectory builder with the storage
+        knobs resolved for this grid and step count."""
+        from pararealml_tpu_torch.ops.fused_diffusion import (
+            build_fused_diffusion_rk4_trajectory,
+            past_reference_vmem,
+        )
+        from pararealml_tpu_torch.ops.tiled_diffusion import (
+            resolve_temporal_block,
+            takes_streaming_path,
+        )
+
+        # the knobs take effect past the JAX package's VMEM cap only:
+        # below it, its whole-grid kernel ignores them
+        if past_reference_vmem(cp):
+            storage_dtype = self._kernel_storage_dtype
+            traj_dtype = self._kernel_traj_dtype
+            requested_block = self._kernel_temporal_block
+        else:
+            storage_dtype = traj_dtype = None
+            requested_block = 1
+        temporal_block = resolve_temporal_block(
+            cp,
+            steps,
+            requested_block,
+            storage_dtype=storage_dtype,
+            traj_dtype=traj_dtype,
+        )
+        if (
+            temporal_block == 1
+            and traj_dtype is not None
+            and traj_dtype != storage_dtype
+            and takes_streaming_path(cp)
+        ):
+            # a split frame dtype needs the blocked pipeline; falling
+            # back to the state dtype silently would yield
+            # differently-rounded trajectories per solve
+            warnings.warn(
+                f"kernel_traj_dtype={traj_dtype} "
+                "dropped: no even temporal block <= "
+                f"{requested_block} divides this "
+                f"solve's {steps} steps with a feasible tile "
+                "plan, so snapshots keep the storage dtype",
+                stacklevel=5,
+            )
+        return build_fused_diffusion_rk4_trajectory(
+            cp,
+            self._d_t,
+            steps,
+            storage_dtype=storage_dtype,
+            traj_dtype=(traj_dtype if temporal_block > 1 else storage_dtype),
+            temporal_block=temporal_block,
+        )
+
+    def _fused_solve(
+        self,
+        cp: ConstrainedProblem,
+        steps: int,
+        batch: Optional[int],
+        dtype: torch.dtype,
+        end: bool,
+    ) -> Optional[Callable]:
+        """``fn(y_0, t_0)`` for the end state (``end``) or the trajectory
+        through a hand-written kernel, or None when none applies: for a
+        ``batch`` of states the batched kernels over them (K4,
+        :mod:`pararealml_tpu_torch.ops.packed_system`: 2D systems other
+        than Navier-Stokes on a Cartesian grid that fits one CTA, a batch
+        of two or more), whose trajectory rounds its frames to
+        ``kernel_traj_dtype`` as the JAX package's final Parareal
+        expansion does; else the fused family's kernel."""
+        if not self._fused_kernels:
+            return None
+        from pararealml_tpu_torch.ops import packed_system
+
+        if batch is not None and packed_system.packed_system_applicable(
+            cp, self._integrator, batch, dtype
+        ):
+            kernel = (
+                packed_system.build_packed_system_rk4_ends(
+                    cp, self._d_t, steps, batch
+                )
+                if end
+                else packed_system.build_packed_system_rk4_trajectory(
+                    cp,
+                    self._d_t,
+                    steps,
+                    batch,
+                    traj_dtype=self._kernel_traj_dtype,
+                )
+            )
+            vmappable, batched = False, True
+        else:
+            family = self._fused_family(cp, dtype)
+            if family is None:
+                return None
+            kernel = (
+                family.end(steps, batch=batch)
+                if end
+                else family.trajectory(steps)
+            )
+            if kernel is None:
+                return None
+            # a trajectory kernel runs one CTA (K1, K5), one cluster (K9)
+            # or one launch sequence (K6, K7; K8 over all of them at
+            # once) per leading index
+            vmappable, batched = not end, end and batch is not None
+
+        def fused(y_init, t_start=None):
+            # the fused families are autonomous with static constraints,
+            # so the start time is irrelevant
+            return kernel(y_init)
+
+        fused.vmappable = vmappable
+        fused.fused = True
+        fused.batched = batched
+        return fused
 
     # -- step construction -------------------------------------------------
 
@@ -458,11 +516,13 @@ class FDMOperator(TorchOperator):
         time_parallel: bool = False,
         dtype: Optional[torch.dtype] = None,
         device=None,
+        batch: Optional[int] = None,
     ) -> Callable:
         """Builds ``fn(y_0, t_0) -> ys`` for the whole trajectory: for
         parallel-in-time callers on linear problems, the affine
-        propagator; otherwise the fused trajectory kernel (K1, K5, K6,
-        K7, K8 or K9) when applicable, else a loop over the generic step."""
+        propagator; otherwise a hand-written kernel when one applies (K4
+        for a ``batch``, else K1, K5, K6, K7, K8 or K9), else a loop over
+        the generic step."""
         dtype = self.dtype if dtype is None else dtype
         device = self.device if device is None else torch.device(device)
         if time_parallel and self._linear_propagator:
@@ -481,22 +541,12 @@ class FDMOperator(TorchOperator):
                 return build_linear_propagator_trajectory(
                     cp, step_fn, steps, y_shape, dtype=dtype, device=device
                 )
-        fused_trajectory = (
-            self._build_fused_trajectory_fn(cp, steps, dtype)
-            if self._fused_kernels and allow_fused
+        fused = (
+            self._fused_solve(cp, steps, batch, dtype, end=False)
+            if allow_fused
             else None
         )
-        if fused_trajectory is not None:
-
-            def fused(y_init, t_start=None):
-                # the fused families are autonomous with static
-                # constraints, so the start time is irrelevant
-                return fused_trajectory(y_init)
-
-            # one CTA (K1, K5), one cluster (K9) or one launch sequence
-            # (K6, K7; K8 over all of them at once) per leading index
-            fused.vmappable = True
-            fused.fused = True
+        if fused is not None:
             return fused
 
         step_fn = self._build_step_function(cp, allow_fused=False)
@@ -535,37 +585,14 @@ class FDMOperator(TorchOperator):
         trajectory past one CTA, the K9 step in 3D)."""
         _require_static(cp)
         dtype = self.dtype if dtype is None else dtype
-        if self._fused_kernels and allow_fused:
-            from pararealml_tpu_torch.ops.fused_diffusion import (
-                build_fused_diffusion_rk4_step,
-                fused_diffusion_step_applicable,
-            )
-            from pararealml_tpu_torch.ops.fused_system import (
-                build_fused_system_rk4_step,
-                fused_system_step_applicable,
-            )
-            from pararealml_tpu_torch.ops.fused_system_3d import (
-                build_fused_system_3d_rk4_step,
-                fused_system_3d_step_applicable,
-            )
+        family = self._fused_family(cp, dtype) if allow_fused else None
+        if family is not None:
+            fused_step = family.step()
 
-            fused_step = None
-            if fused_diffusion_step_applicable(cp, self._integrator, dtype):
-                fused_step = build_fused_diffusion_rk4_step(cp, self._d_t)
-            elif fused_system_step_applicable(
-                cp, self._integrator, dtype
-            ) and self._fused_anti_laplacian_compatible(cp):
-                fused_step = build_fused_system_rk4_step(
-                    cp, self._d_t, **self._anti_laplacian()
-                )
-            elif fused_system_3d_step_applicable(cp, self._integrator, dtype):
-                fused_step = build_fused_system_3d_rk4_step(cp, self._d_t)
-            if fused_step is not None:
+            def step_fused(y, i, t_i):
+                return fused_step(y)
 
-                def step_fused(y, i, t_i):
-                    return fused_step(y)
-
-                return step_fused
+            return step_fused
 
         diff_eq = cp.differential_equation
         eq_sys = diff_eq.symbolic_equation_system

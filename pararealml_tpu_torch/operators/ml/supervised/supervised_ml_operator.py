@@ -187,13 +187,14 @@ class SupervisedMLOperator(TorchOperator):
         time_parallel: bool = False,
         dtype: Optional[torch.dtype] = None,
         device=None,
+        batch: Optional[int] = None,
     ):
         """The model's roll-out over the time grid as ``(y_0, t_0) ->
-        ys`` (leading batch axes map elementwise). Under
-        ``time_parallel``, a model that is affine in the state becomes
-        the linear propagator (tagged with its ``end_function`` and
-        ``affine_slice_map``); a nonlinear one fails the probe and rolls
-        out."""
+        ys`` (leading batch axes map elementwise, so ``batch`` is
+        ignored). Under ``time_parallel``, a model that is affine in the
+        state becomes the linear propagator (tagged with its
+        ``end_function`` and ``affine_slice_map``); a nonlinear one fails
+        the probe and rolls out."""
         apply_model, y_shape = self._build_apply_model(cp)
         t = discretize_time_domain(t_interval, self._d_t)
         t_offsets = [float(offset) for offset in t[1:] - t[0]]

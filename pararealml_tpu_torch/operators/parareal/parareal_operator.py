@@ -5,15 +5,13 @@ Port of the JAX package's ``operators/parareal/parareal_operator.py``
 parareal_operator.py:13-197) for one device: the classic ``"f"``
 schedule with ``materialize="final"`` and static boundary conditions.
 The time slices are a leading batch axis of every sub-solve, so each
-iteration's fine solves are one batched call:
-
-- on linear problems (the default), affine-propagator matmuls;
-- otherwise the batched kernels over the slices (K4, one CTA per slice)
-  where they apply (2D systems whose grid fits one CTA), or the batched
-  fused end kernel (K2 or K7's end mode for the diffusion family, K8's
-  end mode for 2D systems past one CTA, the K5 end on polar grids, the
-  K9 end in 3D, the Navier-Stokes end);
-- or the generic step loop over the batch.
+iteration's fine solves are one batched call. The fine operator chooses
+how: the schedule asks it through the :class:`TorchOperator` contract
+(``trajectory_function`` and ``ends_function`` with ``batch`` set to the
+slice count) and never names a kernel. :class:`FDMOperator` answers with
+affine-propagator matmuls on linear problems (the default), else the
+batched kernels over the slices (K4) or a batched fused end kernel where
+they apply, else the generic step loop over the batch.
 
 The coarse sweeps run as a log-depth doubling scan when the coarse
 propagator is affine, else slice by slice (through the single-state
@@ -21,11 +19,11 @@ fused end kernel where it applies). Early termination uses the
 reference's criterion (the maximum per-component RMS of the border
 updates against the tolerance), checked on the host after each
 iteration. After the loop, the fine trajectories are expanded once from
-the final borders (one batched kernel launch, K4 or K1, or one batched
-propagator expansion) and shifted onto the corrected borders. A coarse
-operator that is neither affine nor fused, such as a nonlinear
-supervised-ML surrogate, runs the initial sweep as one whole-domain
-roll-out and the corrective sweeps through its ``ends_function``.
+the final borders (one batched call of the fine trajectory) and shifted
+onto the corrected borders. A coarse operator that is neither affine nor
+fused, such as a nonlinear supervised-ML surrogate, runs the initial
+sweep as one whole-domain roll-out and the corrective sweeps through its
+``ends_function``.
 
 Not ported yet: FCF relaxation, ``materialize="iteration"``, dynamic
 boundary conditions, callable termination conditions and the host
@@ -254,11 +252,13 @@ class PararealOperator(TorchOperator):
         time_parallel: bool = False,
         dtype: Optional[torch.dtype] = None,
         device=None,
+        batch: Optional[int] = None,
     ):
         """The whole Parareal solve as one ``(y_0, t_0) -> ys`` function,
         with ``t_coordinates`` of the fine grid. The function runs in the
         dtype and on the device of ``y_0``; the other arguments of the
-        :class:`TorchOperator` contract do not change it."""
+        :class:`TorchOperator` contract (``batch`` among them) do not
+        change it."""
         program = self._program_for(cp, t_interval)
         t = discretize_time_domain(t_interval, self._f.d_t)
         return program, t[1:]
@@ -334,21 +334,19 @@ class PararealOperator(TorchOperator):
         sub_solvers = {}
 
         def build(time_parallel: bool, dtype, device):
-            def trajectory(operator, interval):
+            def trajectory(operator, batch=None):
                 return operator.trajectory_function(
                     cp,
-                    interval,
+                    (0.0, slice_duration),
                     allow_fused=True,
                     time_parallel=time_parallel,
                     dtype=dtype,
                     device=device,
+                    batch=batch,
                 )[0]
 
             def ends(operator, batch=None):
-                builder = getattr(operator, "ends_function", None)
-                if builder is None:
-                    return None
-                return builder(
+                return operator.ends_function(
                     cp,
                     (0.0, slice_duration),
                     allow_fused=True,
@@ -356,40 +354,17 @@ class PararealOperator(TorchOperator):
                     dtype=dtype,
                 )
 
-            fine_fn = trajectory(self._f, (0.0, slice_duration))
-            coarse_fn = trajectory(self._g, (0.0, slice_duration))
-            fine_end = getattr(fine_fn, "end_function", None)
+            # the fine trajectories of all slices in one batched call, and
+            # their ends: the affine end map, else the fine operator's
+            # batched ends, else the trajectory's last frame
+            fine_expand = trajectory(self._f, batch=n)
+            coarse_fn = trajectory(self._g)
+            fine_end = getattr(fine_expand, "end_function", None)
             coarse_end = getattr(coarse_fn, "end_function", None)
-
-            # without an affine fine map, the batched kernels over the
-            # slices (K4, ops/packed_system.py) take the fine ends of
-            # every iteration and the final expansion where they apply
-            # (the JAX package's width-packed kernels)
-            fine_expand = fine_fn
-            if fine_end is None:
-                packed = self._packed_fine_kernels(
-                    cp, n, fine_steps, dtype
-                )
-                if packed is not None:
-                    packed_ends, packed_trajectory = packed
-
-                    # autonomous with static constraints: the slices'
-                    # start times are irrelevant
-                    def fine_end(ys, t):
-                        return packed_ends(ys)
-
-                    def fine_expand(ys, t):
-                        return packed_trajectory(ys)
-
-            # otherwise the fine ends of all slices in one batched call:
-            # the affine end map, else the batched fused end kernel (one
-            # CTA per slice; for the diffusion family this replaces the
-            # JAX package's width-packed kernels), else the generic
-            # carry-only loop over the batch
             if fine_end is None:
                 candidate = ends(self._f, batch=n)
                 if candidate is None:
-                    fine_end = lambda ys, t: fine_fn(ys, t)[  # noqa: E731
+                    fine_end = lambda ys, t: fine_expand(ys, t)[  # noqa: E731
                         (Ellipsis, -1) + (slice(None),) * len(y_shape)
                     ]
                 elif getattr(candidate, "batched", False) or getattr(
@@ -561,38 +536,6 @@ class PararealOperator(TorchOperator):
                 )
 
         return program
-
-    def _packed_fine_kernels(self, cp, n: int, fine_steps: int, dtype):
-        """``(ends, trajectory)`` of the batched kernels over the ``n``
-        slices (K4) for the fine operator, or None when they do not apply
-        (a fine operator without fused kernels, a problem family or mesh
-        they do not cover, fewer than two slices, a dtype other than
-        float32). The trajectory rounds its frames to the fine operator's
-        ``kernel_traj_dtype``, as the JAX package's final expansion does
-        (its ``parareal_operator.py:801-814``)."""
-        from pararealml_tpu_torch.ops.packed_system import (
-            build_packed_system_rk4_ends,
-            build_packed_system_rk4_trajectory,
-            packed_system_applicable,
-        )
-
-        integrator = getattr(self._f, "_integrator", None)
-        if not (
-            getattr(self._f, "_fused_kernels", False)
-            and integrator is not None
-            and packed_system_applicable(cp, integrator, n, dtype)
-        ):
-            return None
-        return (
-            build_packed_system_rk4_ends(cp, self._f.d_t, fine_steps, n),
-            build_packed_system_rk4_trajectory(
-                cp,
-                self._f.d_t,
-                fine_steps,
-                n,
-                traj_dtype=getattr(self._f, "_kernel_traj_dtype", None),
-            ),
-        )
 
 
 def _build_affine_sweep(affine_slice_map, n: int, dim: int, device):

@@ -3,7 +3,8 @@ the JAX package in float64: generic trajectories to rtol 1e-10 (the two
 lambdified right-hand sides may order their sums differently), the
 probed affine step map, the propagator's trajectory, end function and
 composed slice map, and the static constraint tensors that cross between
-the packages as arrays."""
+the packages as arrays; and the kernel the operator picks for a batch of
+float32 states (K4, K5, K2 and K1, the polar K5)."""
 
 import functools
 
@@ -19,9 +20,11 @@ from bench import build_problem
 from pararealml_tpu.ops import fused_diffusion as jax_fused
 from pararealml_tpu.ops import linear_propagator as jax_propagator
 from pararealml_tpu_torch.ops import fused_diffusion as torch_fused
+from pararealml_tpu_torch.ops import fused_system as torch_system
 from pararealml_tpu_torch.ops import linear_propagator as torch_propagator
+from pararealml_tpu_torch.ops import packed_system as torch_packed
 from tests.parity_cases import equation_cases, solve_fdm_trajectory
-from tests.test_torch_cuda import PROBLEMS
+from tests.test_torch_cuda import PROBLEMS, polar_problem, system_problem
 
 torch.set_num_threads(1)
 
@@ -271,3 +274,82 @@ def test_constraint_tensors_match_jax(problem):
         value = np.asarray(value)
         assert actual[name].numpy().dtype == value.dtype, name
         np.testing.assert_array_equal(actual[name].numpy(), value)
+
+
+# (problem, batch, the wrapper the batched ends call, the wrapper the
+# batched trajectory calls): K4 on a 2D system whose Cartesian grid fits
+# one CTA for two or more states, K5 for one; the flagship's 21 x 21
+# diffusion grid through K2 and K1; a polar grid through the K5 end and
+# trajectory
+BATCHED_ROUTES = {
+    "k4": (
+        lambda m: system_problem(m, "wave", shape=(9, 9)),
+        4,
+        "packed_system_rk4_ends",
+        "packed_system_rk4_trajectory",
+    ),
+    "k5_one_state": (
+        lambda m: system_problem(m, "wave", shape=(9, 9)),
+        1,
+        "fused_system_rk4_end",
+        "fused_system_rk4_trajectory",
+    ),
+    "flagship": (
+        lambda m: PROBLEMS["flagship"](m).constrained_problem,
+        4,
+        "fused_diffusion_rk4_end",
+        "fused_diffusion_rk4_trajectory",
+    ),
+    "polar": (
+        lambda m: polar_problem(m, "wave"),
+        4,
+        "fused_system_rk4_end",
+        "fused_system_rk4_trajectory",
+    ),
+}
+
+
+@pytest.mark.parametrize("route", sorted(BATCHED_ROUTES))
+def test_the_operator_chooses_the_batched_route(route, monkeypatch):
+    """``trajectory_function(batch=n)`` and ``ends_function(batch=n)``
+    return the kernel the operator picks for a batch of ``n`` float32
+    states (their plain versions here), each launched once on the
+    batch."""
+    calls = []
+    for module, name in (
+        (torch_packed, "packed_system_rk4_ends"),
+        (torch_packed, "packed_system_rk4_trajectory"),
+        (torch_fused, "fused_diffusion_rk4_end"),
+        (torch_fused, "fused_diffusion_rk4_trajectory"),
+        (torch_system, "fused_system_rk4_end"),
+        (torch_system, "fused_system_rk4_trajectory"),
+    ):
+        wrapper = getattr(module, name)
+
+        def counting(y, *args, _wrapper=wrapper, _name=name, **kwargs):
+            calls.append((_name, y.shape[0]))
+            return _wrapper(y, *args, **kwargs)
+
+        monkeypatch.setattr(module, name, counting)
+    build_cp, batch, end_kernel, trajectory_kernel = BATCHED_ROUTES[route]
+    cp = build_cp(vars(torch_pkg))
+    operator = torch_fdm.FDMOperator(
+        torch_fdm.RK4(),
+        torch_fdm.ThreePointCentralDifferenceMethod(),
+        1e-3,
+        device="cpu",
+        dtype=torch.float32,
+    )
+    y_shape = tuple(cp.y_shape(True))
+    y = torch.rand((batch,) + y_shape, dtype=torch.float32)
+    ends = operator.ends_function(cp, (0.0, 3e-3), batch=batch)
+    trajectory, _ = operator.trajectory_function(
+        cp, (0.0, 3e-3), batch=batch
+    )
+    assert ends.fused and ends.batched
+    assert ends(y, 0.0).shape == (batch,) + y_shape
+    assert calls == [(end_kernel, batch)]
+    calls.clear()
+    assert trajectory.fused
+    assert trajectory(y, 0.0).shape == (batch, 3) + y_shape
+    assert calls == [(trajectory_kernel, batch)]

@@ -15,6 +15,10 @@
   of the batched final expansion (K4) in both packages (8 slices on the
   9 x 9 Burgers problem; the JAX package's packed kernels in interpret
   mode).
+- The fine operator choosing K4 for Parareal's fine ends and final
+  expansion on the 9 x 9 Burgers and 9 x 11 Cahn-Hilliard problems: a
+  fine operator that forwards only the public operator contract gets the
+  same K4 launches and arrays as the bare FDM operator.
 - The default device (the CUDA card), and the port solving both slices
   in a process where JAX, flax, scikit-learn and msgpack cannot be
   imported."""
@@ -48,6 +52,7 @@ from pararealml_tpu_torch.operators.fdm import (
 )
 from pararealml_tpu.operators.ml import supervised as jax_supervised
 from pararealml_tpu_torch.operators.ml import supervised
+from pararealml_tpu_torch.operator import TorchOperator
 from pararealml_tpu_torch.operators.parareal import PararealOperator
 from pararealml_tpu_torch.ops import fused_diffusion, fused_system
 from pararealml_tpu_torch.ops import fused_system_3d, packed_system
@@ -524,6 +529,94 @@ def test_cahn_hilliard_parareal_reaches_k4_k5_and_matches_jax(monkeypatch):
     assert actual.shape == expected.shape == (200, 9, 11, 2)
     scale = float(np.abs(expected).max())
     assert float(np.abs(actual - expected).max()) <= 1e-5 * scale
+
+
+class _Delegating(TorchOperator):
+    """A fine operator that forwards only the public :class:`TorchOperator`
+    contract to the operator it wraps: the Parareal schedule sees none
+    of the wrapped operator's fields."""
+
+    def __init__(self, inner):
+        super().__init__(
+            inner.d_t,
+            inner.vertex_oriented,
+            device=inner.device,
+            dtype=inner.dtype,
+        )
+        self._inner = inner
+
+    def trajectory_function(self, *args, **kwargs):
+        return self._inner.trajectory_function(*args, **kwargs)
+
+    def ends_function(self, *args, **kwargs):
+        return self._inner.ends_function(*args, **kwargs)
+
+    def solve(self, ivp, parallel_enabled=True):
+        return self._inner.solve(ivp, parallel_enabled)
+
+
+def _float32_fdm(d_t):
+    return FDMOperator(
+        RK4(),
+        ThreePointCentralDifferenceMethod(),
+        d_t,
+        device="cpu",
+        dtype=torch.float32,
+    )
+
+
+# (initial value problem, fine d_t, coarse d_t, tolerance): the 9 x 9
+# Burgers problem over 4 slices of 8 fine steps, all 4 iterations, and
+# the 9 x 11 Cahn-Hilliard problem of the K4/K5 test above
+K4_PARAREAL_CASES = {
+    "burgers": (
+        lambda: burgers_problem(vars(torch_pkg), extent=2.0, t_end=0.08),
+        BURGERS_FINE_D_T,
+        1e-2,
+        None,
+    ),
+    "cahn_hilliard": (
+        lambda: _cahn_hilliard_ivp(torch_pkg),
+        1e-4,
+        5e-4,
+        CAHN_HILLIARD_TOLERANCE,
+    ),
+}
+
+
+@pytest.mark.parametrize("problem", sorted(K4_PARAREAL_CASES))
+def test_k4_reaches_a_fine_operator_behind_the_contract(problem, monkeypatch):
+    """The fine operator chooses the batched kernels over the slices (K4)
+    for the fine ends and the final expansion: a fine operator that only
+    forwards the public contract to an FDMOperator gets the same K4
+    launches and the same arrays as the bare FDMOperator (float32, K4's
+    plain version)."""
+    calls = []
+    for name in ("packed_system_rk4_ends", "packed_system_rk4_trajectory"):
+        wrapper = getattr(packed_system, name)
+
+        def counting(*args, _wrapper=wrapper, _name=name, **kwargs):
+            calls.append(_name)
+            return _wrapper(*args, **kwargs)
+
+        monkeypatch.setattr(packed_system, name, counting)
+    build_ivp, fine_d_t, coarse_d_t, tolerance = K4_PARAREAL_CASES[problem]
+    ivp = build_ivp()
+    results = []
+    for wrap in (lambda f: f, _Delegating):
+        calls.clear()
+        parareal = PararealOperator(
+            wrap(_float32_fdm(fine_d_t)),
+            _float32_fdm(coarse_d_t),
+            tolerance,
+            num_time_slices=4,
+        )
+        results.append(parareal.solve(ivp).discrete_y())
+        assert calls.count("packed_system_rk4_ends") == (
+            parareal.last_iterations
+        )
+        assert calls.count("packed_system_rk4_trajectory") == 1
+    np.testing.assert_array_equal(results[1], results[0])
 
 
 def test_operators_default_to_the_cuda_card():
