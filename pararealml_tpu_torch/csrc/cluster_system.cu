@@ -211,7 +211,10 @@ int cluster_system_max_active_clusters(int equation, int polar, int height,
 // shape the instances do not take (too many threads a block, more shared
 // memory than a block holds), cudaErrorCooperativeLaunchTooLarge,
 // without launching, for a cluster the card cannot place; the caller
-// raises on anything but 0.
+// raises on anything but 0. A trajectory of one state with a non-null
+// `progress` stores its count of finished frames there after every
+// `chunk` steps (a power of two) and after the last (progress.cuh); a
+// launch that progress.cuh does not admit is refused.
 int cluster_system_rk4(int equation, int polar, const float* y0, void* out,
                        int batch, int height, int width, int n_steps,
                        int write_trajectory, int frame_bfloat16,
@@ -220,8 +223,11 @@ int cluster_system_rk4(int equation, int polar, const float* y0, void* out,
                        const float* ghost_row_vals,
                        const uint8_t* ghost_col_mask,
                        const float* ghost_col_vals, const float* inv_r,
-                       const float* coefficients, void* stream) {
+                       const float* coefficients, int* progress,
+                       int chunk, void* stream) {
   if (n_steps <= 0 || (polar && inv_r == nullptr) ||
+      !frame_progress::publication_valid(progress, chunk, batch,
+                                         write_trajectory) ||
       (frame_bfloat16 && !write_trajectory)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -258,6 +264,8 @@ int cluster_system_rk4(int equation, int polar, const float* y0, void* out,
   a.inv_r = inv_r;
   a.cluster_size = cluster_size;
   a.slab_rows = slab_rows;
+  a.progress = progress;
+  a.chunk_mask = progress == nullptr ? 0 : chunk - 1;
   void* args[] = {&a};
   status = cudaLaunchKernelExC(&config, kernel, args);
   if (status != cudaSuccess) return static_cast<int>(status);

@@ -56,11 +56,14 @@
 //           slower, bands of two rows and lanes of two columns slower or
 //           level), so only bands of one row are built.
 // Device-memory traffic is the initial read plus either one row-major
-// store per step (trajectory) or the final store (end). The TPU kernel's
-// (8, 128) padding, DMA double-buffering and VMEM gates are not carried
-// over. The host admits a grid while the first design's working set
-// (ops/fused_diffusion.py shared_memory_bytes) fits the 227 KB a block
-// can opt into; every admitted grid has a plan of the cells layout.
+// store per step (trajectory) or the final store (end); a trajectory of
+// one state may also publish its count of finished frames once a chunk of
+// steps, so that the host copies them out while it runs (progress.cuh).
+// The TPU kernel's (8, 128) padding, DMA double-buffering and VMEM gates
+// are not carried over. The host admits a grid while the first design's
+// working set (ops/fused_diffusion.py shared_memory_bytes) fits the 227 KB
+// a block can opt into; every admitted grid has a plan of the cells
+// layout.
 //
 // Built with -fmad=false so that every multiply and add rounds as the
 // plain PyTorch version's separate operations do.
@@ -69,6 +72,8 @@
 #include <stddef.h>
 #include <algorithm>
 #include <stdint.h>
+
+#include "progress.cuh"
 
 // The step split (tools/k1_step_split.py builds this source with
 // -DK1_STEP_SPLIT): every warp of block 0 adds the clock64() cycles it
@@ -164,13 +169,16 @@ struct Params {
   float two_dx1;
   float velocity0;
   float velocity1;
+  // a published trajectory's chunk of frames less one (progress.cuh)
+  int chunk_mask;
 };
 
 // y0 and out are (B, H, W) and (B, n_steps, H, W) or (B, H, W); the
 // constraint tensors as ops/fused_diffusion.py _constraint_tensors makes
 // them: the Dirichlet mask and values (H x W), the ghost rows (2 x W,
 // lower then upper face of axis 0) and ghost columns (2 x H, lower then
-// upper face of axis 1), each a byte mask and float values.
+// upper face of axis 1), each a byte mask and float values; the word a
+// trajectory of one state publishes its finished frames to, or null.
 struct Inputs {
   const float* y0;
   float* out;
@@ -180,6 +188,7 @@ struct Inputs {
   const float* grv;
   const uint8_t* gcm;
   const float* gcv;
+  int* progress;
 };
 
 // The face term of one cell along one axis: whether the cell lies on a
@@ -486,6 +495,10 @@ __global__ void __launch_bounds__(kMaxThreads)
         b_to_a, s, acc, own, bits, p, frame, clock);
     __syncthreads();
     clock.mark(kSplitBarriers, 0.0f);
+    if (WRITE_TRAJECTORY && in.progress != nullptr && tid == 0) {
+      frame_progress::publish_frames(in.progress, p.chunk_mask, step,
+                                     p.n_steps);
+    }
   }
   if (!WRITE_TRAJECTORY) {
     // the state's address, worked out here rather than held across the
@@ -621,6 +634,11 @@ __global__ void __launch_bounds__(kMaxThreads)
                                                       lane, p, frame, clock);
     strips_stage<4, HAS_CONVECTION, WRITE_TRAJECTORY>(t, halo_b, halo_a, band,
                                                       lane, p, frame, clock);
+    // the stage ended on the block's barrier
+    if (WRITE_TRAJECTORY && in.progress != nullptr && threadIdx.x == 0) {
+      frame_progress::publish_frames(in.progress, p.chunk_mask, step,
+                                     p.n_steps);
+    }
   }
   if (!WRITE_TRAJECTORY && in_grid) out[b * cells + g] = t.s;
   clock.mark(kSplitLoadStore, 0.0f);
@@ -741,7 +759,10 @@ int fused_diffusion_split_segments() { return kSplitSegments; }
 // the launch (0 on success), and cudaErrorInvalidValue without launching
 // for a plan that does not cover the grid, names an instance that was not
 // built, has more threads than a block holds or does not match its shared
-// bytes; the caller raises on anything but 0.
+// bytes, or publishes where progress.cuh does not admit it; the caller
+// raises on anything but 0. A trajectory of one state with a non-null
+// `progress` stores its count of finished frames there after every
+// `chunk` steps (a power of two) and after the last (progress.cuh).
 int fused_diffusion_rk4(const float* y0, float* out, int batch, int height,
                         int width, int n_steps, int write_trajectory,
                         int has_convection, int layout, int threads,
@@ -753,9 +774,11 @@ int fused_diffusion_rk4(const float* y0, float* out, int batch, int height,
                         float inv_dx0_sqr, float inv_dx1_sqr,
                         float inv_two_dx0, float inv_two_dx1, float two_dx0,
                         float two_dx1, float velocity0, float velocity1,
-                        void* stream) {
+                        int* progress, int chunk, void* stream) {
   const cudaError_t invalid = cudaErrorInvalidValue;
   if (batch <= 0 || n_steps <= 0 || height < 3 || width < 3 ||
+      !frame_progress::publication_valid(progress, chunk, batch,
+                                   write_trajectory) ||
       threads < 32 || threads > kMaxThreads || threads % 32 != 0 ||
       shared_bytes < 0 ||
       static_cast<size_t>(shared_bytes) > kMaxSharedBytes ||
@@ -796,6 +819,7 @@ int fused_diffusion_rk4(const float* y0, float* out, int batch, int height,
   p.two_dx1 = two_dx1;
   p.velocity0 = velocity0;
   p.velocity1 = velocity1;
+  p.chunk_mask = progress == nullptr ? 0 : chunk - 1;
   Inputs in;
   in.y0 = y0;
   in.out = out;
@@ -805,6 +829,7 @@ int fused_diffusion_rk4(const float* y0, float* out, int batch, int height,
   in.grv = ghost_row_vals;
   in.gcm = ghost_col_mask;
   in.gcv = ghost_col_vals;
+  in.progress = progress;
 
   if (shared_bytes > 48 * 1024) {
     const cudaError_t error = cudaFuncSetAttribute(

@@ -120,9 +120,12 @@
 // A batch of states is the grid: one cluster per state, each with its
 // own sweeps (Parareal's fine ends). The trajectory is stored in the JAX
 // package's (..., steps, H, W, 4) layout, a thread writing its cells' four
-// values as one 16-byte store. The host refuses, without launching, a
-// plan whose threads and cells do not cover a block's cells and a cluster
-// the card cannot place (cudaOccupancyMaxActiveClusters).
+// values as one 16-byte store; a trajectory of one state may publish its
+// count of finished frames after the step-end barrier of every chunk of
+// steps, so that the host copies them out while it runs (progress.cuh).
+// The host refuses, without launching, a plan whose threads and cells do
+// not cover a block's cells and a cluster the card cannot place
+// (cudaOccupancyMaxActiveClusters).
 //
 // What bounds it now (tools/ns_sweep_split.py, the example's plan of 8
 // blocks x 544 threads x 3 cells and groups of 4, NVIDIA H100 80GB HBM3):
@@ -144,6 +147,7 @@
 
 #include <algorithm>
 
+#include "progress.cuh"
 #include "system_2d.cuh"
 
 namespace cg = cooperative_groups;
@@ -293,6 +297,10 @@ struct Args {
   float denominator;
   double tol;
   int max_iterations;
+  // the word a trajectory of one state publishes its finished frames to,
+  // or null, and its chunk of frames less one (progress.cuh)
+  int* progress;
+  int chunk_mask;
 };
 
 // An owned cell's word: its index in a stream-function buffer (from the
@@ -1043,6 +1051,10 @@ __global__ void __launch_bounds__(most_threads(CELLS), 1)
     NS_SPLIT_MARK(8);
     cluster_barrier();
     NS_SPLIT_MARK(9);
+    if (WRITE_TRAJECTORY && a.progress != nullptr && rank == 0 && tid == 0) {
+      frame_progress::publish_frames(a.progress, a.chunk_mask, step,
+                                     a.n_steps);
+    }
   }
   NS_SPLIT_END
   // the loop ends on a cluster barrier: no neighbour reads this block's
@@ -1170,7 +1182,10 @@ int fused_navier_stokes_split_columns() { return kSplitColumns; }
 // cudaErrorInvalidValue for a plan the kernel does not take,
 // cudaErrorCooperativeLaunchTooLarge, without launching, when the card
 // cannot place one such cluster, else the cudaError_t of the launch (0 on
-// success); the caller raises on anything else than 0.
+// success); the caller raises on anything else than 0. A trajectory of one
+// state with a non-null `progress` stores its count of finished frames
+// there after every `chunk` steps (a power of two) and after the last
+// (progress.cuh); a launch that progress.cuh does not admit is refused.
 int fused_navier_stokes_rk4(const float* y0, float* out, long long* sweeps,
                             int batch, int height, int width, int n_steps,
                             int write_trajectory, int cluster_size, int slab,
@@ -1182,9 +1197,12 @@ int fused_navier_stokes_rk4(const float* y0, float* out, long long* sweeps,
                             const uint8_t* ghost_col_mask,
                             const float* ghost_col_vals,
                             const float* coefficients, float denominator,
-                            double tol, int max_iterations, void* stream) {
+                            double tol, int max_iterations, int* progress,
+                            int chunk, void* stream) {
   const void* kernel = select_kernel(group, cells, write_trajectory);
   if (kernel == nullptr || batch <= 0 || n_steps <= 0 || height < 3 ||
+      !frame_progress::publication_valid(progress, chunk, batch,
+                                         write_trajectory) ||
       width < 3 ||
       !(cluster_size == 1 || cluster_size == 2 || cluster_size == 4 ||
         cluster_size == 8) ||
@@ -1222,6 +1240,8 @@ int fused_navier_stokes_rk4(const float* y0, float* out, long long* sweeps,
   a.denominator = denominator;
   a.tol = tol;
   a.max_iterations = max_iterations;
+  a.progress = progress;
+  a.chunk_mask = progress == nullptr ? 0 : chunk - 1;
 
   cudaError_t error = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

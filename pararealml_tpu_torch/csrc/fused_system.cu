@@ -210,6 +210,8 @@ int fused_system_rk4(int equation, int polar, const float* y0, void* out,
   a.inv_r = inv_r;
   a.cluster_size = cluster_size;
   a.slab_rows = slab_rows;
+  a.progress = nullptr;
+  a.chunk_mask = 0;
   void* args[] = {&a};
 
   cudaLaunchAttribute attribute[1];

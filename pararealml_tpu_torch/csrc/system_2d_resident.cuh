@@ -16,6 +16,7 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "progress.cuh"
 #include "state_io.cuh"
 #include "system_2d.cuh"
 
@@ -64,7 +65,10 @@ constexpr int kMaxThreads = 1024;
 // (n, H, W) in device memory, the Neumann face vectors of system_2d.cuh
 // and, on a polar grid, the H values of 1 / r; the blocks of a cluster
 // split the rows as evenly as they divide (block_rows), the first ones a
-// row more: slab_rows, the most a block holds, sizes its planes.
+// row more: slab_rows, the most a block holds, sizes its planes. A
+// trajectory of one state may publish its count of finished frames to
+// `progress` (null: none) once a chunk of chunk_mask + 1 steps and at the
+// last step (progress.cuh).
 struct Args {
   Params p;
   const float* y0;
@@ -80,6 +84,8 @@ struct Args {
   const float* inv_r;
   int cluster_size;
   int slab_rows;
+  int* progress;
+  int chunk_mask;
 };
 
 // One cell a thread owns: its global row and column and its index in the
@@ -450,6 +456,11 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
       K5_SPLIT_MARK(3);
       barrier(cluster_size);
       K5_SPLIT_MARK(4);
+    }
+    // the step ended on the barrier after its frame stores
+    if (WRITE_TRAJECTORY && a.progress != nullptr && rank == 0 && tid == 0) {
+      frame_progress::publish_frames(a.progress, a.chunk_mask, step,
+                                     a.n_steps);
     }
   }
   if constexpr (!WRITE_TRAJECTORY) {

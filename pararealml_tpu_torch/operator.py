@@ -11,7 +11,7 @@ leading tensor axis.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -162,29 +162,149 @@ def discretize_time_domain(
     return np.linspace(t_0, t_0 + steps * d_t, steps + 1)
 
 
+# the most float64 bytes of frames that cross to the host as one piece
+# while their kernel still runs (PERF.md, section 6, measured on the card)
+CHUNK_BYTES = 8 << 20
+
+
+def trajectory_chunks(frame_bytes: int, steps: int) -> List[Tuple[int, int]]:
+    """The pieces ``[start, end)`` in which a trajectory of ``steps``
+    frames of ``frame_bytes`` float64 bytes each crosses to the host:
+    pieces of the most frames, a power of two, whose bytes stay within
+    :data:`CHUNK_BYTES`, in order, the last ending at ``steps``; one piece
+    for a trajectory of fewer than two such pieces."""
+    frames = 1
+    while 2 * frames * frame_bytes <= CHUNK_BYTES:
+        frames *= 2
+    if frame_bytes > CHUNK_BYTES or steps < 2 * frames:
+        return [(0, steps)]
+    return [
+        (start, min(start + frames, steps))
+        for start in range(0, steps, frames)
+    ]
+
+
+class FrameProgress:
+    """How far a trajectory kernel of one state on the card has got: the
+    int32 device word of ``drain`` that it stores its count of finished
+    frames to at the end of each of ``chunks`` (:func:`trajectory_chunks`),
+    every ``chunk`` frames and at its last step (``csrc/progress.cuh``).
+    :meth:`FrameDrain.progress` makes one; the trajectory functions
+    tagged ``publishes`` take it as ``progress=``, and
+    :func:`materialize_solution` copies each piece out as it is done."""
+
+    def __init__(self, drain: "FrameDrain", chunks: List[Tuple[int, int]]):
+        self.drain = drain
+        self.chunks = chunks
+
+    @property
+    def word(self) -> torch.Tensor:
+        return self.drain.word
+
+    @property
+    def chunk(self) -> int:
+        """The frames of every piece but the last."""
+        return self.chunks[0][1]
+
+    def launch_arguments(self, states: int) -> Tuple[int, int]:
+        """The ``progress`` and ``chunk`` arguments of a kernel launch of
+        ``states`` states; raises ValueError for more than one state:
+        only a trajectory of one state publishes."""
+        if states != 1:
+            raise ValueError(
+                f"a trajectory of {states} states publishes no progress"
+            )
+        return self.word.data_ptr(), self.chunk
+
+    def publish_all(self, states: int, steps: int):
+        """What a kernel's plain version publishes: all ``steps`` frames,
+        once it has returned them."""
+        self.launch_arguments(states)
+        self.word.fill_(steps)
+
+
+class FrameDrain:
+    """What a trajectory needs on one card to cross to the host while its
+    kernel runs: the progress word the kernel publishes to, the side
+    stream that copies, the event after the word's reset, and a ring of
+    two float64 slots of a piece each. An operator keeps one for the
+    solves it runs one after another."""
+
+    def __init__(self, device: torch.device):
+        self.word = torch.zeros(1, dtype=torch.int32, device=device)
+        self.stream = torch.cuda.Stream(device)
+        self.reset = torch.cuda.Event()
+        self.ring = torch.empty(0, dtype=torch.float64, device=device)
+
+    @staticmethod
+    def usable(device: torch.device) -> bool:
+        """Whether ``device`` is a card whose streams can wait on a word."""
+        from pararealml_tpu_torch.ops.cuda_library import stream_waits_usable
+
+        if device.type != "cuda":
+            return False
+        if device.index is None:
+            return stream_waits_usable(torch.cuda.current_device())
+        return stream_waits_usable(device.index)
+
+    def progress(
+        self, frame_bytes: int, steps: int
+    ) -> Optional[FrameProgress]:
+        """A :class:`FrameProgress` for the next trajectory kernel
+        launched on the card's current stream, whose ``steps`` frames
+        widen to ``frame_bytes`` float64 bytes each, with the word reset
+        to 0 on that stream; or None for a trajectory of one piece."""
+        chunks = trajectory_chunks(frame_bytes, steps)
+        if len(chunks) < 2:
+            return None
+        device = self.word.device
+        with torch.cuda.device(device):
+            self.word.zero_()
+            self.reset.record(torch.cuda.current_stream(device))
+        return FrameProgress(self, chunks)
+
+    def ring_slots(self, values: int) -> torch.Tensor:
+        """The ring as two slots of ``values`` float64 values each,
+        grown on the side stream, which alone uses it."""
+        if self.ring.numel() < 2 * values:
+            with torch.cuda.stream(self.stream):
+                self.ring = torch.empty(
+                    2 * values, dtype=torch.float64, device=self.word.device
+                )
+        return self.ring[: 2 * values].view(2, values)
+
+
 def materialize_solution(
     ivp: InitialValueProblem,
     t_coordinates: np.ndarray,
     ys: torch.Tensor,
     vertex_oriented: Optional[bool],
     d_t: float,
+    progress: Optional[FrameProgress] = None,
 ) -> Solution:
     """The :class:`Solution` of a trajectory: ``ys`` in float64 on the
     host (span ``solve.to_host``), then the ``Solution`` built from it
     (span ``solution.build``).
 
-    A trajectory on the card is widened there and crosses to the host
-    once, into page-locked memory from torch's caching host allocator
-    (count ``to_host_pinned``), which the ``Solution`` adopts as its own
-    array: the block returns to the allocator's cache when the
-    ``Solution`` is freed. Where the host cannot lock more memory, the
-    trajectory lands in a new pageable array, adopted the same way. A
-    trajectory on the CPU may be the operator's own tensor, so the
-    ``Solution`` copies it."""
+    A trajectory on the card crosses to the host into page-locked memory
+    from torch's caching host allocator (count ``to_host_pinned``), which
+    the ``Solution`` adopts as its own array: the block returns to the
+    allocator's cache when the ``Solution`` is freed. With the
+    ``progress`` of the kernel that is still computing ``ys``, each of its
+    pieces is widened on a side stream into a ring of two slots and
+    copied out as soon as the kernel publishes it, so that only the last
+    piece is left once the kernel ends (count ``to_host_chunks``, the
+    pieces); without it the whole trajectory is widened on the card and
+    copied once. Where the host cannot lock more memory, the trajectory
+    lands in a new pageable array, adopted the same way. A trajectory on
+    the CPU may be the operator's own tensor, so the ``Solution`` copies
+    it."""
     with tracing.span("solve.to_host", bytes=ys.numel() * 8):
         on_host = ys.device.type == "cpu"
-        wide = ys.to(torch.float64)
-        host = wide.numpy() if on_host else _page_locked_copy(wide)
+        if on_host:
+            host = ys.to(torch.float64).numpy()
+        else:
+            host = _page_locked_copy(ys, progress)
     with tracing.span("solution.build"):
         build = Solution if on_host else Solution._adopt
         return build(
@@ -196,14 +316,50 @@ def materialize_solution(
         )
 
 
-def _page_locked_copy(wide: torch.Tensor) -> np.ndarray:
-    """A new host copy of the device tensor ``wide``, in page-locked
+def _page_locked_copy(
+    ys: torch.Tensor, progress: Optional[FrameProgress]
+) -> np.ndarray:
+    """A new float64 host copy of the device tensor ``ys``, in page-locked
     memory where the host can lock it and in pageable memory otherwise;
-    complete when this returns."""
+    complete when this returns. With ``progress``, piece by piece while
+    the kernel runs."""
     try:
-        host = torch.empty(wide.shape, dtype=wide.dtype, pin_memory=True)
+        host = torch.empty(ys.shape, dtype=torch.float64, pin_memory=True)
     except RuntimeError:
-        return wide.cpu().numpy()
-    host.copy_(wide)
+        return ys.to(torch.float64).cpu().numpy()
+    if progress is None or not ys.is_contiguous():
+        host.copy_(ys.to(torch.float64))
+    else:
+        _drain(ys, host, progress)
+        tracing.count("to_host_chunks", len(progress.chunks))
     tracing.count("to_host_pinned", 1)
     return host.numpy()
+
+
+def _drain(ys: torch.Tensor, host: torch.Tensor, progress: FrameProgress):
+    """Copies the frames of ``ys`` (time first) into the page-locked
+    ``host`` piece by piece on the card's side stream: each piece waits
+    for the kernel to publish it, is widened into a ring slot and copied
+    out; one stream orders each widening after the copy that last used
+    its slot. Complete when this returns."""
+    from pararealml_tpu_torch.ops.cuda_library import wait_at_least
+
+    if progress.chunks[-1][1] != ys.shape[0]:
+        raise ValueError(
+            f"a plan of {progress.chunks[-1][1]} frames for a trajectory "
+            f"of {ys.shape[0]}"
+        )
+    drain = progress.drain
+    frames = ys.reshape(ys.shape[0], -1)
+    pieces = host.view(frames.shape)
+    slots = drain.ring_slots(progress.chunk * frames.shape[1])
+    stream = drain.stream
+    # after the word's reset: the previous solve's count is gone
+    stream.wait_event(drain.reset)
+    with torch.cuda.stream(stream):
+        for k, (start, end) in enumerate(progress.chunks):
+            wait_at_least(stream, drain.word, end)
+            slot = slots[k % 2].view(-1, frames.shape[1])[: end - start]
+            slot.copy_(frames[start:end])
+            pieces[start:end].copy_(slot, non_blocking=True)
+    stream.synchronize()

@@ -61,6 +61,8 @@ from pararealml_tpu_torch.constraint import (
 from pararealml_tpu_torch.differential_equation import LHS
 from pararealml_tpu_torch.initial_value_problem import InitialValueProblem
 from pararealml_tpu_torch.operator import (
+    FrameDrain,
+    FrameProgress,
     TorchOperator,
     discretize_time_domain,
     materialize_solution,
@@ -181,6 +183,7 @@ class FDMOperator(TorchOperator):
         self._kernel_traj_dtype = kernel_traj_dtype
         self._kernel_temporal_block = int(kernel_temporal_block)
         self._compiled_cache = {}
+        self._frame_drain = None
 
     def solve(
         self, ivp: InitialValueProblem, parallel_enabled: bool = True
@@ -215,11 +218,39 @@ class FDMOperator(TorchOperator):
                 )
                 self._compiled_cache[cache_key] = entry
 
-            with tracing.span("solve.trajectory"):
-                ys = entry[1](y_0, float(t[0]))
-            return materialize_solution(
-                ivp, t[1:], ys, vertex_oriented=True, d_t=self._d_t
+            trajectory = entry[1]
+            progress = (
+                self._frame_progress(y_0, steps)
+                if getattr(trajectory, "publishes", False)
+                else None
             )
+            with tracing.span("solve.trajectory"):
+                if progress is None:
+                    ys = trajectory(y_0, float(t[0]))
+                else:
+                    ys = trajectory(y_0, float(t[0]), progress=progress)
+            return materialize_solution(
+                ivp,
+                t[1:],
+                ys,
+                vertex_oriented=True,
+                d_t=self._d_t,
+                progress=progress,
+            )
+
+    def _frame_progress(
+        self, y_0: torch.Tensor, steps: int
+    ) -> Optional[FrameProgress]:
+        """The progress that a kernel which publishes its finished frames
+        takes, so that the trajectory from ``y_0`` crosses to the host
+        while the kernel runs, on this operator's :class:`FrameDrain`; or
+        None where it crosses whole: off the card, on a card whose streams
+        cannot wait on a word, or in one piece."""
+        if self._frame_drain is None:
+            if not FrameDrain.usable(y_0.device):
+                return None
+            self._frame_drain = FrameDrain(y_0.device)
+        return self._frame_drain.progress(y_0.numel() * 8, steps)
 
     def trajectory_function(
         self,
@@ -496,14 +527,18 @@ class FDMOperator(TorchOperator):
             # once) per leading index
             vmappable, batched = not end, end and batch is not None
 
-        def fused(y_init, t_start=None):
+        def fused(y_init, t_start=None, progress=None):
             # the fused families are autonomous with static constraints,
             # so the start time is irrelevant
-            return kernel(y_init)
+            if progress is None:
+                return kernel(y_init)
+            return kernel(y_init, progress=progress)
 
         fused.vmappable = vmappable
         fused.fused = True
         fused.batched = batched
+        # a trajectory kernel of one state that takes a FrameProgress
+        fused.publishes = getattr(kernel, "publishes", False)
         return fused
 
     # -- step construction -------------------------------------------------

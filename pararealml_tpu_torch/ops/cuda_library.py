@@ -125,3 +125,71 @@ def load_library(name: str) -> ctypes.CDLL:
     library = ctypes.CDLL(_library_path(name))
     _LIBRARIES[name] = library
     return library
+
+
+# -- stream waits on a device word (the CUDA driver API) ----------------------
+
+# CU_DEVICE_ATTRIBUTE_CAN_USE_64_BIT_STREAM_MEM_OPS: the attribute of the
+# driver's stream memory operations (the v2 family, CUDA 12) that the card
+# reports; the 32-bit wait needs no attribute of its own there
+_STREAM_MEM_OPS_ATTRIBUTE = 122
+# CU_STREAM_WAIT_VALUE_GEQ: wait until (int32_t)(*address - value) >= 0
+_WAIT_VALUE_GEQ = 0
+_DRIVER: Dict[str, ctypes.CDLL] = {}
+_STREAM_WAITS: Dict[int, bool] = {}
+
+
+def _driver() -> ctypes.CDLL:
+    driver = _DRIVER.get("cuda")
+    if driver is None:
+        driver = ctypes.CDLL("libcuda.so.1")
+        driver.cuStreamWaitValue32_v2.argtypes = [
+            ctypes.c_void_p,
+            ctypes.c_uint64,
+            ctypes.c_uint32,
+            ctypes.c_uint,
+        ]
+        driver.cuStreamWaitValue32_v2.restype = ctypes.c_int
+        _DRIVER["cuda"] = driver
+    return driver
+
+
+def stream_waits_usable(device_index: int) -> bool:
+    """Whether a stream on card ``device_index`` can wait on a device word
+    (:func:`wait_at_least`): the driver is CUDA 12 or later, exports the
+    wait and reports its stream memory operations usable on the card.
+    False wherever the driver cannot be asked."""
+    usable = _STREAM_WAITS.get(device_index)
+    if usable is None:
+        usable = False
+        try:
+            driver = _driver()
+            version, device, value = (ctypes.c_int() for _ in range(3))
+            usable = (
+                driver.cuDriverGetVersion(ctypes.byref(version)) == 0
+                and version.value >= 12000
+                and driver.cuDeviceGet(ctypes.byref(device), device_index)
+                == 0
+                and driver.cuDeviceGetAttribute(
+                    ctypes.byref(value), _STREAM_MEM_OPS_ATTRIBUTE, device
+                )
+                == 0
+                and value.value == 1
+            )
+        except (OSError, AttributeError):
+            usable = False
+        _STREAM_WAITS[device_index] = usable
+    return usable
+
+
+def wait_at_least(stream, word, value: int) -> None:
+    """Makes the work enqueued on ``stream`` (a ``torch.cuda.Stream``)
+    after this call wait until the int32 device word ``word`` (a CUDA
+    tensor) is at least ``value``. The wait takes no multiprocessor; the
+    caller must make sure that work already enqueued elsewhere sets the
+    word, or the stream waits for ever."""
+    error = _driver().cuStreamWaitValue32_v2(
+        stream.cuda_stream, word.data_ptr(), value, _WAIT_VALUE_GEQ
+    )
+    if error != 0:
+        raise RuntimeError(f"cuStreamWaitValue32 failed ({error})")

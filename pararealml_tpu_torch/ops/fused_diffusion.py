@@ -658,7 +658,7 @@ def _configure(library: ctypes.CDLL):
         + [c_int] * 10
         + [c_void_p] * 6
         + [c_float] * 10
-        + [c_void_p]
+        + [c_void_p, c_int, c_void_p]
     )
     library.fused_diffusion_rk4.restype = c_int
     library.fused_diffusion_error_string.argtypes = [c_int]
@@ -729,13 +729,18 @@ def _launch(
     n_steps: int,
     write_trajectory: bool,
     plan: Optional[K1Plan] = None,
+    progress=None,
 ):
     """Launches the kernel on ``y``'s device and its current stream for a
     contiguous ``(B, H, W)`` float32 CUDA state on ``plan`` (by default
     the config's plan for the batch; a given plan the wrapper has checked
     to cover the grid) and raises if the launch is refused: the CUDA side
     checks the plan again and refuses one it cannot place before any
-    launch."""
+    launch. A trajectory of one state publishes its finished frames to
+    ``progress`` (an ``operator.FrameProgress``) where one is given."""
+    word, chunk = None, 0
+    if progress is not None:
+        word, chunk = progress.launch_arguments(y.shape[0])
     if plan is None:
         plan = cfg.plan(y.shape[0])
     if plan is None:
@@ -774,6 +779,8 @@ def _launch(
             cfg.two_dx1,
             cfg.velocity[0],
             cfg.velocity[1],
+            word,
+            chunk,
             stream,
         )
     if error != 0:
@@ -806,23 +813,29 @@ def fused_diffusion_rk4_trajectory(
     cfg: _KernelConfig,
     n_steps: int,
     plan: Optional[K1Plan] = None,
+    progress=None,
 ) -> torch.Tensor:
     """K1: ``n_steps`` fused RK4 steps storing every step,
     ``(H, W) -> (n_steps, H, W)`` or ``(B, H, W) -> (B, n_steps, H, W)``
-    (one CTA per state, on ``plan`` or the config's)."""
+    (one CTA per state, on ``plan`` or the config's). A trajectory of one
+    state publishes its finished frames to ``progress`` (an
+    ``operator.FrameProgress``) while the kernel runs; the plain version
+    publishes them all when it returns."""
     cfg.check_state(y)
     _check_plan(cfg, plan)
+    batch = y.reshape(-1, cfg.height, cfg.width)
     if y.device.type == "cpu":
         out = fused_diffusion_rk4_trajectory_reference(y, cfg, n_steps)
         _count_steps(y, cfg, n_steps)
+        if progress is not None:
+            progress.publish_all(batch.shape[0], n_steps)
         return out
-    batch = y.reshape(-1, cfg.height, cfg.width)
     out = torch.empty(
         (batch.shape[0], n_steps, cfg.height, cfg.width),
         dtype=torch.float32,
         device=y.device,
     )
-    _launch(batch, out, cfg, n_steps, True, plan)
+    _launch(batch, out, cfg, n_steps, True, plan, progress)
     fused_diffusion_rk4_trajectory.launches += 1
     _count_steps(y, cfg, n_steps)
     return out if y.ndim == 3 else out[0]
@@ -910,9 +923,11 @@ def build_fused_diffusion_rk4_trajectory(
     steps: ``(..., H, W, 1) -> (..., n_steps, H, W, 1)``.
 
     A grid that fits one CTA's shared memory runs K1, one CTA per
-    leading index. A larger grid runs the resident kernel (K7) where its
-    plan exists (Dirichlet constraints inside the grid included), else
-    the tiled kernel (K6), one launch sequence per leading index.
+    leading index; its function, tagged ``publishes``, also takes the
+    ``progress=`` of one state (``operator.FrameProgress``). A larger
+    grid runs the resident kernel (K7) where its plan exists (Dirichlet
+    constraints inside the grid included), else the tiled kernel (K6),
+    one launch sequence per leading index.
 
     ``storage_dtype`` selects the precision of the stored trajectory and,
     on the tiled path, of the carried state; ``traj_dtype`` and
@@ -952,11 +967,14 @@ def build_fused_diffusion_rk4_trajectory(
         )
     cfg = _KernelConfig(cp, d_t, diffusion_coefficient)
 
-    def trajectory(y: torch.Tensor) -> torch.Tensor:
+    def trajectory(y: torch.Tensor, progress=None) -> torch.Tensor:
         lead, grids = _grids(y, cfg)
-        out = fused_diffusion_rk4_trajectory(grids, cfg, n_steps)
+        publishing = {} if progress is None else {"progress": progress}
+        out = fused_diffusion_rk4_trajectory(grids, cfg, n_steps, **publishing)
         return out.reshape(lead + (n_steps, cfg.height, cfg.width, 1))
 
+    # K1 publishes the finished frames of one state to ``progress``
+    trajectory.publishes = True
     return trajectory
 
 

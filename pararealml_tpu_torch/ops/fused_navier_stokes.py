@@ -556,6 +556,8 @@ def _configure(library: ctypes.CDLL):
             ctypes.c_double,
             c_int,
             c_void_p,
+            c_int,
+            c_void_p,
         ]
     )
     library.fused_navier_stokes_rk4.restype = c_int
@@ -639,14 +641,19 @@ def launch(
     write_trajectory: bool,
     cluster_size: Optional[int] = None,
     plan: Optional[ClusterPlan2D] = None,
+    progress=None,
 ):
     """Launches the kernel on ``y``'s device and its current stream for a
     contiguous ``(B, H, W, 4)`` float32 CUDA state (one cluster per state)
     and raises if the kernel's host code refuses the launch: a cluster the
     card cannot place, among them one whose slabs overflow a block's
     shared memory. ``sweeps`` ((B,) int64) receives each state's Jacobi
-    sweeps."""
+    sweeps. A trajectory of one state publishes its finished frames to
+    ``progress`` (an ``operator.FrameProgress``) where one is given."""
     plan = _plan(cfg, y.shape[0], cluster_size, plan)
+    word, chunk = None, 0
+    if progress is not None:
+        word, chunk = progress.launch_arguments(y.shape[0])
     if any(t.data_ptr() % 16 for t in (y, out)):
         raise ValueError("the state and output must be 16-byte aligned")
     library = load_kernels()
@@ -678,6 +685,8 @@ def launch(
             cfg.denominator,
             cfg.tol,
             cfg.max_iterations,
+            word,
+            chunk,
             stream,
         )
     if error != 0:
@@ -691,9 +700,19 @@ def launch(
         )
 
 
-def _run(wrapper, y, cfg, n_steps, write_trajectory, cluster_size, plan):
-    """Launches the kernel over ``y``'s states into a new output, counts
-    the launch on ``wrapper`` and keeps the sweeps there."""
+def _run(
+    wrapper,
+    y,
+    cfg,
+    n_steps,
+    write_trajectory,
+    cluster_size,
+    plan,
+    progress=None,
+):
+    """Launches the kernel over ``y``'s states into a new output (a
+    trajectory publishing to ``progress`` where one is given), counts the
+    launch on ``wrapper`` and keeps the sweeps there."""
     batch = y.reshape((-1,) + cfg.state_shape)
     if write_trajectory:
         out = torch.empty(
@@ -707,8 +726,15 @@ def _run(wrapper, y, cfg, n_steps, write_trajectory, cluster_size, plan):
         batch.shape[0], dtype=torch.int64, device=batch.device
     )
     launch(
-        batch, out, sweeps, cfg, n_steps, write_trajectory, cluster_size,
+        batch,
+        out,
+        sweeps,
+        cfg,
+        n_steps,
+        write_trajectory,
+        cluster_size,
         plan,
+        progress,
     )
     wrapper.launches += 1
     wrapper.sweeps = sweeps.reshape(tuple(y.shape[:-3]))
@@ -722,11 +748,15 @@ def fused_navier_stokes_rk4_trajectory(
     n_steps: int,
     cluster_size: Optional[int] = None,
     plan: Optional[ClusterPlan2D] = None,
+    progress=None,
 ) -> torch.Tensor:
     """The trajectory: ``n_steps`` fused steps storing every step, ``(H, W,
     4) -> (n_steps, H, W, 4)`` or ``(B, H, W, 4) -> (B, n_steps, H, W,
     4)`` (one cluster per state). ``cluster_size`` or ``plan`` overrides
-    the measured plan (to exercise other splits and groups)."""
+    the measured plan (to exercise other splits and groups). A trajectory
+    of one state publishes its finished frames to ``progress`` (an
+    ``operator.FrameProgress``) while the kernel runs; the plain version
+    publishes them all when it returns."""
     wrapper = fused_navier_stokes_rk4_trajectory
     cfg.check_state(y)
     if y.device.type == "cpu":
@@ -734,8 +764,12 @@ def fused_navier_stokes_rk4_trajectory(
             y, cfg, n_steps
         )
         _count_steps(y, cfg, n_steps)
+        if progress is not None:
+            progress.publish_all(1 if y.ndim == 3 else y.shape[0], n_steps)
         return out
-    out = _run(wrapper, y, cfg, n_steps, True, cluster_size, plan)
+    out = _run(
+        wrapper, y, cfg, n_steps, True, cluster_size, plan, progress
+    )
     return out if y.ndim == 4 else out[0]
 
 
@@ -802,17 +836,24 @@ def build_fused_navier_stokes_rk4_trajectory(
 ):
     """Builds ``trajectory(y) -> ys`` computing ``n_steps`` fused steps,
     ``(..., H, W, 4) -> (..., n_steps, H, W, 4)``, one cluster per leading
-    index. Raises ValueError for other problems than Navier-Stokes on a
-    Cartesian mesh."""
+    index; the function, tagged ``publishes``, also takes the
+    ``progress=`` of one state (``operator.FrameProgress``). Raises
+    ValueError for other problems than Navier-Stokes on a Cartesian
+    mesh."""
     cfg = _NavierStokesConfig(
         cp, d_t, anti_laplacian_tol, anti_laplacian_max_iterations
     )
 
-    def trajectory(y: torch.Tensor) -> torch.Tensor:
+    def trajectory(y: torch.Tensor, progress=None) -> torch.Tensor:
         lead, batch = states(y, cfg)
-        out = fused_navier_stokes_rk4_trajectory(batch, cfg, n_steps)
+        publishing = {} if progress is None else {"progress": progress}
+        out = fused_navier_stokes_rk4_trajectory(
+            batch, cfg, n_steps, **publishing
+        )
         return out.reshape(lead + (n_steps,) + cfg.state_shape)
 
+    # the kernel publishes the finished frames of one state to ``progress``
+    trajectory.publishes = True
     return trajectory
 
 

@@ -1322,7 +1322,7 @@ def _configure_cluster(library: ctypes.CDLL):
         [c_int, c_int, c_void_p, c_void_p]
         + [c_int] * 8
         + [c_void_p] * 7
-        + [ctypes.POINTER(ctypes.c_float), c_void_p]
+        + [ctypes.POINTER(ctypes.c_float), c_void_p, c_int, c_void_p]
     )
     library.cluster_system_rk4.restype = c_int
     library.cluster_system_max_active_clusters.argtypes = [c_int] * 7 + [
@@ -1428,6 +1428,7 @@ def launch_cluster(
     n_steps: int,
     write_trajectory: bool,
     plan: Optional[ClusterPlan] = None,
+    progress=None,
 ) -> ClusterPlan:
     """Launches the cluster-resident mode on ``y``'s device and its
     current stream for a contiguous ``(B, H, W, n)`` float32 CUDA state,
@@ -1435,7 +1436,12 @@ def launch_cluster(
     for the batch when None), and raises if the launch is refused (a
     cluster the card cannot place is refused before it starts). A
     trajectory's frames are stored in ``out``'s dtype, float32 or
-    bfloat16. Returns the plan."""
+    bfloat16; a trajectory of one state publishes them to ``progress``
+    (an ``operator.FrameProgress``) where one is given. Returns the
+    plan."""
+    word, chunk = None, 0
+    if progress is not None:
+        word, chunk = progress.launch_arguments(y.shape[0])
     frame_bfloat16 = out.dtype == torch.bfloat16
     if out.dtype not in (torch.float32, torch.bfloat16) or (
         frame_bfloat16 and not write_trajectory
@@ -1470,6 +1476,8 @@ def launch_cluster(
             *(c.data_ptr() for c in constants[:6]),
             inv_r,
             cfg.coefficient_array(),
+            word,
+            chunk,
             stream,
         )
     _raise_cluster_error(library, error, plan)
@@ -1494,6 +1502,7 @@ def cluster_system_rk4_trajectory(
     n_steps: int,
     frame_dtype: torch.dtype = torch.float32,
     plan: Optional[ClusterPlan] = None,
+    progress=None,
 ) -> torch.Tensor:
     """The cluster-resident mode's trajectory: ``n_steps`` RK4 steps in
     one launch, one cluster a state, storing every step, ``(H, W, n) ->
@@ -1501,7 +1510,10 @@ def cluster_system_rk4_trajectory(
     the frames in ``frame_dtype`` (float32, or bfloat16 rounded over the
     float32 state carried). ``plan`` overrides the cluster plan (to
     exercise other cluster sizes); a grid past the mode's range, or a
-    plan that does not fit, raises on any device before any launch."""
+    plan that does not fit, raises on any device before any launch. A
+    trajectory of one state publishes its finished frames to
+    ``progress`` (an ``operator.FrameProgress``) while the kernel runs;
+    the plain version publishes them all when it returns."""
     cfg.check_state(y)
     if frame_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(
@@ -1514,11 +1526,13 @@ def cluster_system_rk4_trajectory(
             y, cfg, n_steps, frame_dtype
         )
         _count_steps(y, cfg, n_steps)
+        if progress is not None:
+            progress.publish_all(batch.shape[0], n_steps)
         return out
     if plan is not None:
         cluster_plan(cfg, batch.shape[0], plan)
     out = trajectory_buffer(batch, cfg, n_steps, frame_dtype)
-    launch_cluster(batch, out, cfg, n_steps, True, plan)
+    launch_cluster(batch, out, cfg, n_steps, True, plan, progress)
     cluster_system_rk4_trajectory.launches += 1
     _count_steps(y, cfg, n_steps)
     return out if y.ndim == 4 else out[0]
@@ -1583,10 +1597,12 @@ def build_fused_system_rk4_trajectory(
     steps, ``(..., H, W, n) -> (..., n_steps, H, W, n)``: through the K5
     trajectory kernel (one CTA per leading index) where the grid fits one
     CTA, through the cluster-resident mode (one cluster per leading
-    index, one launch) where :func:`cluster_system_applicable` admits it,
-    else through the tiled kernel K8 (``build_tiled_system_rk4_trajectory``
-    of :mod:`pararealml_tpu_torch.ops.tiled_system`). A polar grid past
-    the JAX package's VMEM cap raises, as the JAX builder does.
+    index, one launch; its function, tagged ``publishes``, also takes the
+    ``progress=`` of one state, ``operator.FrameProgress``) where
+    :func:`cluster_system_applicable` admits it, else through the tiled
+    kernel K8 (``build_tiled_system_rk4_trajectory`` of
+    :mod:`pararealml_tpu_torch.ops.tiled_system`). A polar grid past the
+    JAX package's VMEM cap raises, as the JAX builder does.
 
     ``storage_dtype`` selects the precision of the stored trajectory and
     of the state carried from step to step, and the trajectory is returned
@@ -1598,8 +1614,8 @@ def build_fused_system_rk4_trajectory(
     Navier-Stokes takes its cluster kernel
     (:mod:`pararealml_tpu_torch.ops.fused_navier_stokes`), whose stream
     function's Jacobi solve stops at ``anti_laplacian_tol`` or after
-    ``anti_laplacian_max_iterations`` sweeps; the other families ignore
-    both."""
+    ``anti_laplacian_max_iterations`` sweeps (its function publishes as
+    the mode's); the other families ignore both."""
     if isinstance(cp.differential_equation, NavierStokesEquation):
         from pararealml_tpu_torch.ops.fused_navier_stokes import (
             build_fused_navier_stokes_rk4_trajectory,
@@ -1631,18 +1647,24 @@ def build_fused_system_rk4_trajectory(
             storage_dtype=None if within_reference_vmem else storage_dtype,
         )
     cfg = _SystemKernelConfig(cp, d_t)
+    if one_block:
 
-    def trajectory(y: torch.Tensor) -> torch.Tensor:
+        def trajectory(y: torch.Tensor) -> torch.Tensor:
+            lead, batch = states(y, cfg)
+            out = fused_system_rk4_trajectory(batch, cfg, n_steps)
+            return out.reshape(lead + (n_steps,) + cfg.state_shape)
+
+        return trajectory
+
+    def mode_trajectory(y: torch.Tensor, progress=None) -> torch.Tensor:
         lead, batch = states(y, cfg)
-        kernel = (
-            fused_system_rk4_trajectory
-            if one_block
-            else cluster_system_rk4_trajectory
-        )
-        out = kernel(batch, cfg, n_steps)
+        publishing = {} if progress is None else {"progress": progress}
+        out = cluster_system_rk4_trajectory(batch, cfg, n_steps, **publishing)
         return out.reshape(lead + (n_steps,) + cfg.state_shape)
 
-    return trajectory
+    # the mode publishes the finished frames of one state to ``progress``
+    mode_trajectory.publishes = True
+    return mode_trajectory
 
 
 def build_fused_system_rk4_end(

@@ -5,16 +5,17 @@ The tests here are marked ``cuda`` and skip where
 ``torch.cuda.is_available()`` is false: they hold each CUDA kernel
 against its plain PyTorch version on the same CUDA tensors, the
 slice's Parareal on the card against the same solve on the CPU, and the
-trajectory's one page-locked copy to the host that a ``Solution``
-adopts. This file imports no JAX, so it runs on a GPU machine without JAX
-or the JAX package (the suite's conftest imports JAX, hence
-``--noconftest``)::
+trajectory's page-locked copy to the host that a ``Solution`` adopts,
+whole or in the pieces a running kernel publishes. This file imports no
+JAX, so it runs on a GPU machine without JAX or the JAX package (the
+suite's conftest imports JAX, hence ``--noconftest``)::
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda.py
 """
 
 import os
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -23,7 +24,11 @@ from torch.profiler import ProfilerActivity, profile
 
 import pararealml_tpu_torch as torch_pkg
 from bench import build_problem
-from pararealml_tpu_torch.operator import materialize_solution
+from pararealml_tpu_torch.operator import (
+    FrameProgress,
+    materialize_solution,
+    trajectory_chunks,
+)
 from pararealml_tpu_torch.operators.fdm import (
     RK4,
     FDMOperator,
@@ -53,7 +58,7 @@ KERNEL_TOL = 1e-5
 # kernels: ptxas's counts; tools/k1_plan_sweep.py prints them; NVIDIA
 # H100 80GB HBM3)
 INSTANCE_REGISTERS = {
-    ("cells", 1, False): (36, 0),
+    ("cells", 1, False): (39, 0),
     ("cells", 1, True): (39, 0),
     ("cells", 2, False): (56, 0),
     ("cells", 2, True): (52, 0),
@@ -70,7 +75,7 @@ INSTANCE_REGISTERS = {
     # instance_attributes and CELLS_INSTANCES)
     ("navier_stokes", 1, 1): (72, 0),
     ("navier_stokes", 1, 3): (96, 0),
-    ("navier_stokes", 1, 10): (107, 0),
+    ("navier_stokes", 1, 10): (113, 0),
     ("navier_stokes", 2, 1): (80, 0),
     ("navier_stokes", 2, 3): (78, 0),
     ("navier_stokes", 2, 10): (118, 0),
@@ -1603,3 +1608,138 @@ def test_cuda_navier_stokes_solve_equals_the_pageable_path(
     assert not (isinstance(base, torch.Tensor) and base.is_pinned())
     assert np.array_equal(_bits(pageable.discrete_y()), _bits(expected))
     assert np.array_equal(_bits(first.discrete_y()), _bits(expected))
+
+
+def _publishing_solves():
+    """The three fused trajectory kernels that publish their frames, each
+    through ``FDMOperator.solve`` at its cell's widths and at least three
+    pieces long: the wave example on the cluster-resident mode (100
+    steps), the Navier-Stokes example (100 steps) and the flagship
+    diffusion on K1 (21 x 21, 5,000 steps), with the wrapper that
+    launches each."""
+    import chip_smoke
+
+    wave, wave_d_t = chip_smoke.wave_example(torch_pkg)
+    cp = navier_stokes_problem(vars(torch_pkg), example=True)
+    vortices = torch_pkg.DiscreteInitialCondition(
+        cp, _navier_stokes_states((101, 81)), True
+    )
+    return {
+        "wave 101^2": (
+            torch_pkg.InitialValueProblem(
+                wave.constrained_problem, (0.0, 1.0), wave.initial_condition
+            ),
+            wave_d_t,
+            fused_system.cluster_system_rk4_trajectory,
+        ),
+        "navier-stokes 101 x 81": (
+            torch_pkg.InitialValueProblem(cp, (0.0, 5.0), vortices),
+            0.05,
+            fused_navier_stokes.fused_navier_stokes_rk4_trajectory,
+        ),
+        "diffusion 21^2": (
+            build_problem(vars(torch_pkg), 5.0, d_x=0.5),
+            1e-3,
+            fused_diffusion.fused_diffusion_rk4_trajectory,
+        ),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "example", ["wave 101^2", "navier-stokes 101 x 81", "diffusion 21^2"]
+)
+def test_cuda_published_pieces_equal_the_one_copy_path(
+    example, cuda_device, monkeypatch
+):
+    """A solve whose kernel publishes its frames crosses to the host in
+    the plan's pieces while the kernel runs (one launch, the progress word
+    at the last step, ``to_host_chunks`` the plan's pieces beside one
+    ``to_host_pinned``), and gives the same float64 trajectory, bit for
+    bit, as the one copy after the kernel and as the pageable fallback,
+    which counts neither."""
+    ivp, d_t, wrapper = _publishing_solves()[example]
+    operator = FDMOperator(
+        RK4(), ThreePointCentralDifferenceMethod(), d_t, dtype=torch.float32
+    )
+    cp = ivp.constrained_problem
+    steps = round(ivp.t_interval[1] / d_t)
+    chunks = trajectory_chunks(int(np.prod(cp.y_shape(True))) * 8, steps)
+    assert len(chunks) >= 3
+    launches = wrapper.launches
+    pieces, counts = _to_host_counts(lambda: operator.solve(ivp))
+    assert wrapper.launches == launches + 1
+    assert counts == [{"to_host_chunks": len(chunks), "to_host_pinned": 1}]
+    assert int(operator._frame_drain.word) == steps
+    expected = pieces.discrete_y()
+    assert expected.shape == (steps,) + tuple(cp.y_shape(True))
+    assert np.isfinite(expected).all()
+
+    monkeypatch.setattr(operator, "_frame_progress", lambda *args: None)
+    whole, counts = _to_host_counts(lambda: operator.solve(ivp))
+    assert counts == [{"to_host_pinned": 1}]
+    assert np.array_equal(_bits(whole.discrete_y()), _bits(expected))
+    monkeypatch.undo()
+
+    empty = torch.empty
+
+    def no_page_locking(*args, pin_memory=False, **kwargs):
+        if pin_memory:
+            raise RuntimeError("the host cannot lock more memory")
+        return empty(*args, **kwargs)
+
+    monkeypatch.setattr(torch, "empty", no_page_locking)
+    pageable, counts = _to_host_counts(lambda: operator.solve(ivp))
+    assert counts == [{}]
+    assert np.array_equal(_bits(pageable.discrete_y()), _bits(expected))
+    assert wrapper.launches == launches + 3
+
+
+@pytest.mark.cuda
+def test_cuda_batches_and_uneven_pieces_publish_nothing(cuda_device):
+    """Only a trajectory of one state publishes, in pieces of a power of
+    two: the wrappers refuse a batch with a progress word, and the kernels
+    refuse an uneven piece, before any launch; a Parareal solve (batched
+    K1 expansion) counts no pieces."""
+    cp = build_problem(vars(torch_pkg), 1.0, d_x=0.5).constrained_problem
+    cfg = fused_diffusion._KernelConfig(cp, 1e-3, None)
+    word = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    drain = SimpleNamespace(word=word)
+    y = torch.ones((2, 21, 21), device=cuda_device)
+    wrapper = fused_diffusion.fused_diffusion_rk4_trajectory
+    launches = wrapper.launches
+    with pytest.raises(ValueError, match="2 states publishes no progress"):
+        wrapper(y, cfg, 8, progress=FrameProgress(drain, [(0, 4), (4, 8)]))
+    uneven = FrameProgress(drain, [(0, 3), (3, 6), (6, 8)])
+    with pytest.raises(RuntimeError, match="launch failed"):
+        wrapper(y[0], cfg, 8, progress=uneven)
+    assert wrapper.launches == launches
+    mode = fused_system._SystemKernelConfig(
+        _cluster_examples()["wave 101^2"], 0.01
+    )
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fused_system.cluster_system_rk4_trajectory(
+            torch.zeros((101, 101, 2), device=cuda_device),
+            mode,
+            8,
+            progress=uneven,
+        )
+    torch.cuda.synchronize()
+    assert int(word) == 0
+
+    ivp = build_problem(vars(torch_pkg), 1.0, d_x=1.0)
+
+    def fdm(d_t):
+        return FDMOperator(
+            RK4(),
+            ThreePointCentralDifferenceMethod(),
+            d_t,
+            linear_propagator=False,
+            dtype=torch.float32,
+        )
+
+    parareal = PararealOperator(
+        fdm(1e-3), fdm(0.25), 2.5e-3, num_time_slices=4
+    )
+    _, counts = _to_host_counts(lambda: parareal.solve(ivp))
+    assert counts == [{"to_host_pinned": 1}]

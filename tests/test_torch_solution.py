@@ -4,8 +4,12 @@ into the ``Solution``, so the operator's tensor and the solution share
 no memory; the public constructor copies its input; ``Solution._adopt``
 takes its array as it is, after the same checks. The card's path (the
 page-locked copy the ``Solution`` adopts) is tested in
-tests/test_torch_cuda.py. A small problem: the flagship diffusion at
-d_x 1.0 (11 x 11), three frames."""
+tests/test_torch_cuda.py; here only its plan of pieces
+(``trajectory_chunks``) and the plain versions' side of the frames a
+kernel publishes. A small problem: the flagship diffusion at d_x 1.0
+(11 x 11), three frames."""
+
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -13,7 +17,15 @@ import torch
 
 import pararealml_tpu_torch as torch_pkg
 from bench import build_problem
-from pararealml_tpu_torch.operator import materialize_solution
+from pararealml_tpu_torch.operator import (
+    CHUNK_BYTES,
+    FrameProgress,
+    materialize_solution,
+    trajectory_chunks,
+)
+from pararealml_tpu_torch.ops.fused_diffusion import (
+    build_fused_diffusion_rk4_trajectory,
+)
 from pararealml_tpu_torch.solution import Solution
 
 D_T = 0.05
@@ -72,3 +84,56 @@ def test_both_ways_in_check_the_shape_and_orientation(ivp, build):
         build(ivp, TIMES[1:], given, vertex_oriented=True, d_t=D_T)
     with pytest.raises(ValueError, match="vertex orientation"):
         build(ivp, TIMES, given, d_t=D_T)
+
+
+# (float64 bytes a frame, frames, pieces): the three FDM cells' solves
+# (wave 101 x 101 x 2, Navier-Stokes 101 x 81 x 4, diffusion 21 x 21),
+# a short solve, exactly two pieces, an uneven end, a frame past the
+# target
+@pytest.mark.parametrize(
+    "frame_bytes, steps, pieces",
+    [
+        (101 * 101 * 2 * 8, 2000, 63),
+        (101 * 81 * 4 * 8, 2000, 63),
+        (21 * 21 * 8, 40000, 20),
+        (101 * 81 * 4 * 8, 20, 1),
+        (CHUNK_BYTES // 8, 16, 2),
+        (21 * 21 * 8, 5000, 3),
+        (CHUNK_BYTES + 8, 10, 1),
+    ],
+)
+def test_trajectory_chunks_cover_every_frame_once(frame_bytes, steps, pieces):
+    chunks = trajectory_chunks(frame_bytes, steps)
+    assert len(chunks) == pieces
+    # every frame once, in order, the last piece ending at the last frame
+    assert chunks[0][0] == 0 and chunks[-1][1] == steps
+    assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
+    assert all(start < end for start, end in chunks)
+    frames = chunks[0][1]
+    if pieces > 1:
+        # equal pieces of a power of two but the last, within the target
+        assert frames & (frames - 1) == 0
+        assert all(end - start == frames for start, end in chunks[:-1])
+        assert frames * frame_bytes <= CHUNK_BYTES
+        assert 2 * frames * frame_bytes > CHUNK_BYTES
+    else:
+        # one piece: under two pieces of the target, or a frame past it
+        largest = 1
+        while 2 * largest * frame_bytes <= CHUNK_BYTES:
+            largest *= 2
+        assert steps < 2 * largest or frame_bytes > CHUNK_BYTES
+
+
+def test_plain_versions_publish_every_frame_of_one_state(ivp):
+    """A kernel's plain version (the CPU) returns every frame at once, so
+    it publishes them all; a batch publishes nothing and raises."""
+    cp = ivp.constrained_problem
+    trajectory = build_fused_diffusion_rk4_trajectory(cp, D_T, STEPS)
+    assert trajectory.publishes
+    word = torch.zeros(1, dtype=torch.int32)
+    progress = FrameProgress(SimpleNamespace(word=word), [(0, 2), (2, STEPS)])
+    y = torch.zeros(tuple(cp.y_shape(True)), dtype=torch.float32)
+    assert trajectory(y, progress=progress).shape == (STEPS,) + y.shape
+    assert int(word) == STEPS
+    with pytest.raises(ValueError, match="2 states publishes no progress"):
+        trajectory(torch.stack([y, y]), progress=progress)

@@ -130,6 +130,14 @@ def test_a_cpu_solve_counts_no_page_locked_copy():
     assert not any("to_host_pinned" in r.counts for r in records)
 
 
+def test_a_cpu_solve_counts_no_chunks():
+    """A CPU solve's trajectory crosses to the host whole: no
+    ``to_host_chunks`` count anywhere in the solve."""
+    ivp = build_problem(vars(torch_pkg), T_END, d_x=1.0)
+    _, _, records = _profiled(lambda: _fdm(FINE_D_T).solve(ivp))
+    assert not any("to_host_chunks" in r.counts for r in records)
+
+
 def test_parareal_solve_gives_one_root_with_the_schedule_inside():
     ivp = build_problem(vars(torch_pkg), T_END, d_x=1.0)
     operator = PararealOperator(

@@ -15,8 +15,10 @@ of the anchor residuals (how much later than its ``bench.solve`` each
 solve's root span opened, after the clocks' offset is taken out), the
 idle time the pieces add up to against ``window_s - busy_s``, each
 span's median duration, the ``to_host_pinned`` count a solve
-(trajectories that reached the host in page-locked memory) and torch's
-page-locked host memory statistics after the window
+(trajectories that reached the host in page-locked memory), the
+``to_host_chunks`` count a solve (the pieces copied out while their
+kernel ran) and torch's page-locked host memory statistics after the
+window
 (``torch.cuda.host_memory_stats()``).
 
 Run it from the repository root; ``results.json`` gets the same object
@@ -150,6 +152,9 @@ def cell(workload: str, seed: int, seconds: float) -> dict:
         },
         "to_host_pinned_a_solve": sum(
             r.counts.get("to_host_pinned", 0) for r in records
+        ) / found.solves,
+        "to_host_chunks_a_solve": sum(
+            r.counts.get("to_host_chunks", 0) for r in records
         ) / found.solves,
     }
     return report
